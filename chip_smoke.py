@@ -1,0 +1,600 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives the port (``src/repro_torch``) through its main path on the card and
+fails (non-zero exit, no result line) on any fault:
+
+  1. builds the range-scorer kernels from ``csrc/range_scorer.cu`` with
+     ``nvcc`` for ``sm_90a`` and prints the build time;
+  2. kernel phase — each kernel against its plain PyTorch version on the
+     card, bitwise, over the CPU tests' cases and main-path shapes;
+  3. preset phase — the benchmark preset (24,000 docs, ``clustered_bp``),
+     200 queries: four engines on the card, int32/int8 impacts ×
+     int32/packed docids, each equal to the plain path (``impl="torch"``)
+     on the card and to the numpy oracle on safe exits (up to ties at the
+     k-th score, as the reference's own tests allow);
+  4. scale phase — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
+     the same parity, then the serving loop of ``launch/serve.py``
+     (Reactive policy, SLA = 25% of the exhaustive P99) with the launch
+     counters reset just before and read just after, then each kernel's
+     time at main-path shapes beside its bound, its plain version and,
+     for the scatter, ``Tensor.index_add_`` (CUDA events around many
+     calls, launch gaps included, and device-only time from
+     ``torch.profiler``), and a profiled serving window that splits a
+     query's time between the device and the host.
+
+Both host index builds are numpy and run in worker processes while the
+card works on the earlier phases. The last two lines of standard output
+are the kernel report and the device line, each one JSON object; the card
+name and power limit as ``nvidia-smi`` reports them come just before. A
+copy of every number goes to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import multiprocessing
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+CU_SOURCE = "src/repro_torch/kernels/range_scorer/csrc/range_scorer.cu"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+CONFIGS = [(dt, fmt) for dt in ("int32", "int8") for fmt in ("int32", "packed")]
+N_QUERIES = 200
+QUERY_SEED = 42
+PRESET = dict(n_docs=24_000, n_terms=12_000, n_topics=24, mean_doc_len=220,
+              n_ranges=32, strategy="clustered_bp")
+SCALE = dict(n_docs=250_000, n_terms=50_000, n_topics=32, mean_doc_len=220,
+             n_ranges=32, strategy="clustered")
+
+
+class SmokeError(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeError(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- host build
+
+
+def build_corpus_index(src: str, cfg: dict, n_queries: int) -> dict:
+    """Worker: corpus, index and query log, returned as numpy arrays."""
+    sys.path.insert(0, src)
+    from repro_torch.core.clustered_index import INDEX_ARRAYS, build_index
+    from repro_torch.data.synth import make_corpus, make_query_log
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(n_docs=cfg["n_docs"], n_terms=cfg["n_terms"],
+                         n_topics=cfg["n_topics"], mean_doc_len=cfg["mean_doc_len"],
+                         seed=0)
+    t1 = time.perf_counter()
+    index = build_index(corpus, n_ranges=cfg["n_ranges"], strategy=cfg["strategy"],
+                        bits=8, seed=0)
+    t2 = time.perf_counter()
+    terms = make_query_log(corpus, n_queries=n_queries, seed=QUERY_SEED).terms
+    arrays = {n: getattr(index, n) for n in INDEX_ARRAYS
+              if n not in ("doc_order", "range_ends")}
+    arrays["doc_order"] = index.arrangement.doc_order
+    arrays["range_ends"] = index.arrangement.range_ends
+    return dict(
+        arrays=arrays,
+        meta=dict(n_docs=index.n_docs, n_terms=index.n_terms,
+                  strategy=index.arrangement.strategy,
+                  quant_bits=index.quantizer.bits, quant_scale=index.quantizer.scale),
+        terms=terms,
+        fingerprint=index.fingerprint(),
+        corpus_s=t1 - t0,
+        index_s=t2 - t1,
+        query_s=time.perf_counter() - t2,
+    )
+
+
+def receive_index(job, label: str):
+    from repro_torch.core.clustered_index import index_from_arrays
+
+    t0 = time.perf_counter()
+    out = job.get()
+    index = index_from_arrays(out["arrays"], **out["meta"])
+    check(index.fingerprint() == out["fingerprint"], f"{label}: fingerprint changed in transfer")
+    queries = [out["terms"][i] for i in range(out["terms"].shape[0])]
+    log(f"{label}: host build corpus {out['corpus_s']:.1f} s, index "
+        f"{out['index_s']:.1f} s (numpy, worker process); waited "
+        f"{time.perf_counter() - t0:.1f} s; {index.n_docs} docs, {index.nnz} "
+        f"postings, {index.n_blocks} blocks, {index.n_ranges} ranges, "
+        f"max range {index.max_range_size} docs")
+    return index, queries, {k: out[k] for k in ("corpus_s", "index_s", "query_s")}
+
+
+# -------------------------------------------------------------- kernel phase
+
+
+class Parity:
+    """Largest |kernel - plain| seen per kernel, over every comparison."""
+
+    def __init__(self):
+        self.max_err = {"scatter_accumulate": 0, "unpack_locals": 0}
+        self.cases = {"scatter_accumulate": 0, "unpack_locals": 0}
+
+    def record(self, name: str, got, want, ctx: str) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {ctx}: {tuple(got.shape)}/{got.dtype} vs "
+              f"{tuple(want.shape)}/{want.dtype}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) \
+            if got.numel() else 0
+        self.max_err[name] = max(self.max_err[name], err)
+        self.cases[name] += 1
+        check(err == 0, f"{name} {ctx}: kernel differs from plain version by {err}")
+
+
+def _packed_pool(rng, n_pool, max_deltas=(0, 1, 200, 255, 300, 70_000)):
+    import numpy as np
+    from repro_torch.core.clustered_index import BLOCK, pack_docs
+
+    blk_len = rng.integers(1, BLOCK + 1, size=n_pool).astype(np.int64)
+    blk_start = np.cumsum(blk_len) - blk_len
+    chunks = []
+    for length in blk_len:
+        md = int(rng.choice(max_deltas))
+        d = np.zeros(int(length), np.int64)
+        if md:
+            d[1:] = rng.integers(0, md + 1, size=int(length) - 1)
+        chunks.append(int(rng.integers(0, 500)) + np.cumsum(d))
+    docs = np.concatenate(chunks).astype(np.int64)
+    return docs, blk_start, blk_len, pack_docs(docs, blk_start, blk_len)
+
+
+def kernel_phase(dev, parity: Parity) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core.clustered_index import BLOCK, pack_dir_entries
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    def t(a, dtype=None):
+        a = np.ascontiguousarray(a if dtype is None else np.asarray(a).astype(dtype))
+        return torch.from_numpy(a).to(dev)
+
+    # Scatter: the CPU tests' shapes plus main-path widths B and s_pad.
+    shapes = [(128, 1), (384, 7), (1024, 32)] + [
+        (s, b) for b in (32, 64, 128) for s in (128, 2_048, 16_384, 32_768)]
+    for s_pad, n_blocks in shapes:
+        rng = np.random.default_rng(s_pad * 1000 + n_blocks)
+        nnz = 200_000
+        docs = np.sort(rng.integers(0, s_pad, size=nnz)).astype(np.int32)
+        imps = rng.integers(1, 256, size=nnz).astype(np.int32)
+        starts = rng.integers(0, nnz - BLOCK, size=n_blocks).astype(np.int32)
+        lens = rng.integers(1, BLOCK + 1, size=n_blocks).astype(np.int32)
+        keep = rng.random(n_blocks) < 0.8
+        for stored in (imps, (imps.astype(np.int64) - 128).astype(np.int8)):
+            local, vals = ref.gather_block_postings(
+                t(docs), t(stored), t(starts), t(lens), t(keep), 5)
+            got = kernel.scatter_accumulate(local, vals, s_pad)
+            parity.record("scatter_accumulate", got,
+                          ref.scatter_accumulate_ref(local, vals, s_pad),
+                          f"s_pad={s_pad} B={n_blocks}")
+    rng = np.random.default_rng(1)
+    ids = rng.integers(-1, 1100, size=3000).astype(np.int32)
+    vals = rng.integers(0, 256, size=3000).astype(np.int32)
+    parity.record("scatter_accumulate", kernel.scatter_accumulate(t(ids), t(vals), 900),
+                  ref.scatter_accumulate_ref(t(ids), t(vals), 900), "out-of-range ids")
+
+    # Decode: every width, pruned and padding rows, main-path widths.
+    for seed, n_pool, n_sel in ((0, 24, 17), (3, 24, 17), (9, 24, 17),
+                                (5, 256, 32), (6, 256, 64), (7, 256, 128)):
+        rng = np.random.default_rng(seed)
+        _, blk_start, blk_len, packed = _packed_pool(rng, n_pool)
+        words = t(np.asarray(packed.words, np.uint32).view(np.int32))
+        sel = rng.integers(0, n_pool, size=n_sel)
+        starts = blk_start[sel].astype(np.int32)
+        starts[-2:] = -1  # engine padding rows
+        cols = [t(starts), t(blk_len[sel], np.int32),
+                t(pack_dir_entries(packed)[sel], np.int32),
+                t(packed.blk_first[sel], np.int32)]
+        for keep in (rng.random(n_sel) < 0.8, np.zeros(n_sel, bool)):
+            for r0 in (0, 37):
+                args = (words, *cols, t(keep),
+                        torch.tensor(r0, dtype=torch.int32, device=dev))
+                parity.record("unpack_locals", kernel.unpack_locals(*args),
+                              ref.unpack_locals_ref(*args),
+                              f"seed={seed} B={n_sel} r0={r0}")
+
+
+# ------------------------------------------------------------- engine phases
+
+
+def observe(engine, plan, budget=None) -> tuple:
+    kw = {} if budget is None else {"budget_postings": int(budget)}
+    res = engine.traverse(plan, **kw)
+    ids, vals = engine.topk_docs(res.state)
+    return (ids.tolist(), vals.tolist(), int(res.state.postings),
+            int(res.state.blocks), int(res.ranges_processed),
+            bool(res.exit_safe), bool(res.exit_budget))
+
+
+def rank_safe(ids, vals, oracle_topk, scores) -> bool:
+    """A safe exit's top-k against the oracle's, up to ties at the k-th score.
+
+    Safe termination and block pruning stop at bounds <= θ, so a document
+    tying the k-th score may lose its place to one with a larger docid
+    (the reference's own tests compare score multisets for this reason).
+    Scores must match exactly, the documents above the k-th score must
+    match in order, and every document at the k-th score must truly have it.
+    """
+    oids, ovals = (x.tolist() for x in oracle_topk)
+    if vals != ovals:
+        return False
+    kth = vals[-1] if vals else 0
+    above = [d for d, v in zip(ids, vals) if v > kth]
+    return above == [d for d, v in zip(oids, ovals) if v > kth] and all(
+        int(scores[d]) == kth for d, v in zip(ids, vals) if v == kth)
+
+
+def four_way_parity(index, queries, label: str, dev) -> dict:
+    """Kernel engines == plain engines on the card; == oracle on safe exits."""
+    import numpy as np
+    from repro_torch.core.oracle import exhaustive_scores, exhaustive_topk
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.range_scorer import kernel
+
+    t0 = time.perf_counter()
+    oracle = [(exhaustive_topk(index, q, 10), exhaustive_scores(index, q))
+              for q in queries]
+    oracle_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    out = {"oracle_s": oracle_s, "engines": {}}
+    for dt, fmt in CONFIGS:
+        kern = Engine(index, k=10, device=dev, impact_dtype=dt, docs_format=fmt)
+        plain = Engine(index, k=10, device=dev, impl="torch", impact_dtype=dt,
+                       docs_format=fmt)
+        check(kern.impl == "cuda", f"{label}: default impl on cuda is {kern.impl}")
+        plans = [kern.plan(q) for q in queries]
+        kernel.scatter_accumulate.launches = 0
+        kernel.unpack_locals.launches = 0
+        t0 = time.perf_counter()
+        got = [observe(kern, p) for p in plans]
+        kern.synchronize()
+        kern_s = time.perf_counter() - t0
+        launches = (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches)
+        t0 = time.perf_counter()
+        want = [observe(plain, p) for p in plans]
+        plain.synchronize()
+        plain_s = time.perf_counter() - t0
+        name = f"{label} {dt}/{fmt}"
+        safe = 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g == w, f"{name} query {i}: kernels {g} != plain {w}")
+            if not g[6]:  # safe or exhausted: rank-safe, must match the oracle
+                safe += 1
+                check(rank_safe(g[0], g[1], *oracle[i]),
+                      f"{name} query {i}: differs from the exhaustive oracle")
+        budgets = [int(rng.integers(1, max(w[2], 1) + 1)) for w in want]
+        n_budget_exits = 0
+        for i, (p, b) in enumerate(zip(plans, budgets)):
+            g, w = observe(kern, p, b), observe(plain, p, b)
+            check(g == w, f"{name} query {i} budget {b}: kernels {g} != plain {w}")
+            n_budget_exits += g[6]
+        check(launches[0] > 0, f"{name}: scatter_accumulate never launched")
+        if fmt == "packed":
+            check(launches[1] > 0, f"{name}: unpack_locals never launched")
+        else:
+            check(launches[1] == 0, f"{name}: unpack_locals launched on int32 docids")
+        out["engines"][f"{dt}/{fmt}"] = dict(
+            kernels_s=kern_s, plain_s=plain_s, scatter_launches=launches[0],
+            unpack_launches=launches[1], safe_exits=safe, budget_exits=n_budget_exits)
+        log(f"{name}: {len(queries)} queries equal to plain and oracle "
+            f"({safe} safe/exhausted exits), {len(queries)} budgeted equal "
+            f"({n_budget_exits} budget exits); kernels {kern_s:.2f} s, plain "
+            f"{plain_s:.2f} s; launches scatter {launches[0]}, unpack {launches[1]}")
+        del kern, plain
+    return out
+
+
+def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean device time of one call: CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_events(prof) -> list:
+    """The profiler's device-side rows (kernels, memsets, copies)."""
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def _self_device_us(e) -> float:
+    t = getattr(e, "self_device_time_total", None)
+    return float(e.self_cuda_time_total if t is None else t)
+
+
+def device_us(fn, match: str | None = None, iters: int = 100) -> float:
+    """Device time of one call, from the profiler: no launch gaps.
+
+    With ``match``, only the kernel whose name contains it; else every
+    device operation the call issues (fills, kernels, copies).
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in _device_events(prof) if match is None or match in e.key]
+    check(bool(rows), f"profiler recorded no device time for {match or 'the call'}")
+    return sum(_self_device_us(e) for e in rows) / iters
+
+
+def profile_serving(engine, queries, n: int = 32) -> dict:
+    """Where one unbudgeted query's time goes: device busy vs wall.
+
+    The wall time comes from a run without the profiler; the device busy
+    time from a second, profiled run of the same plans.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.anytime import run_query_anytime
+
+    plans = [engine.plan(q) for q in queries[:n]]
+    engine.synchronize()
+    t0 = time.perf_counter()
+    ranges = sum(run_query_anytime(engine, p).ranges_processed for p in plans)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for p in plans:
+            run_query_anytime(engine, p)
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    check(bool(rows), "profiler recorded no device time for the serving loop")
+    busy_ms = sum(_self_device_us(e) for e in rows) / 1e3
+    ops = sum(e.count for e in rows)
+    top = sorted(rows, key=_self_device_us, reverse=True)[:6]
+    return dict(
+        queries=n, ranges=ranges, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / wall_ms, host_ms_per_range=wall_ms / ranges,
+        device_ops_per_range=ops / ranges,
+        top=[dict(name=e.key[:80], us=_self_device_us(e), count=e.count) for e in top],
+    )
+
+
+def kernel_timings(index, queries, parity: Parity, dev) -> dict:
+    """Each kernel at a main-path shape: the widest first range of the log."""
+    import numpy as np
+    import torch
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    eng = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    raw = Engine(index, k=10, device=dev, impact_dtype="int8")
+    plans = [eng.plan(q) for q in queries]
+    plan = max(plans, key=lambda p: int((p.blk_tab[int(p.order_host[0])] >= 0).sum()))
+    r = int(plan.order_host[0])
+    blk = plan.blk_tab[r]
+    safe = blk.clamp(min=0)
+    starts, lens = eng.dix.blk_start[safe], eng.dix.blk_len[safe]
+    keep = blk >= 0  # the first range is scored before θ can prune
+    rs = eng.dix.range_starts[r]
+    B, s_pad = int(blk.shape[0]), eng.s_pad
+
+    # scatter_accumulate on the gathered (local id, value) lanes.
+    local, vals = ref.gather_block_postings(raw.dix.docs, raw.dix.impacts, starts,
+                                            lens, keep, rs)
+    parity.record("scatter_accumulate", kernel.scatter_accumulate(local, vals, s_pad),
+                  ref.scatter_accumulate_ref(local, vals, s_pad), "timing inputs")
+    tgt = torch.where((local < 0) | (local >= s_pad), s_pad, local).to(torch.int64)
+    lib_acc = torch.zeros(s_pad + 1, dtype=torch.int32, device=local.device)
+
+    def library():
+        lib_acc.zero_()
+        lib_acc.index_add_(0, tgt, vals)
+
+    library()
+    check(torch.equal(lib_acc[:s_pad], ref.scatter_accumulate_ref(local, vals, s_pad)),
+          "index_add_ yardstick computes another function")
+    P = local.numel()
+    wrapper = functools.partial(kernel.scatter_accumulate, local, vals, s_pad)
+    plain = functools.partial(ref.scatter_accumulate_ref, local, vals, s_pad)
+    scatter = dict(
+        shape=f"P={P} (B={B}) s_pad={s_pad}",
+        ms=time_ms(wrapper), plain_ms=time_ms(plain), library_ms=time_ms(library),
+        kernel_device_us=device_us(wrapper, "scatter_accumulate_kernel"),
+        wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
+        library_device_us=device_us(library),
+        bytes=P * 8 + s_pad * 4,
+    )
+
+    # unpack_locals on the same blocks' directory rows.
+    args = (eng.dix.pack_words, starts, lens, eng.dix.pack_dir[safe],
+            eng.dix.pack_first[safe], keep, rs)
+    parity.record("unpack_locals", kernel.unpack_locals(*args),
+                  ref.unpack_locals_ref(*args), "timing inputs")
+    _, widths = ref.unpack_dir(args[3])
+    valid = (keep & (starts >= 0)).cpu().numpy()
+    words = ((lens.cpu().numpy().astype(np.int64) * widths.cpu().numpy() + 31) // 32)
+    wrapper = functools.partial(kernel.unpack_locals, *args)
+    plain = functools.partial(ref.unpack_locals_ref, *args)
+    unpack = dict(
+        shape=f"B={B}",
+        ms=time_ms(wrapper), plain_ms=time_ms(plain), library_ms=None,
+        kernel_device_us=device_us(wrapper, "unpack_locals_kernel"),
+        wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
+        library_device_us=None,
+        bytes=int(words[valid].sum()) * 4 + B * 17 + B * 128 * 4,
+    )
+    for d in (scatter, unpack):
+        d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
+    return {"scatter_accumulate": scatter, "unpack_locals": unpack}
+
+
+# ----------------------------------------------------------------------- main
+
+
+def nvidia_smi() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
+    import torch
+
+    from repro_torch.core.anytime import Reactive
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.range_scorer import kernel
+    from repro_torch.launch import serve
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    record = {"card": smi, "device": name, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+
+    # Host builds in worker processes, overlapping the card's phases.
+    jobs = {
+        label: pool.apply_async(build_corpus_index, (str(SRC), cfg, N_QUERIES))
+        for label, cfg in (("preset", preset), ("scale", scale))
+    }
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    _, build_s, build_log = kernel.build()
+    log(f"nvcc build (sm_90a, {' '.join(kernel.NVCC_FLAGS)}): {build_s:.2f} s")
+    for line in build_log.splitlines():
+        if "Used" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    record["nvcc_s"] = build_s
+
+    parity = Parity()
+    kernel_phase(dev, parity)
+    log(f"kernels: scatter_accumulate ({parity.cases['scatter_accumulate']} cases, "
+        f"{kernel.scatter_accumulate.launches} launches), unpack_locals "
+        f"({parity.cases['unpack_locals']} cases, {kernel.unpack_locals.launches} "
+        f"launches): parity ok (bitwise)")
+
+    index, queries, builds = receive_index(jobs["preset"], "preset")
+    record["preset"] = dict(build=builds, parity=four_way_parity(index, queries, "preset", dev))
+    del index
+
+    index, queries, builds = receive_index(jobs["scale"], "scale")
+    record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
+                           device_bytes=index.device_bytes("int8", "packed"))
+    record["scale"]["parity"] = four_way_parity(index, queries, "scale", dev)
+
+    # The main path: the serving loop over the kernels' engine.
+    engine = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    log(f"scale: serving engine int8/packed, s_pad {engine.s_pad}, device bytes "
+        f"{sum(t.nbytes for t in engine.dix if t is not None)}")
+    kernel.scatter_accumulate.launches = 0
+    kernel.unpack_locals.launches = 0
+    stats = serve.serve(engine, queries, Reactive(alpha=1.0, beta=1.2, q=0.01))
+    launches = {"scatter_accumulate": kernel.scatter_accumulate.launches,
+                "unpack_locals": kernel.unpack_locals.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the main path was never launched: {launches}")
+    runs = stats["runs"]
+    log(serve.format_report("reactive", stats))
+    log(f"main path launches: {launches} over {runs} query runs")
+    record["scale"]["serve"] = stats
+    record["scale"]["main_path_launches"] = launches
+
+    prof = profile_serving(engine, queries)
+    record["scale"]["profile"] = prof
+    log(f"profile ({prof['queries']} unbudgeted queries, {prof['ranges']} ranges): "
+        f"wall {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.2f} ms, "
+        f"idle share {prof['idle_share']:.4f}, {prof['host_ms_per_range']:.3f} ms "
+        f"and {prof['device_ops_per_range']:.1f} device ops per range")
+    for row in prof["top"]:
+        log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
+
+    timings = kernel_timings(index, queries, parity, dev)
+    kernels = []
+    for kname, line in (("scatter_accumulate", 47), ("unpack_locals", 107)):
+        tm = timings[kname]
+        lib = "-" if tm["library_ms"] is None else f"{tm['library_ms'] * 1e3:.2f} us"
+        log(f"{kname} [{tm['shape']}]: {tm['ms'] * 1e3:.2f} us/call, plain "
+            f"{tm['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+            f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bytes']} B), "
+            f"{launches[kname] / runs:.2f} launches/query; device-only: kernel "
+            f"{tm['kernel_device_us']:.2f} us, wrapper {tm['wrapper_device_us']:.2f} us, "
+            f"plain {tm['plain_device_us']:.2f} us")
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CU_SOURCE,
+            "replaces": f"src/repro/kernels/range_scorer/kernel.py:{line}",
+            "launches": launches[kname], "max_abs_err": parity.max_err[kname],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": "bytes", "library_ms": tm["library_ms"],
+        })
+    record["kernels"] = kernels
+    record["timings"] = timings
+    record["wall_s"] = time.perf_counter() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
+    log(f"smoke wall time {record['wall_s']:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: FAIL: torch is not importable: {e}", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: torch.cuda.is_available() is false; this smoke "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: FAIL: {SRC / 'repro_torch'} not found: run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(2)
+    try:
+        run(pool)
+    except SmokeError as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        pool.terminate()
+        pool.join()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,93 @@
+"""The port stands alone: no JAX, nothing of the reference package.
+
+``repro_torch`` and ``chip_smoke.py`` import ``torch`` and numpy and never
+``jax`` or any ``repro`` module (they keep their own copies of what they
+need), and the port's entry points run on the card unless the caller asks
+for the CPU.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_modules_import_neither_jax_nor_reference():
+    """Every module of the port, imported in a fresh interpreter."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert len(names) >= 15, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_file_names_jax_or_reference():
+    """Static check of every import statement in the port and the smoke."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), f"{path}: {names}"
+
+
+def _tiny_index():
+    from repro_torch.core.clustered_index import build_index
+    from repro_torch.data.synth import make_corpus
+
+    corpus = make_corpus(n_docs=120, n_terms=200, n_topics=2, mean_doc_len=20, seed=3)
+    return build_index(corpus, n_ranges=2, strategy="clustered", bits=8)
+
+
+def test_engine_without_card_raises_and_names_cpu(monkeypatch):
+    from repro_torch.core.range_daat import Engine
+
+    index = _tiny_index()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(index)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(index, device="cuda")
+    eng = Engine(index, device="cpu")
+    assert (eng.device.type, eng.impl) == ("cpu", "torch")
+    res = eng.traverse(eng.plan(np.array([0, 1, 2], np.int32)))
+    assert res.state.vals.device.type == "cpu"
+
+
+def test_serve_cli_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(serve, "build_preset", lambda *a, **k: (None, _tiny_index()))
+    monkeypatch.setattr(serve, "make_query_log", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--queries", "4"])
