@@ -6,10 +6,12 @@
 Drives the port (``src/repro_torch``) through its main path on the card and
 fails (non-zero exit, no result line) on any fault:
 
-  1. builds the range-scorer kernels from ``csrc/range_scorer.cu`` with
-     ``nvcc`` for ``sm_90a`` and prints the build time;
-  2. kernel phase — each kernel against its plain PyTorch version on the
-     card, bitwise, over the CPU tests' cases and main-path shapes;
+  1. builds the kernel libraries from ``csrc/range_scorer.cu`` and
+     ``csrc/embedding_bag.cu`` with ``nvcc`` for ``sm_90a``, both at once,
+     and prints each build's time;
+  2. kernel phase — each range-scorer kernel against its plain PyTorch
+     version on the card, bitwise, over the CPU tests' cases and main-path
+     shapes;
   3. preset phase — the benchmark preset (24,000 docs, ``clustered_bp``),
      200 queries: four engines on the card, int32/int8 impacts ×
      int32/packed docids, each equal to the plain path (``impl="torch"``)
@@ -23,7 +25,18 @@ fails (non-zero exit, no result line) on any fault:
      for the scatter, ``Tensor.index_add_`` (CUDA events around many
      calls, launch gaps included, and device-only time from
      ``torch.profiler``), and a profiled serving window that splits a
-     query's time between the device and the host.
+     query's time between the device and the host;
+  5. bag phase — the bag-reduce kernel against its plain version on the
+     card, float32 and bfloat16, over the CPU tests' shapes, then the
+     EmbeddingBag lookup (``models/embedding.py``) at the recsys
+     configurations' published widths (MIND and BERT4Rec tables, serve
+     batches of 512 and 262,144), weighted and unweighted, sum and mean,
+     with its launch counter reset just before and read just after; then
+     the kernel's time at each full-width shape beside its bound, its
+     plain version, ``torch.bmm`` (the same reduction) and
+     ``F.embedding_bag`` (the whole lookup). It runs last: run before the
+     serving loop, its profiler windows slowed the loop's host time per
+     range (see ``PERF.md``).
 
 Both host index builds are numpy and run in worker processes while the
 card works on the earlier phases. The last two lines of standard output
@@ -40,12 +53,32 @@ import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/range_scorer/csrc/range_scorer.cu"
+BAG_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+# The bag reduce at the CPU tests' shapes (tests/test_kernels_embedding_bag.py).
+BAG_TEST_SHAPES = [(4, 3, 8), (17, 20, 32), (128, 200, 64), (33, 7, 130)]
+# The recsys configurations' published widths, copied because the smoke
+# imports nothing of the JAX package: (label, n_items, B, L, D).
+#   MIND      src/repro/configs/other_archs.py:25-30 (8,388,608 items, 64, history 50)
+#   BERT4Rec  src/repro/configs/other_archs.py:55-60 (1,048,576 items, 64, history 200)
+#   batches   src/repro/configs/base.py:486-491 (serve_p99 512, serve_bulk 262,144)
+BAG_FULL_SHAPES = [
+    ("mind serve_p99", 8_388_608, 512, 50, 64),
+    ("mind serve_bulk", 8_388_608, 262_144, 50, 64),
+    ("bert4rec serve_p99", 1_048_576, 512, 200, 64),
+]
+BAG_PAD_SHARE = 5  # the last L // 5 ids of every bag are padding (-1)
+# Kernel vs plain version: the kernel sums L terms in ascending order, the
+# plain version's einsum (a batched matmul, TF32 off) in another order;
+# bfloat16 rounds once at the end on both sides (the JAX test's tolerance).
+BAG_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 CONFIGS = [(dt, fmt) for dt in ("int32", "int8") for fmt in ("int32", "packed")]
 N_QUERIES = 200
 QUERY_SEED = 42
@@ -126,8 +159,9 @@ class Parity:
     """Largest |kernel - plain| seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.max_err = {"scatter_accumulate": 0, "unpack_locals": 0}
-        self.cases = {"scatter_accumulate": 0, "unpack_locals": 0}
+        self.max_err = {"scatter_accumulate": 0, "unpack_locals": 0, "bag_reduce": 0.0}
+        self.cases = {"scatter_accumulate": 0, "unpack_locals": 0, "bag_reduce": 0}
+        self.float_err = {}  # (name, dtype) -> largest |err|
 
     def record(self, name: str, got, want, ctx: str) -> None:
         import torch
@@ -141,6 +175,31 @@ class Parity:
         self.max_err[name] = max(self.max_err[name], err)
         self.cases[name] += 1
         check(err == 0, f"{name} {ctx}: kernel differs from plain version by {err}")
+
+    def record_close(self, name: str, got, want, ctx: str) -> None:
+        """Float outputs within ``BAG_TOL`` of the plain version's.
+
+        ``name`` is a kernel, or a yardstick checked before it is timed.
+        """
+        import torch
+
+        torch.cuda.synchronize()
+        dtype = str(want.dtype).removeprefix("torch.")
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {ctx}: {tuple(got.shape)}/{got.dtype} vs "
+              f"{tuple(want.shape)}/{want.dtype}")
+        rtol, atol = BAG_TOL[dtype]
+        g, w = got.to(torch.float32), want.to(torch.float32)
+        diff = (g - w).abs()
+        err = float(diff.max().item()) if diff.numel() else 0.0
+        over = int((diff > atol + rtol * w.abs()).sum().item()) if diff.numel() else 0
+        check(bool(torch.isfinite(g).all().item()), f"{name} {ctx}: non-finite output")
+        self.max_err[name] = max(self.max_err.get(name, 0.0), err)
+        key = (name, dtype)
+        self.float_err[key] = max(self.float_err.get(key, 0.0), err)
+        self.cases[name] = self.cases.get(name, 0) + 1
+        check(over == 0, f"{name} {ctx} {dtype}: {over} outputs beyond rtol {rtol}, "
+              f"atol {atol} of the plain version (max |err| {err})")
 
 
 def _packed_pool(rng, n_pool, max_deltas=(0, 1, 200, 255, 300, 70_000)):
@@ -213,6 +272,152 @@ def kernel_phase(dev, parity: Parity) -> None:
                 parity.record("unpack_locals", kernel.unpack_locals(*args),
                               ref.unpack_locals_ref(*args),
                               f"seed={seed} B={n_sel} r0={r0}")
+
+
+# ----------------------------------------------------------------- bag phase
+
+
+def bag_bound(B: int, L: int, D: int, itemsize: int = 4) -> dict:
+    """Least time for the bag reduce: rows, weights and outputs moved once."""
+    nbytes = (B * L * D + B * L + B * D) * itemsize
+    ops = 2 * B * L * D
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def bag_full_inputs(V: int, B: int, L: int, D: int, dev, seed: int):
+    """Table [V, D], ids [B, L] (trailing fifth -1) and weights, made on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((V, D), generator=g, device=dev)
+    ids = torch.randint(0, V, (B, L), generator=g, device=dev, dtype=torch.int32)
+    ids[:, L - L // BAG_PAD_SHARE:] = -1
+    weights = torch.randn((B, L), generator=g, device=dev)
+    return table, ids, weights
+
+
+def bag_phase(dev, parity: Parity, full_shapes=BAG_FULL_SHAPES) -> dict:
+    """Kernel parity at the tests' shapes, then the lookup at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel
+    from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
+    from repro_torch.models.embedding import bag_inputs, combine_bags, embedding_bag
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul must run without TF32 for the plain version")
+    t0 = time.perf_counter()
+    dtypes = (torch.float32, torch.bfloat16)
+    combos = [(wt, c) for wt in (False, True) for c in ("sum", "mean")]
+
+    def lookup_case(table, ids, weights, ctx):
+        for wt, combine in combos:
+            wts = weights if wt else None
+            got = embedding_bag(table, ids, wts, combine)
+            rows, w = bag_inputs(table, ids, wts)
+            want = combine_bags(bag_reduce_plain(rows, w), w, combine)
+            del rows, w
+            parity.record_close("bag_reduce", got, want,
+                                f"{ctx} weighted={wt} {combine}")
+
+    # The CPU tests' shapes: the reduce alone, then the lookup around it,
+    # with padding and ids past the table's end (clamped to its last row).
+    for B, L, D in BAG_TEST_SHAPES:
+        rng = np.random.default_rng(B * 1000 + L)
+        rows = torch.from_numpy(rng.normal(0, 1, size=(B, L, D)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.normal(0, 1, size=(B, L)).astype(np.float32)).to(dev)
+        ids = rng.integers(0, 1010, size=(B, L)).astype(np.int32)
+        ids[:, L - L // BAG_PAD_SHARE:] = -1
+        ids = torch.from_numpy(ids).to(dev)
+        table = torch.from_numpy(rng.normal(0, 1, size=(1000, D)).astype(np.float32)).to(dev)
+        for dt in dtypes:
+            r, ww = rows.to(dt), w.to(dt)
+            parity.record_close("bag_reduce", kernel.bag_reduce(r, ww),
+                                bag_reduce_plain(r, ww), f"B={B} L={L} D={D}")
+            lookup_case(table.to(dt), ids, w.to(dt), f"lookup B={B} L={L} D={D}")
+
+    # The main path: the lookup at published widths, counters reset just
+    # before and read just after. Plain versions launch no kernel.
+    kernel.bag_reduce.launches = 0
+    for i, (label, V, B, L, D) in enumerate(full_shapes):
+        table, ids, weights = bag_full_inputs(V, B, L, D, dev, seed=i)
+        for dt in dtypes:
+            lookup_case(table.to(dt), ids, weights.to(dt), label)
+        del table, ids, weights
+    launches = kernel.bag_reduce.launches
+    check(launches > 0, "bag_reduce was never launched on the main path")
+    torch.cuda.synchronize()
+    max_err = {dt: parity.float_err[("bag_reduce", dt)] for dt in BAG_TOL}
+    log(f"bag: bag_reduce ({parity.cases['bag_reduce']} cases): max |err| "
+        f"float32 {max_err['float32']:.3e} (rtol/atol {BAG_TOL['float32']}), "
+        f"bfloat16 {max_err['bfloat16']:.3e} (rtol/atol {BAG_TOL['bfloat16']}); "
+        f"main path {launches} launches over {len(full_shapes)} full-width shapes; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "max_err": max_err}
+
+
+def bag_timings(dev, parity: Parity, full_shapes=BAG_FULL_SHAPES) -> dict:
+    """The bag reduce at each full-width shape (float32, weighted sum)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel
+    from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
+    from repro_torch.models.embedding import bag_inputs, embedding_bag
+
+    out = {}
+    for i, (label, V, B, L, D) in enumerate(full_shapes):
+        table, ids, weights = bag_full_inputs(V, B, L, D, dev, seed=i)
+        rows, w = bag_inputs(table, ids, weights)
+        want = bag_reduce_plain(rows, w)
+        w3 = w[:, None]
+        bmm = functools.partial(torch.bmm, w3, rows)
+        parity.record_close("torch.bmm", bmm()[:, 0], want, label)
+
+        def lookup_lib():
+            return F.embedding_bag(ids.clamp(min=0), table, per_sample_weights=w,
+                                   mode="sum")
+
+        parity.record_close("F.embedding_bag", lookup_lib(), want, label)
+        wrapper = functools.partial(kernel.bag_reduce, rows, w)
+        plain = functools.partial(bag_reduce_plain, rows, w)
+        lookup = functools.partial(embedding_bag, table, ids, weights)
+        iters = 50 if B * L * D > 1e8 else 200
+        tm = dict(
+            shape=f"B={B} L={L} D={D} V={V}",
+            ms=time_ms(wrapper, iters), plain_ms=time_ms(plain, iters),
+            library_ms=time_ms(bmm, iters),
+            lookup_ms=time_ms(lookup, iters), library_lookup_ms=time_ms(lookup_lib, iters),
+            kernel_device_us=device_us(wrapper, "bag_reduce_kernel", iters // 2),
+            plain_device_us=device_us(plain, None, iters // 2),
+            library_device_us=device_us(bmm, None, iters // 2),
+            lookup_device_us=device_us(lookup, None, iters // 2),
+            library_lookup_device_us=device_us(lookup_lib, None, iters // 2),
+            **bag_bound(B, L, D),
+        )
+        # Where the port's whole lookup spends its device time, per call.
+        tm["lookup_ops"] = [
+            dict(name=e.key[:80], us=_self_device_us(e) / (iters // 2),
+                 count=e.count / (iters // 2))
+            for e in sorted(_profile_rows(lookup, iters // 2), key=_self_device_us,
+                            reverse=True)]
+        out[label] = tm
+        log(f"bag_reduce {label} [{tm['shape']}] float32: {tm['ms'] * 1e3:.2f} us/call "
+            f"(device-only {tm['kernel_device_us']:.2f} us), bound "
+            f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bytes']} B, {tm['bound_by']}); plain "
+            f"{tm['plain_ms'] * 1e3:.2f} us (device {tm['plain_device_us']:.2f}), "
+            f"torch.bmm {tm['library_ms'] * 1e3:.2f} us (device "
+            f"{tm['library_device_us']:.2f}); whole lookup: port "
+            f"{tm['lookup_ms'] * 1e3:.2f} us (device {tm['lookup_device_us']:.2f}), "
+            f"F.embedding_bag {tm['library_lookup_ms'] * 1e3:.2f} us (device "
+            f"{tm['library_lookup_device_us']:.2f})")
+        for row in tm["lookup_ops"]:
+            log(f"  lookup {row['us']:10.2f} us  x{row['count']:<4g} {row['name']}")
+        del table, ids, weights, rows, w, w3, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- engine phases
@@ -333,12 +538,8 @@ def _self_device_us(e) -> float:
     return float(e.self_cuda_time_total if t is None else t)
 
 
-def device_us(fn, match: str | None = None, iters: int = 100) -> float:
-    """Device time of one call, from the profiler: no launch gaps.
-
-    With ``match``, only the kernel whose name contains it; else every
-    device operation the call issues (fills, kernels, copies).
-    """
+def _profile_rows(fn, iters: int) -> list:
+    """The profiler's device rows over ``iters`` calls of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,7 +549,16 @@ def device_us(fn, match: str | None = None, iters: int = 100) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in _device_events(prof) if match is None or match in e.key]
+    return _device_events(prof)
+
+
+def device_us(fn, match: str | None = None, iters: int = 100) -> float:
+    """Device time of one call, from the profiler: no launch gaps.
+
+    With ``match``, only the kernel whose name contains it; else every
+    device operation the call issues (fills, kernels, copies).
+    """
+    rows = [e for e in _profile_rows(fn, iters) if match is None or match in e.key]
     check(bool(rows), f"profiler recorded no device time for {match or 'the call'}")
     return sum(_self_device_us(e) for e in rows) / iters
 
@@ -471,6 +681,7 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
 
     from repro_torch.core.anytime import Reactive
     from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
     from repro_torch.kernels.range_scorer import kernel
     from repro_torch.launch import serve
 
@@ -488,12 +699,19 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     }
 
     dev = torch.device("cuda", 0) if dev is None else dev
-    _, build_s, build_log = kernel.build()
-    log(f"nvcc build (sm_90a, {' '.join(kernel.NVCC_FLAGS)}): {build_s:.2f} s")
-    for line in build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    record["nvcc_s"] = build_s
+    # One nvcc per source, started together.
+    libs = {"range_scorer.cu": kernel, "embedding_bag.cu": bag_kernel}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        builds = {src: ex.submit(mod.build) for src, mod in libs.items()}
+        record["nvcc_s"] = {}
+        for src, fut in builds.items():
+            _, build_s, build_log = fut.result()
+            log(f"nvcc build {src} (sm_90a, {' '.join(libs[src].NVCC_FLAGS)}): "
+                f"{build_s:.2f} s")
+            for line in build_log.splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
+            record["nvcc_s"][src] = build_s
 
     parity = Parity()
     kernel_phase(dev, parity)
@@ -555,6 +773,17 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": "bytes", "library_ms": tm["library_ms"],
         })
+
+    record["bag"] = bag_phase(dev, parity)
+    record["bag"]["timings"] = bag_timings(dev, parity)
+    bulk = record["bag"]["timings"]["mind serve_bulk"]
+    kernels.append({
+        "name": "bag_reduce", "route": "cuda", "source": BAG_SOURCE,
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:30",
+        "launches": record["bag"]["launches"], "max_abs_err": parity.max_err["bag_reduce"],
+        "ms": bulk["ms"], "plain_ms": bulk["plain_ms"], "bound_ms": bulk["bound_ms"],
+        "bound_by": bulk["bound_by"], "library_ms": bulk["library_ms"],
+    })
     record["kernels"] = kernels
     record["timings"] = timings
     record["wall_s"] = time.perf_counter() - t_start

@@ -11,7 +11,7 @@
 The source is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``.cache/repro_torch_kernels/`` of the
 checkout, keyed by a hash of the source and flags, and loaded with
-``ctypes``. Importing this module builds nothing.
+``ctypes`` (``kernels/_nvcc.py``). Importing this module builds nothing.
 
 Each wrapper takes tensors on one device. On a CPU tensor it returns its
 kernel's plain version from ``ref.py``; on a CUDA tensor it launches the
@@ -21,91 +21,32 @@ counts its launches in a plain integer attribute, ``<wrapper>.launches``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._nvcc import I64, NVCC_FLAGS, PTR, CudaLibrary, find_nvcc
+from repro_torch.kernels._nvcc import data_ptr as _ptr
 from repro_torch.kernels.range_scorer import ref
 
 __all__ = ["NVCC_FLAGS", "build", "find_nvcc", "scatter_accumulate", "unpack_locals"]
 
 SOURCE = Path(__file__).parent / "csrc" / "range_scorer.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / ".cache" / "repro_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 BLOCK = ref.BLOCK
 
-_build_lock = threading.Lock()
-
-
-def find_nvcc() -> str:
-    """``nvcc`` from ``$CUDA_HOME/bin``, else from ``PATH``; raises if neither."""
-    home = os.environ.get("CUDA_HOME")
-    if home:
-        nvcc = os.path.join(home, "bin", "nvcc")
-        if os.path.isfile(nvcc) and os.access(nvcc, os.X_OK):
-            return nvcc
-    nvcc = shutil.which("nvcc")
-    if nvcc:
-        return nvcc
-    raise RuntimeError(
-        "nvcc not found in $CUDA_HOME/bin or on PATH; the range-scorer kernels "
-        "are built from source at first use"
-    )
+_LIB = CudaLibrary(
+    SOURCE,
+    {
+        "rs_scatter_accumulate": [PTR, PTR, I64, PTR, I64, PTR],
+        "rs_unpack_locals": [PTR, I64, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR],
+    },
+    error_fn="rs_error_string",
+)
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile the kernels if needed: (library path, seconds, compiler log).
-
-    The library name carries a hash of the source and the flags, so an
-    edited source is rebuilt and a warm cache costs nothing (0 seconds,
-    empty log). The compile writes to a private name and renames it into
-    place, so concurrent builders never load a half-written file.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"librange_scorer-{digest.hexdigest()[:16]}.so"
-    with _build_lock:
-        if lib.exists():
-            return lib, 0.0, ""
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-        return lib, seconds, proc.stdout + proc.stderr
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.rs_error_string.argtypes = [ctypes.c_int]
-    lib.rs_error_string.restype = ctypes.c_char_p
-    lib.rs_scatter_accumulate.argtypes = [ptr, ptr, i64, ptr, i64, ptr]
-    lib.rs_scatter_accumulate.restype = ctypes.c_int
-    lib.rs_unpack_locals.argtypes = [
-        ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr
-    ]
-    lib.rs_unpack_locals.restype = ctypes.c_int
-    return lib
+    """Compile the kernels if needed: (library path, seconds, compiler log)."""
+    return _LIB.build()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -121,19 +62,6 @@ def _same_device(device: torch.device, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-
-
-def _launch(fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        msg = _lib().rs_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} ({msg})")
-
-
-def _ptr(t: torch.Tensor) -> int:
-    if not t.is_contiguous():
-        raise ValueError("kernel inputs must be contiguous")
-    return t.data_ptr()
 
 
 def scatter_accumulate(ids: torch.Tensor, vals: torch.Tensor, s_pad: int) -> torch.Tensor:
@@ -158,8 +86,8 @@ def scatter_accumulate(ids: torch.Tensor, vals: torch.Tensor, s_pad: int) -> tor
         return acc
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        _launch(
-            _lib().rs_scatter_accumulate,
+        _LIB.launch(
+            "rs_scatter_accumulate",
             _ptr(ids), _ptr(vals), ids.numel(), _ptr(acc), s_pad, stream,
         )
     scatter_accumulate.launches += 1
@@ -213,8 +141,8 @@ def unpack_locals(
         return out
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _launch(
-            _lib().rs_unpack_locals,
+        _LIB.launch(
+            "rs_unpack_locals",
             _ptr(pack_words), pack_words.numel(), _ptr(starts), _ptr(lens),
             _ptr(pack_dir), _ptr(pack_firsts), _ptr(keep), _ptr(range_start),
             B, _ptr(out), stream,

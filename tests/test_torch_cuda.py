@@ -1,7 +1,7 @@
 """The port's CUDA kernels and engine on the card, against the plain path.
 
-Every test here is marked ``cuda`` and skips without a card: the kernels
-have no CPU mode. The file imports only the port, so it also runs where
+Every test here that needs the card is marked ``cuda`` and skips without
+one: the kernels have no CPU mode. The file imports only the port, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -9,7 +9,8 @@ JAX is not installed:
 (``--noconftest`` because ``tests/conftest.py`` builds the reference's
 fixtures with the JAX package.) Kernel outputs must equal their plain
 versions bitwise, and the kernels' engine must equal the plain engine on
-every host-observable.
+every host-observable. The bag reduce sums floats in another order than
+its plain version, so it is held within a stated tolerance instead.
 """
 
 from __future__ import annotations
@@ -22,7 +23,15 @@ from repro_torch.core.clustered_index import BLOCK, build_index, pack_dir_entrie
 from repro_torch.core.oracle import exhaustive_topk
 from repro_torch.core.range_daat import Engine
 from repro_torch.data.synth import make_corpus, make_query_log
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
 from repro_torch.kernels.range_scorer import kernel, ref
+from repro_torch.models.embedding import (
+    bag_inputs,
+    combine_bags,
+    embedding_bag,
+    table_from_numpy,
+)
 
 CONFIGS = [(dt, fmt) for dt in ("int32", "int8") for fmt in ("int32", "packed")]
 
@@ -120,3 +129,89 @@ def test_cuda_engine_matches_plain_engine(cuda_device, small_index, impact_dtype
         # Safe exits match the oracle's scores; ids may differ among ties
         # at the k-th score, as in the reference.
         assert vals.tolist() == exhaustive_topk(index, q, 10)[1].tolist()
+
+
+# The bag reduce sums L terms in ascending order; the plain version's einsum
+# (a batched matmul, TF32 off) uses another order. bfloat16 rounds once at
+# the end on both sides: the JAX test's tolerance.
+BAG_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+BAG_SHAPES = [(4, 3, 8), (17, 20, 32), (128, 200, 64), (33, 7, 130),
+              (512, 50, 64)]  # the last: MIND serve_p99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D", BAG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bag_reduce_matches_plain(cuda_device, B, L, D, dtype):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(B * 1000 + L)
+    rows = _cuda(rng.normal(0, 1, size=(B, L, D)), cuda_device, np.float32).to(dtype)
+    w = _cuda(rng.normal(0, 1, size=(B, L)), cuda_device, np.float32).to(dtype)
+    before = bag_kernel.bag_reduce.launches
+    got = bag_kernel.bag_reduce(rows, w)
+    torch.cuda.synchronize()
+    assert bag_kernel.bag_reduce.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, D)
+    torch.testing.assert_close(got, bag_reduce_plain(rows, w), **BAG_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D", [(0, 5, 8), (3, 0, 8), (3, 5, 0)])
+def test_bag_reduce_empty_shapes_on_card(cuda_device, B, L, D):
+    got = bag_kernel.bag_reduce(torch.ones(B, L, D, device=cuda_device),
+                                torch.ones(B, L, device=cuda_device))
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, D)
+    assert torch.equal(got.cpu(), torch.zeros(B, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_on_card_matches_plain(cuda_device, combine, weighted):
+    rng = np.random.default_rng(1)
+    table = table_from_numpy(rng.normal(size=(1000, 64)).astype(np.float32))
+    ids = rng.integers(0, 1010, size=(512, 50)).astype(np.int32)  # some >= V
+    ids[:, 40:] = -1
+    ids, w = _cuda(ids, cuda_device), _cuda(rng.normal(size=(512, 50)), cuda_device,
+                                            np.float32)
+    weights = w if weighted else None
+    before = bag_kernel.bag_reduce.launches
+    got = embedding_bag(table, ids, weights, combine)
+    rows, wm = bag_inputs(table, ids, weights)
+    want = combine_bags(bag_reduce_plain(rows, wm), wm, combine)
+    torch.cuda.synchronize()
+    assert bag_kernel.bag_reduce.launches == before + 1
+    torch.testing.assert_close(got, want, **BAG_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_bag_reduce_wrapper_raises_on_card(cuda_device):
+    rows = torch.ones(4, 3, 8, device=cuda_device)
+    w = torch.ones(4, 3, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bag_kernel.bag_reduce(rows.half(), w.half())
+    with pytest.raises(TypeError, match="rows are"):
+        bag_kernel.bag_reduce(rows, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_kernel.bag_reduce(rows.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_kernel.bag_reduce(rows, torch.ones(3, 4, device=cuda_device).t())
+    with pytest.raises(ValueError, match="w is on"):
+        bag_kernel.bag_reduce(rows, w.cpu())
+    with pytest.raises(ValueError, match="w is on"):
+        bag_kernel.bag_reduce(rows.cpu(), w)
+    with pytest.raises(ValueError, match="ids are on"):
+        embedding_bag(rows[0], torch.zeros(2, 3, dtype=torch.int32))
+
+
+def test_embedding_bag_without_card_raises_and_names_cpu(monkeypatch):
+    """The lookup's tables default to the card; without one, the CPU is named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = np.ones((10, 4), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        embedding_bag(table_from_numpy(table), torch.zeros(2, 3, dtype=torch.int32))
+    out = embedding_bag(table_from_numpy(table, device="cpu"),
+                        torch.zeros(2, 3, dtype=torch.int32))
+    assert out.device.type == "cpu" and out.tolist() == [[3.0] * 4] * 2

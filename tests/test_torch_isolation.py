@@ -91,3 +91,43 @@ def test_serve_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(serve, "make_query_log", lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--queries", "4"])
+
+
+def test_table_from_numpy_defaults_to_the_card(monkeypatch):
+    from repro_torch.models.embedding import table_from_numpy
+
+    table = np.arange(12, dtype=np.float32).reshape(6, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table_from_numpy(table)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table_from_numpy(table, device="cuda")
+    t = table_from_numpy(table, device="cpu")
+    assert t.device.type == "cpu" and t.tolist() == table.tolist()
+
+
+@pytest.mark.parametrize("module", ["range_scorer", "embedding_bag"])
+def test_kernel_library_is_named_by_source_and_flags(monkeypatch, tmp_path, module):
+    """``build`` finds a library named by the hash of its source and flags.
+
+    The name is the one the range scorer used before the build moved to
+    ``kernels/_nvcc.py``, so a warm cache stays warm; without ``nvcc`` a
+    cold cache raises.
+    """
+    import hashlib
+    import importlib
+
+    from repro_torch.kernels import _nvcc
+
+    kernel = importlib.import_module(f"repro_torch.kernels.{module}.kernel")
+    source = PORT / "kernels" / module / "csrc" / f"{module}.cu"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(kernel.NVCC_FLAGS).encode())
+    assert _nvcc.BUILD_DIR == ROOT / ".cache" / "repro_torch_kernels"
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel.build()
+    lib = tmp_path / f"lib{module}-{digest.hexdigest()[:16]}.so"
+    lib.write_bytes(b"")
+    assert kernel.build() == (lib, 0.0, "")
