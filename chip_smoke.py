@@ -10,22 +10,30 @@ fails (non-zero exit, no result line) on any fault:
      ``csrc/embedding_bag.cu`` with ``nvcc`` for ``sm_90a``, both at once,
      and prints each build's time;
   2. kernel phase — each range-scorer kernel against its plain PyTorch
-     version on the card, bitwise, over the CPU tests' cases and main-path
-     shapes;
+     version on the card, bitwise: the standalone scatter and decode over
+     the CPU tests' cases and main-path shapes, and the fused range step
+     (``range_step``) at both accumulator placements (shared memory at
+     ``s_pad`` 9,984, a global scratch at 65,536), k 1, 10 and 1,024,
+     θ = 0 and θ > 0, four configurations, pruning on and off;
   3. preset phase — the benchmark preset (24,000 docs, ``clustered_bp``),
      200 queries: four engines on the card, int32/int8 impacts ×
      int32/packed docids, each equal to the plain path (``impl="torch"``)
      on the card and to the numpy oracle on safe exits (up to ties at the
-     k-th score, as the reference's own tests allow);
+     k-th score, as the reference's own tests allow), with one
+     ``range_step`` launch per range each engine scored and no standalone
+     scatter or decode launch;
   4. scale phase — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
-     the same parity, then the serving loop of ``launch/serve.py``
-     (Reactive policy, SLA = 25% of the exhaustive P99) with the launch
-     counters reset just before and read just after, then each kernel's
-     time at main-path shapes beside its bound, its plain version and,
-     for the scatter, ``Tensor.index_add_`` (CUDA events around many
-     calls, launch gaps included, and device-only time from
-     ``torch.profiler``), and a profiled serving window that splits a
-     query's time between the device and the host;
+     the same parity, then the standalone kernels' own path
+     (``ops.score_blocks(impl="cuda")`` on each query's first range, both
+     docid formats, against its plain version), then the serving loop of
+     ``launch/serve.py`` (Reactive policy, SLA = 25% of the exhaustive
+     P99) with the launch counters reset just before and read just after
+     (one ``range_step`` per scored range), then a profiled serving window
+     that splits a query's time between the device and the host (plan
+     time per query apart), then each kernel's time at main-path shapes
+     beside its bound, its plain version and, for the scatter,
+     ``Tensor.index_add_`` (CUDA events around many calls, launch gaps
+     included, and device-only time from ``torch.profiler``);
   5. bag phase — the bag-reduce kernel against its plain version on the
      card, float32 and bfloat16, over the CPU tests' shapes, then the
      EmbeddingBag lookup (``models/embedding.py``) at the recsys
@@ -59,6 +67,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/range_scorer/csrc/range_scorer.cu"
+TPU_SCORER = "src/repro/kernels/range_scorer/kernel.py"
 BAG_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
@@ -159,8 +168,10 @@ class Parity:
     """Largest |kernel - plain| seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.max_err = {"scatter_accumulate": 0, "unpack_locals": 0, "bag_reduce": 0.0}
-        self.cases = {"scatter_accumulate": 0, "unpack_locals": 0, "bag_reduce": 0}
+        self.max_err = {"scatter_accumulate": 0, "unpack_locals": 0, "range_step": 0,
+                        "bag_reduce": 0.0}
+        self.cases = {"scatter_accumulate": 0, "unpack_locals": 0, "range_step": 0,
+                      "bag_reduce": 0}
         self.float_err = {}  # (name, dtype) -> largest |err|
 
     def record(self, name: str, got, want, ctx: str) -> None:
@@ -175,6 +186,15 @@ class Parity:
         self.max_err[name] = max(self.max_err[name], err)
         self.cases[name] += 1
         check(err == 0, f"{name} {ctx}: kernel differs from plain version by {err}")
+
+    def record_state(self, got, want, ctx: str) -> None:
+        """A range step's new state, every field, bitwise."""
+        import torch
+
+        def flat(st):
+            return torch.cat([st.vals, st.postings[None], st.blocks[None], st.ids])
+
+        self.record("range_step", flat(got), flat(want), ctx)
 
     def record_close(self, name: str, got, want, ctx: str) -> None:
         """Float outputs within ``BAG_TOL`` of the plain version's.
@@ -217,6 +237,54 @@ def _packed_pool(rng, n_pool, max_deltas=(0, 1, 200, 255, 300, 70_000)):
         chunks.append(int(rng.integers(0, 500)) + np.cumsum(d))
     docs = np.concatenate(chunks).astype(np.int64)
     return docs, blk_start, blk_len, pack_docs(docs, blk_start, blk_len)
+
+
+def step_case(rng, dev, s_pad, impact_dtype, docs_format, k, theta, n_blocks=256):
+    """A range-step input on ``dev``: a pool of blocks with sorted docids in
+    one range of ``s_pad`` docs, ``n_blocks`` of them listed (the last few
+    -1), and a state that is empty (``theta`` 0) or full with θ > 0."""
+    import numpy as np
+    import torch
+    from repro_torch.core.clustered_index import BLOCK, pack_dir_entries, pack_docs
+    from repro_torch.core.range_daat import DeviceIndex
+    from repro_torch.kernels.range_scorer import ref
+
+    def t(a, dtype=np.int32):
+        a = np.ascontiguousarray(a if dtype is None else np.asarray(a).astype(dtype))
+        return torch.from_numpy(a).to(dev)
+
+    n_pool, rs = 400, 1_000
+    lens = rng.integers(1, BLOCK + 1, size=n_pool)
+    lens[::7] = BLOCK
+    starts = np.cumsum(lens) - lens
+    docs = np.concatenate([np.sort(rng.choice(s_pad, size=int(n), replace=False))
+                           for n in lens]).astype(np.int64) + rs
+    imps = rng.integers(1, 256, size=docs.shape[0])
+    imps[: docs.shape[0] // 3] = 9  # many equal sums
+    maximp = np.array([imps[a:a + n].max() for a, n in zip(starts, lens)])
+    stored = (imps - ref.IMPACT_BIAS).astype(np.int8) if impact_dtype == "int8" \
+        else imps.astype(np.int32)
+    cols = dict(docs=docs, blk_start=starts, blk_len=lens, blk_maximp=maximp,
+                bounds_dense=np.zeros((1, 1)), range_starts=np.array([rs]),
+                range_sizes=np.array([s_pad]))
+    if docs_format == "packed":
+        packed = pack_docs(docs, starts, lens)
+        cols.update(docs=np.zeros(1), pack_words=np.asarray(packed.words,
+                                                            np.uint32).view(np.int32),
+                    pack_dir=pack_dir_entries(packed), pack_first=packed.blk_first)
+    dix = DeviceIndex(impacts=t(stored, None), **{n: t(a) for n, a in cols.items()})
+    blk = rng.choice(n_pool, size=n_blocks, replace=False).astype(np.int32)
+    blk[-3:] = -1
+    rest = rng.integers(0, 400, size=n_blocks)
+    buf = np.zeros(2 * k + 2, np.int32)
+    buf[k + 2:] = -1
+    if theta:
+        buf[:k] = np.sort(rng.integers(theta, theta + 200, size=k))[::-1]
+        buf[k + 2:] = rng.choice(np.arange(rs + s_pad, rs + s_pad + 4 * k), size=k,
+                                 replace=False)
+        buf[k:k + 2] = (12_345, 67)
+    return (dix, ref.state_views(t(buf), k), t(blk), t(rest),
+            torch.tensor(rs, dtype=torch.int32, device=dev))
 
 
 def kernel_phase(dev, parity: Parity) -> None:
@@ -272,6 +340,29 @@ def kernel_phase(dev, parity: Parity) -> None:
                 parity.record("unpack_locals", kernel.unpack_locals(*args),
                               ref.unpack_locals_ref(*args),
                               f"seed={seed} B={n_sel} r0={r0}")
+
+    # The fused range step: both accumulator placements, the k limit.
+    for s_pad in (9_984, 65_536):
+        for k in (1, 10, kernel.MAX_K):
+            rng = np.random.default_rng(s_pad + k)
+            for dt, fmt in CONFIGS:
+                for theta in (0, 300):
+                    dix, state, blk, rest, rs = step_case(rng, dev, s_pad, dt, fmt, k,
+                                                          theta)
+                    for prune in (True, False):
+                        kw = dict(s_pad=s_pad, k=k, prune_blocks=prune, docs_format=fmt)
+                        parity.record_state(
+                            kernel.range_step(dix, state, blk, rest, rs, **kw),
+                            ref.range_step_ref(dix, state, blk, rest, rs, **kw),
+                            f"s_pad={s_pad} ({kernel.acc_placement(s_pad)}) k={k} "
+                            f"{dt}/{fmt} theta={theta} prune={prune}")
+    try:
+        kernel.range_step(dix, ref.init_state(kernel.MAX_K + 1, dev), blk, rest, rs,
+                          s_pad=65_536, k=kernel.MAX_K + 1)
+    except ValueError:
+        pass
+    else:
+        raise SmokeError(f"range_step took k = {kernel.MAX_K + 1}, above its limit")
 
 
 # ----------------------------------------------------------------- bag phase
@@ -450,12 +541,36 @@ def rank_safe(ids, vals, oracle_topk, scores) -> bool:
         int(scores[d]) == kth for d, v in zip(ids, vals) if v == kth)
 
 
+SCORER_KERNELS = ("range_step", "scatter_accumulate", "unpack_locals")
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.range_scorer import kernel
+
+    for name in SCORER_KERNELS:
+        getattr(kernel, name).launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.range_scorer import kernel
+
+    return {name: getattr(kernel, name).launches for name in SCORER_KERNELS}
+
+
+def check_one_launch_per_range(launches: dict, ranges: int, ctx: str) -> None:
+    """The engine's path: one range_step per scored range, nothing else."""
+    check(ranges > 0 and launches["range_step"] == ranges,
+          f"{ctx}: {launches['range_step']} range_step launches for {ranges} "
+          "scored ranges")
+    check(launches["scatter_accumulate"] == 0 and launches["unpack_locals"] == 0,
+          f"{ctx}: standalone scorer kernels launched on the engine's path: {launches}")
+
+
 def four_way_parity(index, queries, label: str, dev) -> dict:
     """Kernel engines == plain engines on the card; == oracle on safe exits."""
     import numpy as np
     from repro_torch.core.oracle import exhaustive_scores, exhaustive_topk
     from repro_torch.core.range_daat import Engine
-    from repro_torch.kernels.range_scorer import kernel
 
     t0 = time.perf_counter()
     oracle = [(exhaustive_topk(index, q, 10), exhaustive_scores(index, q))
@@ -469,13 +584,12 @@ def four_way_parity(index, queries, label: str, dev) -> dict:
                        docs_format=fmt)
         check(kern.impl == "cuda", f"{label}: default impl on cuda is {kern.impl}")
         plans = [kern.plan(q) for q in queries]
-        kernel.scatter_accumulate.launches = 0
-        kernel.unpack_locals.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         got = [observe(kern, p) for p in plans]
         kern.synchronize()
         kern_s = time.perf_counter() - t0
-        launches = (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches)
+        launches = read_launches()
         t0 = time.perf_counter()
         want = [observe(plain, p) for p in plans]
         plain.synchronize()
@@ -488,24 +602,29 @@ def four_way_parity(index, queries, label: str, dev) -> dict:
                 safe += 1
                 check(rank_safe(g[0], g[1], *oracle[i]),
                       f"{name} query {i}: differs from the exhaustive oracle")
+        ranges = sum(g[4] for g in got)
+        check_one_launch_per_range(launches, ranges, name)
         budgets = [int(rng.integers(1, max(w[2], 1) + 1)) for w in want]
+        reset_launches()
+        budgeted = [observe(kern, p, b) for p, b in zip(plans, budgets)]
+        budget_launches = read_launches()
+        budget_ranges = sum(g[4] for g in budgeted)
+        check_one_launch_per_range(budget_launches, budget_ranges, f"{name} budgeted")
         n_budget_exits = 0
-        for i, (p, b) in enumerate(zip(plans, budgets)):
-            g, w = observe(kern, p, b), observe(plain, p, b)
+        for i, (p, b, g) in enumerate(zip(plans, budgets, budgeted)):
+            w = observe(plain, p, b)
             check(g == w, f"{name} query {i} budget {b}: kernels {g} != plain {w}")
             n_budget_exits += g[6]
-        check(launches[0] > 0, f"{name}: scatter_accumulate never launched")
-        if fmt == "packed":
-            check(launches[1] > 0, f"{name}: unpack_locals never launched")
-        else:
-            check(launches[1] == 0, f"{name}: unpack_locals launched on int32 docids")
         out["engines"][f"{dt}/{fmt}"] = dict(
-            kernels_s=kern_s, plain_s=plain_s, scatter_launches=launches[0],
-            unpack_launches=launches[1], safe_exits=safe, budget_exits=n_budget_exits)
+            kernels_s=kern_s, plain_s=plain_s, ranges=ranges, launches=launches,
+            budget_ranges=budget_ranges, budget_launches=budget_launches,
+            safe_exits=safe, budget_exits=n_budget_exits)
         log(f"{name}: {len(queries)} queries equal to plain and oracle "
             f"({safe} safe/exhausted exits), {len(queries)} budgeted equal "
             f"({n_budget_exits} budget exits); kernels {kern_s:.2f} s, plain "
-            f"{plain_s:.2f} s; launches scatter {launches[0]}, unpack {launches[1]}")
+            f"{plain_s:.2f} s; range_step launches {launches['range_step']} = "
+            f"{ranges} ranges scored, budgeted {budget_launches['range_step']} = "
+            f"{budget_ranges}; standalone scatter/decode launches 0")
         del kern, plain
     return out
 
@@ -538,18 +657,30 @@ def _self_device_us(e) -> float:
     return float(e.self_cuda_time_total if t is None else t)
 
 
-def _profile_rows(fn, iters: int) -> list:
-    """The profiler's device rows over ``iters`` calls of ``fn``."""
+def _profile_rows(fn, iters: int, match: str | None = None) -> list:
+    """The profiler's device rows over ``iters`` calls of ``fn``.
+
+    With ``match``, only rows whose name contains it. A session that
+    recorded no such row runs again, up to three sessions in all: late in
+    a long run the profiler has lost a whole session's records (PERF.md).
+    """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(3):
+        fn()
         torch.cuda.synchronize()
-    return _device_events(prof)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in _device_events(prof) if match is None or match in e.key]
+        if rows:
+            if attempt:
+                log(f"  profiler: {attempt} session(s) recorded no device rows; "
+                    "this one did")
+            return rows
+    return []
 
 
 def device_us(fn, match: str | None = None, iters: int = 100) -> float:
@@ -558,7 +689,7 @@ def device_us(fn, match: str | None = None, iters: int = 100) -> float:
     With ``match``, only the kernel whose name contains it; else every
     device operation the call issues (fills, kernels, copies).
     """
-    rows = [e for e in _profile_rows(fn, iters) if match is None or match in e.key]
+    rows = _profile_rows(fn, iters, match)
     check(bool(rows), f"profiler recorded no device time for {match or 'the call'}")
     return sum(_self_device_us(e) for e in rows) / iters
 
@@ -566,15 +697,20 @@ def device_us(fn, match: str | None = None, iters: int = 100) -> float:
 def profile_serving(engine, queries, n: int = 32) -> dict:
     """Where one unbudgeted query's time goes: device busy vs wall.
 
-    The wall time comes from a run without the profiler; the device busy
-    time from a second, profiled run of the same plans.
+    Planning (``Engine.plan``: the host's block table and four uploads) is
+    timed apart, per query. The loop's wall time comes from a run without
+    the profiler; the device busy time from a second, profiled run of the
+    same plans.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.anytime import run_query_anytime
 
+    engine.synchronize()
+    t0 = time.perf_counter()
     plans = [engine.plan(q) for q in queries[:n]]
     engine.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     ranges = sum(run_query_anytime(engine, p).ranges_processed for p in plans)
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -590,9 +726,79 @@ def profile_serving(engine, queries, n: int = 32) -> dict:
     return dict(
         queries=n, ranges=ranges, wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / wall_ms, host_ms_per_range=wall_ms / ranges,
-        device_ops_per_range=ops / ranges,
+        device_busy_us_per_range=busy_ms * 1e3 / ranges,
+        device_ops_per_range=ops / ranges, plan_ms_per_query=plan_ms / n,
         top=[dict(name=e.key[:80], us=_self_device_us(e), count=e.count) for e in top],
     )
+
+
+def score_blocks_path(index, queries, parity: Parity, dev) -> dict:
+    """The standalone kernels' own path: ``ops.score_blocks(impl="cuda")``.
+
+    Each query's first range, all its blocks kept, through the scatter
+    (int32 docids) and the decode plus scatter (packed docids), against
+    the plain path, with the counters reset just before and read just
+    after.
+    """
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.range_scorer import ops
+
+    out = {}
+    for fmt in ("int32", "packed"):
+        eng = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format=fmt)
+        d = eng.dix
+        args = []
+        for q in queries:
+            plan = eng.plan(q)
+            blk = plan.blk_tab[int(plan.order_host[0])]
+            safe = blk.clamp(min=0)
+            kw = dict(pack_words=d.pack_words, pack_dir=d.pack_dir[safe],
+                      pack_firsts=d.pack_first[safe]) if fmt == "packed" else {}
+            args.append(((d.docs, d.impacts, d.blk_start[safe], d.blk_len[safe], blk >= 0,
+                          d.range_starts[int(plan.order_host[0])]), kw))
+        reset_launches()
+        got = [ops.score_blocks(*a, s_pad=eng.s_pad, impl="cuda", docs_format=fmt, **kw)
+               for a, kw in args]
+        out[fmt] = read_launches()
+        check(out[fmt]["range_step"] == 0 and out[fmt]["scatter_accumulate"] == len(args)
+              and out[fmt]["unpack_locals"] == (len(args) if fmt == "packed" else 0),
+              f"score_blocks {fmt}: launches {out[fmt]} for {len(args)} ranges")
+        for i, ((a, kw), g) in enumerate(zip(args, got)):
+            parity.record("scatter_accumulate", g,
+                          ops.score_blocks(*a, s_pad=eng.s_pad, impl="torch",
+                                           docs_format=fmt, **kw),
+                          f"score_blocks {fmt} query {i}")
+        del eng
+    launches = {n: sum(out[f][n] for f in out) for n in ("scatter_accumulate",
+                                                          "unpack_locals")}
+    log(f"score_blocks path (impl='cuda', {len(queries)} first ranges per docid "
+        f"format): equal to plain; launches {launches}")
+    return launches
+
+
+def step_bytes(dix, state, blk, rest, docs_format: str) -> int:
+    """Bytes a range step must move: block rows, the kept blocks' postings
+    (impacts, and docids or packed words) and the state in and out; the
+    accumulator stays on chip."""
+    import numpy as np
+    from repro_torch.kernels.range_scorer import ref
+
+    k = state.vals.shape[0]
+    b = blk.cpu().numpy()
+    safe = np.clip(b, 0, None)
+    lens = dix.blk_len.cpu().numpy()[safe]
+    keep = (b >= 0) & (dix.blk_maximp.cpu().numpy()[safe] + rest.cpu().numpy()
+                       > int(state.vals[-1]))
+    row = 4 * 2 + 4 * 3 + (4 * 2 if docs_format == "packed" else 0)
+    n = int(lens[keep].sum())
+    if docs_format == "packed":
+        _, widths = ref.unpack_dir(dix.pack_dir[blk.clamp(min=0)])
+        w = widths.cpu().numpy()[keep].astype(np.int64)
+        docs = int(((lens[keep].astype(np.int64) * w + 31) // 32).sum()) * 4
+    else:
+        docs = n * 4
+    return (b.shape[0] * row + n * dix.impacts.element_size() + docs
+            + 2 * (2 * k + 2) * 4 + 4)
 
 
 def kernel_timings(index, queries, parity: Parity, dev) -> dict:
@@ -659,9 +865,25 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
         library_device_us=None,
         bytes=int(words[valid].sum()) * 4 + B * 17 + B * 128 * 4,
     )
-    for d in (scatter, unpack):
+    # range_step: the whole first range, from an empty state (int8/packed).
+    state = eng.init_state()
+    step_args = (eng.dix, state, blk, plan.rest_tab[r], rs)
+    kw = dict(s_pad=s_pad, k=eng.k, docs_format="packed")
+    parity.record_state(kernel.range_step(*step_args, **kw),
+                        ref.range_step_ref(*step_args, **kw), "timing inputs")
+    wrapper = functools.partial(kernel.range_step, *step_args, **kw)
+    plain = functools.partial(ref.range_step_ref, *step_args, **kw)
+    step = dict(
+        shape=f"B={B} s_pad={s_pad} k={eng.k} ({kernel.acc_placement(s_pad)} acc)",
+        ms=time_ms(wrapper), plain_ms=time_ms(plain), library_ms=None,
+        kernel_device_us=device_us(wrapper, "range_step_kernel"),
+        wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
+        library_device_us=None,
+        bytes=step_bytes(eng.dix, state, blk, plan.rest_tab[r], "packed"),
+    )
+    for d in (scatter, unpack, step):
         d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
-    return {"scatter_accumulate": scatter, "unpack_locals": unpack}
+    return {"scatter_accumulate": scatter, "unpack_locals": unpack, "range_step": step}
 
 
 # ----------------------------------------------------------------------- main
@@ -715,10 +937,9 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
 
     parity = Parity()
     kernel_phase(dev, parity)
-    log(f"kernels: scatter_accumulate ({parity.cases['scatter_accumulate']} cases, "
-        f"{kernel.scatter_accumulate.launches} launches), unpack_locals "
-        f"({parity.cases['unpack_locals']} cases, {kernel.unpack_locals.launches} "
-        f"launches): parity ok (bitwise)")
+    log("kernels: " + ", ".join(
+        f"{n} ({parity.cases[n]} cases, {getattr(kernel, n).launches} launches)"
+        for n in SCORER_KERNELS) + ": parity ok (bitwise)")
 
     index, queries, builds = receive_index(jobs["preset"], "preset")
     record["preset"] = dict(build=builds, parity=four_way_parity(index, queries, "preset", dev))
@@ -728,51 +949,71 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
                            device_bytes=index.device_bytes("int8", "packed"))
     record["scale"]["parity"] = four_way_parity(index, queries, "scale", dev)
+    # The standalone scatter and decode, off the engine's path, on their own.
+    blocks_launches = score_blocks_path(index, queries, parity, dev)
+    record["scale"]["score_blocks_launches"] = blocks_launches
 
     # The main path: the serving loop over the kernels' engine.
     engine = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
-    log(f"scale: serving engine int8/packed, s_pad {engine.s_pad}, device bytes "
+    log(f"scale: serving engine int8/packed, s_pad {engine.s_pad} "
+        f"({kernel.acc_placement(engine.s_pad)} accumulator), device bytes "
         f"{sum(t.nbytes for t in engine.dix if t is not None)}")
-    kernel.scatter_accumulate.launches = 0
-    kernel.unpack_locals.launches = 0
+    reset_launches()
     stats = serve.serve(engine, queries, Reactive(alpha=1.0, beta=1.2, q=0.01))
-    launches = {"scatter_accumulate": kernel.scatter_accumulate.launches,
-                "unpack_locals": kernel.unpack_locals.launches}
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path was never launched: {launches}")
+    launches = read_launches()
+    check_one_launch_per_range(launches, stats["ranges"], "serving window")
     runs = stats["runs"]
     log(serve.format_report("reactive", stats))
-    log(f"main path launches: {launches} over {runs} query runs")
+    log(f"main path launches: {launches} over {runs} query runs, "
+        f"{stats['ranges']} ranges scored")
     record["scale"]["serve"] = stats
     record["scale"]["main_path_launches"] = launches
 
+    # Profiler sessions only after the serving window: opened before it,
+    # they slowed its host time per range (PERF.md).
     prof = profile_serving(engine, queries)
     record["scale"]["profile"] = prof
     log(f"profile ({prof['queries']} unbudgeted queries, {prof['ranges']} ranges): "
         f"wall {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.2f} ms, "
-        f"idle share {prof['idle_share']:.4f}, {prof['host_ms_per_range']:.3f} ms "
-        f"and {prof['device_ops_per_range']:.1f} device ops per range")
+        f"idle share {prof['idle_share']:.4f}, {prof['host_ms_per_range']:.4f} ms "
+        f"host, {prof['device_busy_us_per_range']:.2f} us device busy and "
+        f"{prof['device_ops_per_range']:.2f} device ops per range; plan "
+        f"{prof['plan_ms_per_query']:.3f} ms per query")
+    check(prof["device_ops_per_range"] <= 3,
+          f"{prof['device_ops_per_range']:.2f} device ops per range, more than 3")
     for row in prof["top"]:
         log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
 
     timings = kernel_timings(index, queries, parity, dev)
     kernels = []
-    for kname, line in (("scatter_accumulate", 47), ("unpack_locals", 107)):
+    # The standalone kernels report their own path's launches (score_blocks);
+    # range_step the serving window's.
+    path_launches = dict(blocks_launches, range_step=launches["range_step"])
+    replaces = {"scatter_accumulate": f"{TPU_SCORER}:47",
+                "unpack_locals": f"{TPU_SCORER}:107",
+                "range_step": f"{TPU_SCORER}:47 + {TPU_SCORER}:107"}
+    for kname in ("scatter_accumulate", "unpack_locals", "range_step"):
         tm = timings[kname]
         lib = "-" if tm["library_ms"] is None else f"{tm['library_ms'] * 1e3:.2f} us"
+        per_query = (f"{launches[kname] / runs:.2f} launches/query on the main path"
+                     if kname == "range_step" else
+                     f"{path_launches[kname]} launches on score_blocks, 0 on the main path")
         log(f"{kname} [{tm['shape']}]: {tm['ms'] * 1e3:.2f} us/call, plain "
             f"{tm['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
-            f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bytes']} B), "
-            f"{launches[kname] / runs:.2f} launches/query; device-only: kernel "
-            f"{tm['kernel_device_us']:.2f} us, wrapper {tm['wrapper_device_us']:.2f} us, "
-            f"plain {tm['plain_device_us']:.2f} us")
+            f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bytes']} B), {per_query}; "
+            f"device-only: kernel {tm['kernel_device_us']:.2f} us, wrapper "
+            f"{tm['wrapper_device_us']:.2f} us, plain {tm['plain_device_us']:.2f} us")
         kernels.append({
             "name": kname, "route": "cuda", "source": CU_SOURCE,
-            "replaces": f"src/repro/kernels/range_scorer/kernel.py:{line}",
-            "launches": launches[kname], "max_abs_err": parity.max_err[kname],
+            "replaces": replaces[kname],
+            "launches": path_launches[kname], "max_abs_err": parity.max_err[kname],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": "bytes", "library_ms": tm["library_ms"],
         })
+    log("range_step: latency, not its byte bound, limits it (the launch floor, "
+        "then the CTA's barrier-separated phases in turn): "
+        f"{timings['range_step']['kernel_device_us']:.2f} us device-only against a "
+        f"{timings['range_step']['bound_ms'] * 1e6:.1f} ns byte bound")
 
     record["bag"] = bag_phase(dev, parity)
     record["bag"]["timings"] = bag_timings(dev, parity)

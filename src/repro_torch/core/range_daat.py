@@ -10,10 +10,12 @@ same per-range scoring step:
     under a postings budget (the deterministic JASS-style proxy).
 
 The whole-query loop runs on the host here: it reads θ and the postings
-counter once per range (one device sync per range) to take the same exit
-decisions as the reference's ``lax.while_loop``. Scores, ids and counters
-stay int32 on the device; every host-observable matches the reference
-bitwise.
+counter once per range (one device->host copy per range) to take the same
+exit decisions as the reference's ``lax.while_loop``. Under ``impl="cuda"``
+a range step is one launch of the fused ``range_step`` kernel; under
+``impl="torch"`` it is that kernel's plain version. Scores, ids and
+counters stay int32 on the device; every host-observable matches the
+reference bitwise.
 
 Baselines share this engine via flags (DESIGN.md §2 table):
   ordering="boundsum"|"docid"  ×  bounds="range"|"global"  ×  safe/budget/fixed.
@@ -28,7 +30,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.clustered_index import BLOCK, ClusteredIndex, pack_dir_entries
+from repro_torch.kernels.range_scorer import kernel as scorer_kernel
 from repro_torch.kernels.range_scorer import ops as scorer_ops
+from repro_torch.kernels.range_scorer import ref as scorer_ref
+from repro_torch.kernels.range_scorer.ref import TopKState, init_state, merge_topk, theta
 
 __all__ = [
     "DOCS_FORMATS",
@@ -60,10 +65,9 @@ IMPACT_BIAS = scorer_ops.IMPACT_BIAS
 IMPACT_DTYPES = ("int32", "int8")
 DOCS_FORMATS = scorer_ops.DOCS_FORMATS
 IMPLS = scorer_ops.IMPLS
-INT32_MAX = 2**31 - 1
-# Low half of a packed (score, position) selection key: ranking by
-# ``LOW - position`` puts the smaller position first among equal scores.
-_LOW = 2**32 - 1
+INT32_MAX = scorer_ref.INT32_MAX
+# The range top-k under lax.top_k's tie order, which the tests pin here.
+_range_topk = scorer_ref.range_topk
 
 
 def resolve_device(device=None) -> torch.device:
@@ -117,80 +121,6 @@ class DeviceIndex(NamedTuple):
     pack_first: torch.Tensor | None = None  # [NB] int32 first docid per block
 
 
-class TopKState(NamedTuple):
-    vals: torch.Tensor  # [k] int32, sorted descending (0 = empty slot)
-    ids: torch.Tensor  # [k] int32 (-1 = empty)
-    postings: torch.Tensor  # 0-d int32 — postings scored so far
-    blocks: torch.Tensor  # 0-d int32 — blocks processed so far
-
-
-def init_state(k: int, device="cpu") -> TopKState:
-    return TopKState(
-        vals=torch.zeros(k, dtype=torch.int32, device=device),
-        ids=torch.full((k,), -1, dtype=torch.int32, device=device),
-        postings=torch.zeros((), dtype=torch.int32, device=device),
-        blocks=torch.zeros((), dtype=torch.int32, device=device),
-    )
-
-
-def theta(state: TopKState) -> torch.Tensor:
-    """Heap-entry threshold: k-th largest score so far (0 while unfilled)."""
-    return state.vals[-1]
-
-
-def _topk_positions(vals: torch.Tensor, tie: torch.Tensor, k: int) -> torch.Tensor:
-    """Positions of the k best entries under (vals desc, tie asc).
-
-    ``vals`` and ``tie`` are non-negative and below 2^31, so one int64 key
-    ``vals * 2^32 + (2^32 - 1 - tie)`` orders them exactly; ``torch.topk``
-    alone breaks ties in no fixed order.
-    """
-    key = (vals.to(torch.int64) << 32) | (_LOW - tie.to(torch.int64))
-    return torch.topk(key, k).indices
-
-
-def _merge_topk(
-    vals_a: torch.Tensor,
-    ids_a: torch.Tensor,
-    vals_b: torch.Tensor,
-    ids_b: torch.Tensor,
-    k: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Deterministic top-k merge: higher score first, then smaller docid.
-
-    The (score desc, docid asc) total order makes tie-breaking identical to
-    the host oracle, so safe traversals reproduce the oracle ranking
-    exactly. Delegates to ``merge_topk`` so the comparator is shared.
-    """
-    return merge_topk(torch.cat([vals_a, vals_b]), torch.cat([ids_a, ids_b]), k)
-
-
-def merge_topk(
-    vals: torch.Tensor, ids: torch.Tensor, k: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of flat (vals, ids) candidates under the heap's total order.
-
-    Score descending, docid ascending, empty slots (id < 0) last — the
-    reference's ``lexsort((i_key, -vals))``. Scores are sums of positive
-    impacts, so never negative. Empty slots are all (0, -1), so which of
-    them is picked does not show.
-    """
-    i_key = torch.where(ids >= 0, ids, INT32_MAX)
-    sel = _topk_positions(vals, i_key, k)
-    return vals[sel], ids[sel]
-
-
-def _range_topk(acc: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(values, local ids) of the k best accumulator slots.
-
-    ``jax.lax.top_k`` returns the lowest index among equal values; the
-    (score desc, local id asc) key reproduces that.
-    """
-    pos = torch.arange(acc.shape[0], dtype=torch.int64, device=acc.device)
-    loc = _topk_positions(acc, pos, k)
-    return acc[loc], loc.to(torch.int32)
-
-
 def score_range_step(
     dix: DeviceIndex,
     state: TopKState,
@@ -204,48 +134,17 @@ def score_range_step(
     prune_blocks: bool = True,
     docs_format: str = "int32",
 ) -> TopKState:
-    """Score one range and merge its top-k into the running state."""
-    th = theta(state)
-    safe_ids = blk_ids.clamp(min=0)
-    starts = dix.blk_start[safe_ids]
-    lens = dix.blk_len[safe_ids]
-    maximp = dix.blk_maximp[safe_ids]
-    keep = blk_ids >= 0
-    if prune_blocks:
-        # Block-level refinement (paper "Improved Pruning With Local Range
-        # Bounds"): a block survives only if its own max impact plus the
-        # other terms' bounds can beat the current threshold.
-        keep = keep & (maximp + rest > th)
+    """Score one range and merge its top-k into the running state.
 
-    pack_kw = {}
-    if docs_format == "packed":
-        pack_kw = dict(
-            pack_words=dix.pack_words,
-            pack_dir=dix.pack_dir[safe_ids],
-            pack_firsts=dix.pack_first[safe_ids],
-        )
-    acc = scorer_ops.score_blocks(
-        dix.docs,
-        dix.impacts,
-        starts,
-        lens,
-        keep,
-        range_start,
-        s_pad=s_pad,
-        impl=impl,
-        docs_format=docs_format,
-        **pack_kw,
-    )
-
-    vals, loc = _range_topk(acc, k)
-    cand_ids = torch.where(vals > 0, loc + range_start, -1).to(torch.int32)
-    nv, ni = _merge_topk(state.vals, state.ids, vals, cand_ids, k)
-    return TopKState(
-        vals=nv,
-        ids=ni,
-        postings=state.postings + torch.where(keep, lens, 0).sum(dtype=torch.int32),
-        blocks=state.blocks + keep.sum(dtype=torch.int32),
-    )
+    ``impl="cuda"`` is one launch of the fused ``range_step`` kernel;
+    ``impl="torch"`` its plain version. The old state stays valid.
+    """
+    kw = dict(s_pad=s_pad, k=k, prune_blocks=prune_blocks, docs_format=docs_format)
+    if impl == "cuda":
+        return scorer_kernel.range_step(dix, state, blk_ids, rest, range_start, **kw)
+    if impl == "torch":
+        return scorer_ref.range_step_ref(dix, state, blk_ids, rest, range_start, **kw)
+    raise ValueError(f"impl {impl!r} not in {IMPLS}")
 
 
 class TraverseResult(NamedTuple):
@@ -332,7 +231,7 @@ def _traverse_loop(
         quantum is None or steps < quantum
     ):
         # One device->host read per range: θ and the postings counter.
-        th, postings = torch.stack((theta(state), state.postings)).tolist()
+        th, postings = scorer_ref.theta_postings(state)
         s_safe = safe_stop and bounds_h[i] <= th and th > 0
         s_budget = postings >= budget or i >= maxr
         if not (s_safe or s_budget):
@@ -455,8 +354,10 @@ class Engine:
 
     ``device=None`` is the card and raises where there is none; pass
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``impl=None``
-    is ``"cuda"`` (the kernels) on a CUDA device and ``"torch"`` (the plain
-    versions) on the CPU; ``impl="cuda"`` on the CPU raises.
+    is ``"cuda"`` (the fused range-step kernel) on a CUDA device and
+    ``"torch"`` (its plain version) on the CPU; ``impl="cuda"`` on the CPU
+    raises, and so does ``impl="cuda"`` with k above the kernel's limit
+    (``kernels.range_scorer.kernel.MAX_K``).
     """
 
     def __init__(
@@ -479,6 +380,11 @@ class Engine:
             raise ValueError(
                 f"impl='cuda' launches CUDA kernels and needs a CUDA device, "
                 f"got device={str(self.device)!r}; use impl='torch' on the CPU"
+            )
+        if impl == "cuda" and not 1 <= k <= scorer_kernel.MAX_K:
+            raise ValueError(
+                f"impl='cuda' takes 1 <= k <= {scorer_kernel.MAX_K} (the range_step "
+                f"kernel's limit), got k={k}; use impl='torch' for a larger k"
             )
         self.index = index
         self.k = k

@@ -1,10 +1,10 @@
 // Range-scorer kernels for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (kernels/range_scorer/kernel.py).
 //
-// Both kernels launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError() so a refused launch is reported where it happened.
-// The Python wrappers allocate the outputs and check device, dtype, shape
-// and contiguity before any pointer reaches this file.
+// Every kernel launches on the caller's stream, allocates nothing, and its
+// entry point returns cudaGetLastError() so a refused launch is reported
+// where it happened. The Python wrappers allocate the outputs and check
+// device, dtype, shape and contiguity before any pointer reaches this file.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -13,8 +13,53 @@ namespace {
 
 constexpr int kBlock = 128;       // postings per block (core.clustered_index.BLOCK)
 constexpr int kPackDirBits = 27;  // core.clustered_index.PACK_DIR_BITS
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScatterThreads = 256;
 constexpr int64_t kScatterMaxCtas = 132 * 16;  // 16 CTAs per SM of an H100
+
+// ------------------------------------------------------ shared decode helpers
+//
+// The packed docid decode, used by unpack_locals_kernel and by
+// range_step_kernel alike, so the two decodes cannot drift apart.
+
+// A merged directory entry -> (first word of the block's run, width in bits).
+__device__ __forceinline__ void dir_entry(int32_t entry, int64_t* word_start, int* w) {
+  entry = max(entry, 0);
+  *word_start = entry & ((1 << kPackDirBits) - 1);
+  const int code = entry >> kPackDirBits;
+  *w = code == 0 ? 0 : (2 << code);  // PACK_WIDTHS = (0, 4, 8, 16, 32)
+}
+
+// The word that holds the delta of lane j of a block of length len (0 when
+// the lane reads none): only a lane inside the block reads a word, and
+// only the one word that holds its delta.
+__device__ __forceinline__ uint32_t lane_word(const uint32_t* __restrict__ words,
+                                              int64_t n_words, int64_t word_start,
+                                              int w, int j, int len) {
+  if (j >= len || w == 0 || n_words <= 0) return 0u;
+  int64_t idx = word_start + ((j * w) >> 5);
+  idx = idx < n_words ? idx : n_words - 1;  // the reference's clamp
+  return words[idx];
+}
+
+// Lane j's delta, bits [j*w, (j+1)*w) of its word; 0 past the length.
+__device__ __forceinline__ uint32_t lane_delta(uint32_t word, int w, int j, int len) {
+  if (j >= len || w == 0) return 0u;
+  const int bit = j * w;
+  // A shift by 32 is undefined in C++, so width 32 takes its own branch.
+  return w == 32 ? word : (word >> (bit & 31)) & ((1u << w) - 1u);
+}
+
+// Inclusive prefix sum over the 32 lanes of a warp, in uint32: its
+// wraparound equals the reference's int32 cumsum.
+__device__ __forceinline__ uint32_t warp_scan(uint32_t x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
 
 // scatter_accumulate
 //
@@ -31,6 +76,8 @@ constexpr int64_t kScatterMaxCtas = 132 * 16;  // 16 CTAs per SM of an H100
 // of ids and vals, and atomicAdd on int32 for the survivors. Integer
 // addition is order-free, so the result is bitwise the one-hot product's.
 // The wrapper zeroes acc. Zero values are skipped: padding lanes carry 0.
+// Off the engine's path since range_step_kernel fuses it (ops.score_blocks
+// still runs it).
 __global__ void __launch_bounds__(kScatterThreads)
 scatter_accumulate_kernel(const int32_t* __restrict__ ids,
                           const int32_t* __restrict__ vals, int64_t n,
@@ -58,11 +105,12 @@ scatter_accumulate_kernel(const int32_t* __restrict__ ids,
 // ids (512 B). The TPU sliced a fixed 128-word window per block out of a
 // zero-padded stream and selected among the widths with static repeats;
 // here one 128-thread CTA owns one block and lane j reads only the one
-// word that holds its delta, and only when j < len, so a narrow block
-// costs a few words. The 128-lane inclusive prefix sum is a warp shuffle
-// scan per warp plus one shared-memory pass over the four warp totals; it
-// runs in uint32, whose wraparound equals the reference's int32 cumsum.
-// An invalid row (keep == 0 or start < 0) writes -1 and reads no word.
+// word that holds its delta (lane_word), and only when j < len, so a
+// narrow block costs a few words. The 128-lane inclusive prefix sum is a
+// warp shuffle scan per warp plus one shared-memory pass over the four
+// warp totals. An invalid row (keep == 0 or start < 0) writes -1 and reads
+// no word. Off the engine's path since range_step_kernel fuses it
+// (ops.score_blocks still runs it).
 __global__ void __launch_bounds__(kBlock)
 unpack_locals_kernel(const uint32_t* __restrict__ words, int64_t n_words,
                      const int32_t* __restrict__ starts,
@@ -81,29 +129,14 @@ unpack_locals_kernel(const uint32_t* __restrict__ words, int64_t n_words,
     return;
   }
   const int len = lens[b];
-  const int entry = max(pack_dir[b], 0);
-  const int64_t word_start = entry & ((1 << kPackDirBits) - 1);
-  const int code = entry >> kPackDirBits;
-  const int w = code == 0 ? 0 : (2 << code);  // PACK_WIDTHS = (0, 4, 8, 16, 32)
-
-  uint32_t delta = 0;
-  if (j < len && w > 0 && n_words > 0) {
-    const int bit = j * w;
-    int64_t idx = word_start + (bit >> 5);
-    idx = idx < n_words ? idx : n_words - 1;  // the reference's clamp
-    const uint32_t word = words[idx];
-    // A shift by 32 is undefined in C++, so width 32 takes its own branch.
-    delta = w == 32 ? word : (word >> (bit & 31)) & ((1u << w) - 1u);
-  }
+  int64_t word_start;
+  int w;
+  dir_entry(pack_dir[b], &word_start, &w);
 
   const int lane = j & 31;
   const int warp = j >> 5;
-  uint32_t x = delta;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
-  }
+  uint32_t x = warp_scan(
+      lane_delta(lane_word(words, n_words, word_start, w, j, len), w, j, len), lane);
   __shared__ uint32_t warp_total[kBlock / 32];
   if (lane == 31) warp_total[warp] = x;
   __syncthreads();
@@ -111,6 +144,374 @@ unpack_locals_kernel(const uint32_t* __restrict__ words, int64_t n_words,
 
   const uint32_t doc = (uint32_t)pack_firsts[b] + x;
   row[j] = j < len ? (int32_t)(doc - (uint32_t)*range_start) : -1;
+}
+
+// range_step
+//
+// Replaces, on the engine's path, both TPU kernels above (_scatter_kernel,
+// src/repro/kernels/range_scorer/kernel.py:47, and _unpack_kernel, :107)
+// together with the XLA code around them in the reference's
+// score_range_step (src/repro/core/range_daat.py:162-220): one query's
+// whole range step in one launch. From the state (vals[k], ids[k],
+// postings, blocks) and B block ids it computes
+//   keep    = id >= 0 [and maximp + rest > theta, theta = vals[k-1]],
+//   acc[s]  = sum of widened impacts of the kept blocks' lanes whose
+//             range-local docid is s (int32 or packed docids),
+//   range top-k of acc under (score desc, local id asc): lax.top_k's order,
+//   merge with the state under (score desc, id asc, id -1 last),
+// and writes the new state, counters advanced, into a fresh buffer
+// out = vals[k] | postings | blocks | ids[k].
+//
+// Bound: bytes, and far below what one launch costs. The step reads B
+// block rows, the kept blocks' impacts and docids (or packed words) once,
+// and the state; the accumulator never leaves the chip. At the engine's
+// widths (B = 32..256 blocks, k = 10) that is a few to tens of kilobytes,
+// nanoseconds at HBM rate, so latency sets the time: the launch, then the
+// CTA's barrier-separated phases below, one after another. The design's
+// point is that a range costs one launch instead of ~67 eager operations.
+//
+// Design. One CTA of 1024 threads per range: a range's work (a few
+// thousand postings, an s_pad of ~10^4 slots) fits one SM, and the anytime
+// loop needs the result before it decides on the next range anyway.
+//   * Accumulator: int32 in dynamic shared memory, zeroed by the CTA, one
+//     shared-memory atomicAdd per valid lane (integer addition is
+//     order-free, so the sums are bitwise the reference's). Up to
+//     kMaxSharedSlots slots; a larger s_pad takes a global scratch buffer
+//     the wrapper allocates and the kernel zeroes (same code, templated).
+//   * Scatter: warp w takes blocks w, w+32, ...; lane l owns lanes l, l+32,
+//     l+64, l+96 of the block, so loads are coalesced. Each lane issues its
+//     four impacts and four docids (or packed words) before any of them is
+//     used: the index is far larger than L2, so a block costs three
+//     dependent cold loads (id, directory row, postings), not one pair per
+//     chunk. Packed docids decode with the shared helpers: a warp scan per
+//     32-lane chunk, carried.
+//     Tensor cores do not apply (the TPU used a one-hot matmul only for
+//     want of a scatter); TMA bulk copies do not fit either, since blk_start
+//     is not 16-byte aligned: plain coalesced loads.
+//   * Range top-k without a sort of acc: a binary search over the score
+//     finds T, the k-th largest value (log2(max score) counting passes over
+//     acc, each one CTA reduction), with g = #(score > T). Up to
+//     kRegSlots * 1024 slots each thread holds its slots in registers for
+//     the search and the candidate pass. One ordered pass
+//     then takes every slot above T and the first k - g slots equal to T
+//     (ballot + scan of warp counts, in slot order), so ties go to the
+//     smallest local id as in lax.top_k. Zero scores become (0, -1).
+//   * Merge: the k state entries and k candidates, as 64-bit keys
+//     (score, 2^32-1 - id'), id' = id or INT32_MAX for id < 0, bitonic-sorted
+//     descending in shared memory (n = next_pow2(2k) <= 2048: one warp when
+//     n <= 64); the first k are the new state.
+// Scores are sums of non-negative impacts, so never negative; 1 <= k <=
+// min(s_pad, kMaxK).
+constexpr int kStepThreads = 1024;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kRegSlots = 16;  // accumulator slots a thread keeps in registers
+constexpr int kMaxK = 1024;
+constexpr int kMaxSortN = 2 * kMaxK;
+constexpr int kSortBytes = kMaxSortN * (8 + 4);  // keys and ids
+constexpr int kSmemOptIn = 232448;               // per-block opt-in limit of sm_90
+constexpr int kStaticReserve = 1024;             // the kernel's static shared memory
+// Slots of the largest shared-memory accumulator. The top-k scratch is
+// reserved for k = kMaxK whatever k is, so the placement depends on s_pad
+// alone. kernel.py mirrors this number (SHARED_ACC_SLOTS).
+constexpr int kMaxSharedSlots = (kSmemOptIn - kStaticReserve - kSortBytes) / 4;
+
+struct StepArgs {
+  const int32_t* docs;      // [n_docs] int32 (int32 format)
+  const void* impacts;      // [n_imps] int32, or int8 biased by 128
+  const int32_t* blk_start;
+  const int32_t* blk_len;
+  const int32_t* blk_maximp;
+  const uint32_t* words;    // packed format: stream, directory, first docids
+  const int32_t* pack_dir;
+  const int32_t* pack_first;
+  const int32_t* blk_ids;   // [B], -1 padded
+  const int32_t* rest;      // [B]
+  const int32_t* range_start;
+  const int32_t* vals;      // state in
+  const int32_t* ids;
+  const int32_t* postings;
+  const int32_t* blocks;
+  int32_t* out;             // state out: vals[k] | postings | blocks | ids[k]
+  int32_t* acc_global;      // [s_pad] scratch for the global placement
+  int64_t n_docs;
+  int64_t n_imps;
+  int64_t n_words;
+  int n_blocks;
+  int s_pad;
+  int k;
+  int sort_n;
+  int prune;
+};
+
+__device__ __forceinline__ uint64_t heap_key(int32_t val, int32_t id) {
+  const uint32_t ikey = id >= 0 ? (uint32_t)id : 0x7fffffffu;
+  return ((uint64_t)((uint32_t)val ^ 0x80000000u) << 32) | (uint64_t)(0xffffffffu - ikey);
+}
+
+// Sum or max of one int per thread over the CTA, returned to every thread.
+// red holds two 32-int buffers used in turn (parity), so one barrier per
+// call suffices: a buffer is rewritten only after the next call's barrier.
+template <bool kMax>
+__device__ __forceinline__ int32_t cta_reduce(int32_t x, int32_t* red, int parity) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = kMax ? __reduce_max_sync(kFull, x) : __reduce_add_sync(kFull, x);
+  if (lane == 0) red[parity * 32 + warp] = x;
+  __syncthreads();
+  const int32_t y = red[parity * 32 + lane];
+  return kMax ? __reduce_max_sync(kFull, y) : __reduce_add_sync(kFull, y);
+}
+
+template <bool kSharedAcc, bool kPacked, bool kInt8>
+__global__ void __launch_bounds__(kStepThreads) range_step_kernel(const StepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* skey = reinterpret_cast<uint64_t*>(smem);
+  int32_t* sid = reinterpret_cast<int32_t*>(skey + a.sort_n);
+  int32_t* acc = kSharedAcc ? sid + a.sort_n : a.acc_global;
+  __shared__ int32_t red[2 * 32];   // cta_reduce's two buffers
+  __shared__ int32_t cnt2[2 * 64];  // the candidate pass's two buffers of warp counts
+  __shared__ uint32_t counters[2];  // postings and blocks of the kept blocks
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  const int k = a.k, s_pad = a.s_pad;
+  const int32_t theta = a.vals[k - 1];
+  const uint32_t rs = (uint32_t)*a.range_start;
+
+  for (int s = tid; s < s_pad; s += kStepThreads) acc[s] = 0;
+  if (tid < 2) counters[tid] = 0u;
+  __syncthreads();
+
+  // Scatter: warp w scores blocks w, w + 32, ... into acc.
+  uint32_t my_post = 0u, my_blocks = 0u;
+  for (int b = warp; b < a.n_blocks; b += kStepWarps) {
+    const int32_t id = a.blk_ids[b];
+    const int32_t safe = id < 0 ? 0 : id;
+    const int32_t start = a.blk_start[safe];
+    const int len = a.blk_len[safe];
+    bool keep = id >= 0;
+    if (a.prune) {
+      // Block-level refinement: own max impact plus the other terms'
+      // bounds must beat theta (int32 wraparound, as in the reference).
+      keep = keep && (int32_t)((uint32_t)a.blk_maximp[safe] + (uint32_t)a.rest[b]) > theta;
+    }
+    if (!keep) continue;  // uniform across the warp
+    my_post += (uint32_t)len;
+    my_blocks += 1u;
+    if (start < 0) continue;
+    int64_t word_start = 0;
+    int w = 0;
+    uint32_t carry = 0u;
+    if (kPacked) {
+      dir_entry(a.pack_dir[safe], &word_start, &w);
+      carry = (uint32_t)a.pack_first[safe];
+    }
+    // Issue every load of the block's lanes first: impacts, and docids or
+    // packed words. Offsets clamp to the array's end, as in the reference.
+    uint32_t doc_or_word[kBlock / 32];
+    int32_t imp[kBlock / 32];
+#pragma unroll
+    for (int c = 0; c < kBlock / 32; ++c) {
+      const int j = 32 * c + lane;
+      const int64_t off = (int64_t)start + j;
+      doc_or_word[c] = 0u;
+      imp[c] = 0;
+      if (j < len) {
+        const int64_t io = off < a.n_imps ? off : a.n_imps - 1;
+        imp[c] = kInt8 ? (int32_t)static_cast<const int8_t*>(a.impacts)[io] + 128
+                       : static_cast<const int32_t*>(a.impacts)[io];
+        if (!kPacked) doc_or_word[c] = (uint32_t)a.docs[off < a.n_docs ? off : a.n_docs - 1];
+      }
+      if (kPacked) doc_or_word[c] = lane_word(a.words, a.n_words, word_start, w, j, len);
+    }
+#pragma unroll
+    for (int c = 0; c < kBlock / 32; ++c) {
+      if (32 * c >= len) break;  // uniform
+      const int j = 32 * c + lane;
+      int32_t local;
+      if (kPacked) {
+        const uint32_t x = warp_scan(lane_delta(doc_or_word[c], w, j, len), lane);
+        local = (int32_t)(carry + x - rs);
+        carry += __shfl_sync(kFull, x, 31);
+      } else {
+        local = (int32_t)(doc_or_word[c] - rs);
+      }
+      if (j < len && local >= 0 && local < s_pad && imp[c] != 0) {
+        atomicAdd(acc + local, imp[c]);
+      }
+    }
+  }
+  if (lane == 0 && my_blocks != 0u) {
+    atomicAdd(&counters[0], my_post);
+    atomicAdd(&counters[1], my_blocks);
+  }
+  __syncthreads();
+
+  // This thread's slots tid, tid + 1024, ... in registers where they fit
+  // (-1, below every score, past s_pad).
+  const bool in_regs = s_pad <= kRegSlots * kStepThreads;
+  int32_t slot[kRegSlots];
+#pragma unroll
+  for (int i = 0; i < kRegSlots; ++i) {
+    const int s = tid + i * kStepThreads;
+    slot[i] = in_regs && s < s_pad ? acc[s] : -1;
+  }
+
+  // T = the k-th largest score; g = #(score > T). Invariants of the search:
+  // #(score >= lo) >= k, and g = #(score >= hi + 1).
+  int32_t mx = 0;
+  if (in_regs) {
+#pragma unroll
+    for (int i = 0; i < kRegSlots; ++i) mx = max(mx, slot[i]);
+  } else {
+    for (int s = tid; s < s_pad; s += kStepThreads) mx = max(mx, acc[s]);
+  }
+  int parity = 0;
+  int32_t lo = 0, hi = cta_reduce<true>(mx, red, parity), g = 0;
+  while (lo < hi) {
+    parity ^= 1;
+    const int32_t mid = lo + (int32_t)(((uint32_t)(hi - lo) + 1u) >> 1);
+    int32_t c = 0;
+    if (in_regs) {
+#pragma unroll
+      for (int i = 0; i < kRegSlots; ++i) c += slot[i] >= mid;
+    } else {
+      for (int s = tid; s < s_pad; s += kStepThreads) c += acc[s] >= mid;
+    }
+    c = cta_reduce<false>(c, red, parity);
+    if (c >= k) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+      g = c;
+    }
+  }
+  const int32_t T = lo;
+  const int need = k - g;  // slots equal to T to take, smallest local id first
+
+  // Candidates: slots above T at [k, k+g), slots equal to T at [k+g, 2k),
+  // each placed by its rank in slot order (ballots and a scan of the warp
+  // counts), so no atomics and ties keep lax.top_k's order. Zero scores
+  // carry id -1, as in the reference.
+  int gt_base = 0, eq_base = 0;
+  const bool take_eq = T > 0;
+  for (int base = 0, i = 0; base < s_pad && (gt_base < g || (take_eq && eq_base < need));
+       base += kStepThreads, ++i) {
+    const int s = base + tid;
+    int32_t v = -1;
+    if (in_regs) {
+      // Registers cannot be indexed at run time: select slot[i] by unrolling.
+#pragma unroll
+      for (int r = 0; r < kRegSlots; ++r) v = r == i ? slot[r] : v;
+    } else if (s < s_pad) {
+      v = acc[s];
+    }
+    const unsigned gt = __ballot_sync(kFull, v > T);
+    const unsigned eq = take_eq ? __ballot_sync(kFull, v == T) : 0u;
+    parity ^= 1;
+    int32_t* cnt = cnt2 + parity * 64;
+    if (lane == 0) {
+      cnt[warp] = __popc(gt);
+      cnt[32 + warp] = __popc(eq);
+    }
+    __syncthreads();
+    const uint32_t gx = warp_scan((uint32_t)cnt[lane], lane);
+    const uint32_t ex = warp_scan((uint32_t)cnt[32 + lane], lane);
+    const int g_before = warp == 0 ? 0 : (int)__shfl_sync(kFull, gx, warp - 1);
+    const int e_before = warp == 0 ? 0 : (int)__shfl_sync(kFull, ex, warp - 1);
+    const int32_t cand_id = (int32_t)((uint32_t)s + rs);
+    if (v > T) {
+      const int p = k + gt_base + g_before + __popc(gt & lt_mask);
+      skey[p] = heap_key(v, cand_id);
+      sid[p] = cand_id;
+    } else if (take_eq && v == T) {
+      const int rank = eq_base + e_before + __popc(eq & lt_mask);
+      if (rank < need) {
+        skey[k + g + rank] = heap_key(v, cand_id);
+        sid[k + g + rank] = cand_id;
+      }
+    }
+    gt_base += (int)__shfl_sync(kFull, gx, 31);
+    eq_base += (int)__shfl_sync(kFull, ex, 31);
+  }
+  if (!take_eq) {
+    for (int i = g + tid; i < k; i += kStepThreads) {
+      skey[k + i] = heap_key(0, -1);
+      sid[k + i] = -1;
+    }
+  }
+  for (int i = tid; i < k; i += kStepThreads) {
+    skey[i] = heap_key(a.vals[i], a.ids[i]);
+    sid[i] = a.ids[i];
+  }
+  for (int i = 2 * k + tid; i < a.sort_n; i += kStepThreads) {
+    skey[i] = 0ull;  // below every real key
+    sid[i] = -1;
+  }
+  __syncthreads();
+
+  // Bitonic sort of sort_n (key, id) pairs, descending.
+  const int n = a.sort_n;
+  const bool one_warp = n <= 64;
+  if (!one_warp || warp == 0) {
+    for (int size = 2; size <= n; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int t = tid; t < n / 2; t += kStepThreads) {
+          const int i = 2 * stride * (t / stride) + (t % stride);
+          const int j = i + stride;
+          const bool desc = (i & size) == 0;
+          const uint64_t ki = skey[i], kj = skey[j];
+          if (desc ? ki < kj : ki > kj) {
+            skey[i] = kj;
+            skey[j] = ki;
+            const int32_t tmp = sid[i];
+            sid[i] = sid[j];
+            sid[j] = tmp;
+          }
+        }
+        if (one_warp) {
+          __syncwarp();
+        } else {
+          __syncthreads();
+        }
+      }
+    }
+  }
+  if (one_warp) __syncthreads();
+
+  for (int i = tid; i < k; i += kStepThreads) {
+    a.out[i] = (int32_t)((uint32_t)(skey[i] >> 32) ^ 0x80000000u);
+    a.out[k + 2 + i] = sid[i];
+  }
+  if (tid == 0) {
+    a.out[k] = (int32_t)((uint32_t)*a.postings + counters[0]);
+    a.out[k + 1] = (int32_t)((uint32_t)*a.blocks + counters[1]);
+  }
+}
+
+// Raise the kernel's dynamic shared-memory limit to `bytes` the first time
+// a launch needs more than the default 48 KB, once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int variant, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  constexpr int kMaxDevices = 64;
+  static size_t allowed[kMaxDevices][8] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev][variant] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev][variant] = bytes;
+  return err;
+}
+
+template <bool kSharedAcc, bool kPacked, bool kInt8>
+cudaError_t launch_range_step(const StepArgs& a, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(range_step_kernel<kSharedAcc, kPacked, kInt8>,
+                                     kSharedAcc * 4 + kPacked * 2 + kInt8, smem);
+  if (err != cudaSuccess) return err;
+  range_step_kernel<kSharedAcc, kPacked, kInt8><<<1, kStepThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -145,6 +546,66 @@ int rs_unpack_locals(const void* words, int64_t n_words, const void* starts,
       (const int32_t*)pack_firsts, (const uint8_t*)keep,
       (const int32_t*)range_start, (int32_t*)out);
   return (int)cudaGetLastError();
+}
+
+// One range step. acc_global is null for the shared-memory accumulator
+// (s_pad <= kMaxSharedSlots) and a [s_pad] int32 scratch buffer otherwise.
+int rs_range_step(const void* docs, int64_t n_docs, const void* impacts,
+                  int64_t n_imps, int impacts_int8, const void* blk_start,
+                  const void* blk_len, const void* blk_maximp, const void* words,
+                  int64_t n_words, const void* pack_dir, const void* pack_first,
+                  int packed, const void* blk_ids, const void* rest, int64_t n_blocks,
+                  const void* range_start, const void* vals, const void* ids,
+                  const void* postings, const void* blocks, int64_t k, int64_t s_pad,
+                  int prune, void* acc_global, void* out, void* stream) {
+  if (k < 1 || k > kMaxK || k > s_pad || n_blocks < 0 || n_blocks > INT32_MAX ||
+      s_pad > INT32_MAX || (acc_global == nullptr && s_pad > kMaxSharedSlots) ||
+      (packed ? (words == nullptr && n_words > 0) : n_docs <= 0) || n_imps <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int sort_n = 2;
+  while (sort_n < 2 * k) sort_n <<= 1;
+  StepArgs a;
+  a.docs = (const int32_t*)docs;
+  a.impacts = impacts;
+  a.blk_start = (const int32_t*)blk_start;
+  a.blk_len = (const int32_t*)blk_len;
+  a.blk_maximp = (const int32_t*)blk_maximp;
+  a.words = (const uint32_t*)words;
+  a.pack_dir = (const int32_t*)pack_dir;
+  a.pack_first = (const int32_t*)pack_first;
+  a.blk_ids = (const int32_t*)blk_ids;
+  a.rest = (const int32_t*)rest;
+  a.range_start = (const int32_t*)range_start;
+  a.vals = (const int32_t*)vals;
+  a.ids = (const int32_t*)ids;
+  a.postings = (const int32_t*)postings;
+  a.blocks = (const int32_t*)blocks;
+  a.out = (int32_t*)out;
+  a.acc_global = (int32_t*)acc_global;
+  a.n_docs = n_docs;
+  a.n_imps = n_imps;
+  a.n_words = n_words;
+  a.n_blocks = (int)n_blocks;
+  a.s_pad = (int)s_pad;
+  a.k = (int)k;
+  a.sort_n = sort_n;
+  a.prune = prune;
+  const bool shared_acc = acc_global == nullptr;
+  const size_t smem = (size_t)sort_n * 12 + (shared_acc ? (size_t)s_pad * 4 : 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch ((shared_acc ? 4 : 0) + (packed ? 2 : 0) + (impacts_int8 ? 1 : 0)) {
+    case 0: err = launch_range_step<false, false, false>(a, smem, st); break;
+    case 1: err = launch_range_step<false, false, true>(a, smem, st); break;
+    case 2: err = launch_range_step<false, true, false>(a, smem, st); break;
+    case 3: err = launch_range_step<false, true, true>(a, smem, st); break;
+    case 4: err = launch_range_step<true, false, false>(a, smem, st); break;
+    case 5: err = launch_range_step<true, false, true>(a, smem, st); break;
+    case 6: err = launch_range_step<true, true, false>(a, smem, st); break;
+    default: err = launch_range_step<true, true, true>(a, smem, st); break;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,12 +1,17 @@
 """The range scorer's CUDA kernels: build, binding and launch wrappers.
 
-``csrc/range_scorer.cu`` holds two kernels written by hand for Hopper
-(``sm_90a``), each replacing one Pallas TPU kernel of the JAX package:
+``csrc/range_scorer.cu`` holds three kernels written by hand for Hopper
+(``sm_90a``):
 
-  * ``scatter_accumulate`` — range-local impact accumulation, on every
-    scored range;
+  * ``range_step`` — one whole range step of the engine (block pruning,
+    gather, packed decode, scatter into an on-chip accumulator, range top-k
+    and merge into the running state) in one launch; the engine's path,
+    fusing both Pallas TPU kernels of the JAX package;
+  * ``scatter_accumulate`` — range-local impact accumulation, the port of
+    ``_scatter_kernel``, run by ``ops.score_blocks``;
   * ``unpack_locals`` — decode of bit-packed docid deltas to range-local
-    ids, under ``docs_format="packed"``.
+    ids, the port of ``_unpack_kernel``, run by ``ops.score_blocks`` under
+    ``docs_format="packed"``.
 
 The source is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``.cache/repro_torch_kernels/`` of the
@@ -25,20 +30,39 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._nvcc import I64, NVCC_FLAGS, PTR, CudaLibrary, find_nvcc
+from repro_torch.kernels._nvcc import I64, INT, NVCC_FLAGS, PTR, CudaLibrary, find_nvcc
 from repro_torch.kernels._nvcc import data_ptr as _ptr
 from repro_torch.kernels.range_scorer import ref
 
-__all__ = ["NVCC_FLAGS", "build", "find_nvcc", "scatter_accumulate", "unpack_locals"]
+__all__ = [
+    "MAX_K",
+    "NVCC_FLAGS",
+    "SHARED_ACC_SLOTS",
+    "acc_placement",
+    "build",
+    "find_nvcc",
+    "range_step",
+    "scatter_accumulate",
+    "unpack_locals",
+]
 
 SOURCE = Path(__file__).parent / "csrc" / "range_scorer.cu"
 BLOCK = ref.BLOCK
+# The range_step kernel's limits (kMaxK and kMaxSharedSlots in the source):
+# its top-k takes 1 <= k <= min(s_pad, MAX_K), and its accumulator lies in
+# shared memory up to SHARED_ACC_SLOTS slots, in a global scratch above.
+MAX_K = 1024
+SHARED_ACC_SLOTS = 51_712
 
 _LIB = CudaLibrary(
     SOURCE,
     {
         "rs_scatter_accumulate": [PTR, PTR, I64, PTR, I64, PTR],
         "rs_unpack_locals": [PTR, I64, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR],
+        "rs_range_step": [
+            PTR, I64, PTR, I64, INT, PTR, PTR, PTR, PTR, I64, PTR, PTR, INT,
+            PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR, I64, I64, INT, PTR, PTR, PTR,
+        ],
     },
     error_fn="rs_error_string",
 )
@@ -64,6 +88,18 @@ def _same_device(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def _launch(fn: str, device: torch.device, *args) -> None:
+    """Call entry point ``fn`` on ``device``'s current stream.
+
+    A device context is opened only when ``device`` is not the current one.
+    """
+    if device.index == torch.cuda.current_device():
+        _LIB.launch(fn, *args, torch.cuda.current_stream().cuda_stream)
+        return
+    with torch.cuda.device(device):
+        _LIB.launch(fn, *args, torch.cuda.current_stream().cuda_stream)
+
+
 def scatter_accumulate(ids: torch.Tensor, vals: torch.Tensor, s_pad: int) -> torch.Tensor:
     """acc[s] = sum of vals at ids == s, for s in [0, s_pad); int32 [s_pad].
 
@@ -84,12 +120,8 @@ def scatter_accumulate(ids: torch.Tensor, vals: torch.Tensor, s_pad: int) -> tor
     acc = torch.zeros(s_pad, dtype=torch.int32, device=ids.device)
     if ids.numel() == 0:
         return acc
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        _LIB.launch(
-            "rs_scatter_accumulate",
-            _ptr(ids), _ptr(vals), ids.numel(), _ptr(acc), s_pad, stream,
-        )
+    _launch("rs_scatter_accumulate", ids.device,
+            _ptr(ids), _ptr(vals), ids.numel(), _ptr(acc), s_pad)
     scatter_accumulate.launches += 1
     return acc
 
@@ -139,16 +171,98 @@ def unpack_locals(
     out = torch.empty(B * BLOCK, dtype=torch.int32, device=device)
     if B == 0:
         return out
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _LIB.launch(
-            "rs_unpack_locals",
+    _launch("rs_unpack_locals", device,
             _ptr(pack_words), pack_words.numel(), _ptr(starts), _ptr(lens),
             _ptr(pack_dir), _ptr(pack_firsts), _ptr(keep), _ptr(range_start),
-            B, _ptr(out), stream,
-        )
+            B, _ptr(out))
     unpack_locals.launches += 1
     return out
 
 
 unpack_locals.launches = 0
+
+
+def acc_placement(s_pad: int) -> str:
+    """Where ``range_step`` keeps its accumulator: ``"shared"`` or ``"global"``."""
+    return "shared" if int(s_pad) <= SHARED_ACC_SLOTS else "global"
+
+
+def range_step(
+    dix,
+    state: ref.TopKState,
+    blk_ids: torch.Tensor,
+    rest: torch.Tensor,
+    range_start: torch.Tensor,
+    *,
+    s_pad: int,
+    k: int,
+    prune_blocks: bool = True,
+    docs_format: str = "int32",
+) -> ref.TopKState:
+    """One range step of the engine in one launch; see ``ref.range_step_ref``.
+
+    ``dix`` is the engine's ``core.range_daat.DeviceIndex``; ``blk_ids`` and
+    ``rest`` are int32 [B] (-1 padded ids), ``range_start`` is 0-d int32,
+    and the state's fields are int32 (``vals``/``ids`` [k], counters 0-d).
+    The new state is a fresh buffer laid out as ``ref.state_views``.
+    Raises for k outside [1, min(s_pad, MAX_K)].
+    """
+    s_pad, k = int(s_pad), int(k)
+    if not 1 <= k <= min(s_pad, MAX_K):
+        raise ValueError(
+            f"range_step takes 1 <= k <= min(s_pad, {MAX_K}) = {min(s_pad, MAX_K)}, "
+            f"got k={k}: its top-k keeps 2k candidates in shared memory"
+        )
+    if docs_format not in ref.DOCS_FORMATS:
+        raise ValueError(f"docs_format {docs_format!r} not in {ref.DOCS_FORMATS}")
+    packed = docs_format == "packed"
+    i32 = torch.int32
+    if dix.impacts.dtype not in (i32, torch.int8):
+        raise TypeError(f"dix.impacts must be int32 or int8, got {dix.impacts.dtype}")
+    docs = (("dix.pack_words", dix.pack_words, 1), ("dix.pack_dir", dix.pack_dir, 1),
+            ("dix.pack_first", dix.pack_first, 1)) if packed else (("dix.docs", dix.docs, 1),)
+    tensors = (
+        ("blk_ids", blk_ids, 1), ("rest", rest, 1), ("range_start", range_start, 0),
+        ("state.vals", state.vals, 1), ("state.ids", state.ids, 1),
+        ("state.postings", state.postings, 0), ("state.blocks", state.blocks, 0),
+        ("dix.blk_start", dix.blk_start, 1), ("dix.blk_len", dix.blk_len, 1),
+        ("dix.blk_maximp", dix.blk_maximp, 1), *docs,
+    )
+    for name, t, ndim in tensors:
+        if t is None:
+            raise ValueError(f"docs_format={docs_format!r} needs {name}")
+        _check(t, name, i32, ndim)
+    if rest.shape != blk_ids.shape:
+        raise ValueError(f"rest {tuple(rest.shape)} and blk_ids {tuple(blk_ids.shape)} differ")
+    if state.vals.shape[0] != k or state.ids.shape[0] != k:
+        raise ValueError(f"state holds {state.vals.shape[0]} slots, k is {k}")
+    device = blk_ids.device
+    if device.type == "cpu":
+        return ref.range_step_ref(dix, state, blk_ids, rest, range_start, s_pad=s_pad,
+                                  k=k, prune_blocks=prune_blocks, docs_format=docs_format)
+    if device.type != "cuda":
+        raise ValueError(f"range_step runs on cuda or cpu, not {device}")
+    # get_device() is an int: cheaper than comparing torch.device objects.
+    index = device.index
+    for name, t, _ in (*tensors, ("dix.impacts", dix.impacts, 1)):
+        if t.get_device() != index:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+    out = torch.empty(2 * k + 2, dtype=i32, device=device)
+    acc = None if acc_placement(s_pad) == "shared" else torch.empty(
+        s_pad, dtype=i32, device=device)
+    _launch(
+        "rs_range_step", device,
+        0 if packed else _ptr(dix.docs), 0 if packed else dix.docs.numel(),
+        _ptr(dix.impacts), dix.impacts.numel(), int(dix.impacts.dtype == torch.int8),
+        _ptr(dix.blk_start), _ptr(dix.blk_len), _ptr(dix.blk_maximp),
+        _ptr(dix.pack_words) if packed else 0, dix.pack_words.numel() if packed else 0,
+        _ptr(dix.pack_dir) if packed else 0, _ptr(dix.pack_first) if packed else 0,
+        int(packed), _ptr(blk_ids), _ptr(rest), blk_ids.numel(), _ptr(range_start),
+        _ptr(state.vals), _ptr(state.ids), _ptr(state.postings), _ptr(state.blocks),
+        k, s_pad, int(bool(prune_blocks)), 0 if acc is None else _ptr(acc), _ptr(out),
+    )
+    range_step.launches += 1
+    return ref.state_views(out, k)
+
+
+range_step.launches = 0

@@ -8,7 +8,9 @@ docids reach the scorer: ``"int32"`` gathers the raw docid array,
 — the two are bitwise identical by contract.
 
 Under ``impl="cuda"`` the gather of impacts and docids stays plain
-PyTorch around the kernels, as it stayed XLA around the Pallas kernels.
+PyTorch around the two standalone kernels, as it stayed XLA around the
+Pallas kernels. The engine's range step does not come through here: it
+runs the fused ``kernel.range_step`` (``core.range_daat.score_range_step``).
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.range_scorer import kernel, ref
-from repro_torch.kernels.range_scorer.ref import IMPACT_BIAS  # noqa: F401 — re-export
+from repro_torch.kernels.range_scorer.ref import DOCS_FORMATS, IMPACT_BIAS  # noqa: F401
 
-DOCS_FORMATS = ("int32", "packed")
 IMPLS = ("torch", "cuda")
 
 __all__ = ["DOCS_FORMATS", "IMPACT_BIAS", "IMPLS", "score_blocks"]

@@ -3,10 +3,18 @@
 Scores one document range: gathers the postings of the query's surviving
 blocks and scatter-adds quantized impacts into a range-local int32
 accumulator. Every function mirrors its namesake in the JAX package's
-``kernels/range_scorer/ref.py`` bitwise; the two CUDA kernels in
-``kernel.py`` must match :func:`scatter_accumulate_ref` and
-:func:`unpack_locals_ref` exactly. The CPU tests run these functions, and
-``chip_smoke.py`` holds the kernels against them on the card.
+``kernels/range_scorer/ref.py`` bitwise; the CUDA kernels in ``kernel.py``
+must match :func:`scatter_accumulate_ref`, :func:`unpack_locals_ref` and
+:func:`range_step_ref` exactly. :func:`range_step_ref` is one whole range
+step of the engine (the reference's ``core/range_daat.py::score_range_step``):
+block pruning, the scorer, the range top-k and the merge into the running
+top-k state. The CPU tests run these functions, and ``chip_smoke.py`` holds
+the kernels against them on the card.
+
+The running state is one int32 buffer laid out ``vals[k] | postings |
+blocks | ids[k]``, and :class:`TopKState`'s fields are views of it: θ and
+the postings counter sit side by side, so the host reads both in one copy
+(:func:`theta_postings`). The ``range_step`` kernel writes the same layout.
 
 The packed word stream is held as int32 carrying the uint32 bit pattern:
 PyTorch has no right shift for ``uint32`` on the CPU, so the decode widens
@@ -14,6 +22,8 @@ each word to int64 and masks it back to 32 bits before shifting.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,20 +35,73 @@ from repro_torch.core.clustered_index import BLOCK, PACK_DIR_BITS, PACK_WIDTHS
 # widens with ``+ IMPACT_BIAS`` back into exact int32.
 IMPACT_BIAS = 128
 
+DOCS_FORMATS = ("int32", "packed")
+INT32_MAX = 2**31 - 1
 _WORD_MASK = 0xFFFFFFFF
+# Low half of a packed (score, position) selection key: ranking by
+# ``LOW - position`` puts the smaller position first among equal scores.
+_LOW = 2**32 - 1
 
 __all__ = [
     "BLOCK",
+    "DOCS_FORMATS",
     "IMPACT_BIAS",
+    "TopKState",
     "gather_block_impacts",
     "gather_block_postings",
     "gather_block_postings_packed",
+    "init_state",
+    "merge_topk",
+    "range_step_ref",
+    "range_topk",
     "scatter_accumulate_ref",
     "score_blocks_packed_ref",
     "score_blocks_ref",
+    "state_views",
+    "theta",
+    "theta_postings",
     "unpack_dir",
     "unpack_locals_ref",
 ]
+
+
+class TopKState(NamedTuple):
+    vals: torch.Tensor  # [k] int32, sorted descending (0 = empty slot)
+    ids: torch.Tensor  # [k] int32 (-1 = empty)
+    postings: torch.Tensor  # 0-d int32 — postings scored so far
+    blocks: torch.Tensor  # 0-d int32 — blocks processed so far
+
+
+def state_views(buf: torch.Tensor, k: int) -> TopKState:
+    """The state over one int32 buffer ``vals[k] | postings | blocks | ids[k]``."""
+    return TopKState(vals=buf[:k], ids=buf[k + 2:], postings=buf[k], blocks=buf[k + 1])
+
+
+def init_state(k: int, device="cpu") -> TopKState:
+    """An empty heap: k slots (0, -1), counters 0; one upload to ``device``."""
+    buf = torch.zeros(2 * k + 2, dtype=torch.int32)
+    buf[k + 2:] = -1
+    return state_views(buf.to(device), k)
+
+
+def theta(state: TopKState) -> torch.Tensor:
+    """Heap-entry threshold: k-th largest score so far (0 while unfilled)."""
+    return state.vals[-1]
+
+
+def theta_postings(state: TopKState) -> list[int]:
+    """[θ, postings] on the host: one device->host copy for a laid-out state.
+
+    A state whose fields are views of one buffer (``state_views``) has θ and
+    the postings counter adjacent, so one two-element view is read; any
+    other state is stacked first.
+    """
+    vals, post = state.vals, state.postings
+    k = vals.shape[0]
+    if (post.data_ptr() == vals.data_ptr() + 4 * k
+            and post.untyped_storage().data_ptr() == vals.untyped_storage().data_ptr()):
+        return vals.as_strided((2,), (1,), vals.storage_offset() + k - 1).tolist()
+    return torch.stack((vals[-1], post)).tolist()
 
 
 def _lanes(device: torch.device) -> torch.Tensor:
@@ -219,3 +282,88 @@ def score_blocks_packed_ref(
         pack_dir, pack_firsts, keep, range_start,
     )
     return scatter_accumulate_ref(local, vals, s_pad)
+
+
+def _topk_positions(vals: torch.Tensor, tie: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k best entries under (vals desc, tie asc).
+
+    ``vals`` and ``tie`` are non-negative and below 2^31, so one int64 key
+    ``vals * 2^32 + (2^32 - 1 - tie)`` orders them exactly; ``torch.topk``
+    alone breaks ties in no fixed order.
+    """
+    key = (vals.to(torch.int64) << 32) | (_LOW - tie.to(torch.int64))
+    return torch.topk(key, k).indices
+
+
+def merge_topk(
+    vals: torch.Tensor, ids: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of flat (vals, ids) candidates under the heap's total order.
+
+    Score descending, docid ascending, empty slots (id < 0) last — the
+    reference's ``lexsort((i_key, -vals))``. Scores are sums of positive
+    impacts, so never negative. Empty slots are all (0, -1), so which of
+    them is picked does not show.
+    """
+    i_key = torch.where(ids >= 0, ids, INT32_MAX)
+    sel = _topk_positions(vals, i_key, k)
+    return vals[sel], ids[sel]
+
+
+def range_topk(acc: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, local ids) of the k best accumulator slots.
+
+    ``jax.lax.top_k`` returns the lowest index among equal values; the
+    (score desc, local id asc) key reproduces that.
+    """
+    pos = torch.arange(acc.shape[0], dtype=torch.int64, device=acc.device)
+    loc = _topk_positions(acc, pos, k)
+    return acc[loc], loc.to(torch.int32)
+
+
+def range_step_ref(
+    dix,
+    state: TopKState,
+    blk_ids: torch.Tensor,  # [B] int32, -1 padded
+    rest: torch.Tensor,  # [B] int32 — bound sum of *other* terms for pruning
+    range_start: torch.Tensor,  # 0-d int32
+    *,
+    s_pad: int,
+    k: int,
+    prune_blocks: bool = True,
+    docs_format: str = "int32",
+) -> TopKState:
+    """Score one range and merge its top-k into the running state.
+
+    The plain version of the ``range_step`` kernel. ``dix`` is the engine's
+    ``core.range_daat.DeviceIndex``; the result lies in a fresh buffer, so
+    ``state`` stays valid.
+    """
+    th = theta(state)
+    safe_ids = blk_ids.clamp(min=0)
+    starts = dix.blk_start[safe_ids]
+    lens = dix.blk_len[safe_ids]
+    maximp = dix.blk_maximp[safe_ids]
+    keep = blk_ids >= 0
+    if prune_blocks:
+        # Block-level refinement (paper "Improved Pruning With Local Range
+        # Bounds"): a block survives only if its own max impact plus the
+        # other terms' bounds can beat the current threshold.
+        keep = keep & (maximp + rest > th)
+    if docs_format == "packed":
+        acc = score_blocks_packed_ref(
+            dix.pack_words, dix.impacts, starts, lens, dix.pack_dir[safe_ids],
+            dix.pack_first[safe_ids], keep, range_start, s_pad,
+        )
+    elif docs_format == "int32":
+        acc = score_blocks_ref(dix.docs, dix.impacts, starts, lens, keep, range_start,
+                               s_pad)
+    else:
+        raise ValueError(f"docs_format {docs_format!r} not in {DOCS_FORMATS}")
+
+    vals, loc = range_topk(acc, k)
+    cand_ids = torch.where(vals > 0, loc + range_start, -1).to(torch.int32)
+    nv, ni = merge_topk(torch.cat([state.vals, vals]), torch.cat([state.ids, cand_ids]), k)
+    postings = state.postings + torch.where(keep, lens, 0).sum(dtype=torch.int32)
+    blocks = state.blocks + keep.sum(dtype=torch.int32)
+    return state_views(torch.cat([nv, postings[None], blocks[None], ni]), k)

@@ -76,17 +76,20 @@ def serve(
     The first ``n_calibrate`` queries run unbudgeted first: they warm the
     engine, give the exhaustive latency distribution (the default SLA is a
     quarter of its P99) and the oracle rankings RBO is measured against.
-    ``runs`` counts every traversal made, warm-up and calibration included.
+    ``runs`` counts every traversal made, warm-up and calibration included,
+    and ``ranges`` the ranges they scored.
     """
     k = engine.k
     warm, calib = queries[:3], queries[:n_calibrate]
+    ranges = 0
     for q in warm:  # first launches, allocator, kernel load
-        engine.traverse(engine.plan(q))
+        ranges += engine.traverse(engine.plan(q)).ranges_processed
     engine.synchronize()
 
     base, oracle = [], {}
     for i, q in enumerate(calib):
         res = run_query_anytime(engine, engine.plan(q), policy=None)
+        ranges += res.ranges_processed
         base.append(res.elapsed_ms)
         oracle[i] = exhaustive_topk(engine.index, q, k)[0].tolist()
     exh_p99 = float(np.percentile(base, 99))
@@ -97,6 +100,7 @@ def serve(
     for i, q in enumerate(queries):
         res = run_query_anytime(engine, engine.plan(q), policy=policy,
                                 budget_ms=budget)
+        ranges += res.ranges_processed
         times.append(res.elapsed_ms)
         if i in oracle:
             vals.append(rbo(res.doc_ids.tolist(), oracle[i], phi=0.8))
@@ -105,6 +109,7 @@ def serve(
     return {
         "queries": len(queries),
         "runs": len(warm) + len(calib) + len(queries),
+        "ranges": ranges,
         "sla_ms": budget,
         "exhaustive_p99_ms": exh_p99,
         "wall_s": wall,

@@ -9,8 +9,11 @@ JAX is not installed:
 (``--noconftest`` because ``tests/conftest.py`` builds the reference's
 fixtures with the JAX package.) Kernel outputs must equal their plain
 versions bitwise, and the kernels' engine must equal the plain engine on
-every host-observable. The bag reduce sums floats in another order than
-its plain version, so it is held within a stated tolerance instead.
+every host-observable. The fused ``range_step`` kernel is held bitwise
+against ``range_step_ref`` at both accumulator placements (shared memory
+at ``s_pad`` 9,984, a global scratch at 65,536). The bag reduce sums
+floats in another order than its plain version, so it is held within a
+stated tolerance instead.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.core.clustered_index import BLOCK, build_index, pack_dir_entries, pack_docs
 from repro_torch.core.oracle import exhaustive_topk
-from repro_torch.core.range_daat import Engine
+from repro_torch.core.range_daat import DeviceIndex, Engine
 from repro_torch.data.synth import make_corpus, make_query_log
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
@@ -129,6 +132,98 @@ def test_cuda_engine_matches_plain_engine(cuda_device, small_index, impact_dtype
         # Safe exits match the oracle's scores; ids may differ among ties
         # at the k-th score, as in the reference.
         assert vals.tolist() == exhaustive_topk(index, q, 10)[1].tolist()
+
+
+def _step_case(rng, dev, s_pad, impact_dtype, docs_format, k, theta, n_blocks=256):
+    """A range-step input on ``dev``: a pool of blocks with sorted docids in
+    one range of ``s_pad`` docs, ``n_blocks`` of them listed (the last few
+    -1), and a state that is empty (``theta`` 0) or full with θ > 0."""
+    n_pool, rs = 400, 1_000
+    lens = rng.integers(1, BLOCK + 1, size=n_pool)
+    lens[::7] = BLOCK
+    starts = np.cumsum(lens) - lens
+    docs = np.concatenate([np.sort(rng.choice(s_pad, size=int(n), replace=False))
+                           for n in lens]).astype(np.int64) + rs
+    imps = rng.integers(1, 256, size=docs.shape[0])
+    imps[: docs.shape[0] // 3] = 9  # many equal sums
+    maximp = np.array([imps[a:a + n].max() for a, n in zip(starts, lens)])
+    stored = (imps - ref.IMPACT_BIAS).astype(np.int8) if impact_dtype == "int8" \
+        else imps.astype(np.int32)
+    cols = dict(docs=docs, impacts=stored, blk_start=starts, blk_len=lens,
+                blk_maximp=maximp, bounds_dense=np.zeros((1, 1)),
+                range_starts=np.array([rs]), range_sizes=np.array([s_pad]))
+    if docs_format == "packed":
+        packed = pack_docs(docs, starts, lens)
+        cols.update(docs=np.zeros(1), pack_words=np.asarray(packed.words,
+                                                            np.uint32).view(np.int32),
+                    pack_dir=pack_dir_entries(packed), pack_first=packed.blk_first)
+    dix = DeviceIndex(**{n: _cuda(a, dev, None if n == "impacts" else np.int32)
+                         for n, a in cols.items()})
+    blk = rng.choice(n_pool, size=n_blocks, replace=False).astype(np.int32)
+    blk[-3:] = -1
+    rest = rng.integers(0, 400, size=n_blocks).astype(np.int32)
+    buf = np.zeros(2 * k + 2, np.int32)
+    buf[k + 2:] = -1
+    if theta:
+        buf[:k] = np.sort(rng.integers(theta, theta + 200, size=k))[::-1]
+        buf[k + 2:] = rng.choice(np.arange(rs + s_pad, rs + s_pad + 4 * k), size=k,
+                                 replace=False)
+        buf[k:k + 2] = (12_345, 67)
+    state = ref.state_views(_cuda(buf, dev), k)
+    return dix, state, _cuda(blk, dev), _cuda(rest, dev), torch.tensor(
+        rs, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 1024])
+@pytest.mark.parametrize("s_pad", [9_984, 65_536])
+def test_range_step_matches_plain(cuda_device, s_pad, k):
+    """Both accumulator placements, θ = 0 and θ > 0, all four configurations."""
+    assert kernel.acc_placement(s_pad) == ("shared" if s_pad == 9_984 else "global")
+    rng = np.random.default_rng(s_pad + k)
+    for impact_dtype, docs_format in CONFIGS:
+        for theta in (0, 300):
+            dix, state, blk, rest, rs = _step_case(rng, cuda_device, s_pad, impact_dtype,
+                                                   docs_format, k, theta)
+            for prune in (True, False):
+                kw = dict(s_pad=s_pad, k=k, prune_blocks=prune, docs_format=docs_format)
+                before = kernel.range_step.launches
+                got = kernel.range_step(dix, state, blk, rest, rs, **kw)
+                torch.cuda.synchronize()
+                assert kernel.range_step.launches == before + 1
+                want = ref.range_step_ref(dix, state, blk, rest, rs, **kw)
+                ctx = f"{impact_dtype}/{docs_format} theta={theta} prune={prune}"
+                for name, g, w in zip(ref.TopKState._fields, got, want):
+                    assert torch.equal(g, w), f"{ctx}: {name}"
+                assert got.postings.data_ptr() == got.vals.data_ptr() + 4 * k
+
+
+@pytest.mark.cuda
+def test_range_step_raises_above_its_k_limit(cuda_device):
+    rng = np.random.default_rng(0)
+    dix, _, blk, rest, rs = _step_case(rng, cuda_device, 9_984, "int32", "int32", 10, 0)
+    state = ref.init_state(kernel.MAX_K + 1, cuda_device)
+    with pytest.raises(ValueError, match=f"min\\(s_pad, {kernel.MAX_K}\\)"):
+        kernel.range_step(dix, state, blk, rest, rs, s_pad=9_984, k=kernel.MAX_K + 1)
+    with pytest.raises(ValueError, match="impl='cuda' takes"):
+        Engine(build_index(make_corpus(n_docs=300, n_terms=400, n_topics=2,
+                                       mean_doc_len=30, seed=0), n_ranges=2,
+                           strategy="clustered", bits=8),
+               k=kernel.MAX_K + 1, device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("docs_format", ["int32", "packed"])
+def test_cuda_engine_launches_range_step_once_per_range(cuda_device, small_index,
+                                                        docs_format):
+    index, queries = small_index
+    kern = Engine(index, k=10, device=cuda_device, impact_dtype="int8",
+                  docs_format=docs_format)
+    counts = (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches)
+    kernel.range_step.launches = 0
+    ranges = sum(kern.traverse(kern.plan(q)).ranges_processed for q in queries)
+    assert kernel.range_step.launches == ranges > 0
+    assert (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches) == counts
 
 
 # The bag reduce sums L terms in ascending order; the plain version's einsum
