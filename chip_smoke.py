@@ -11,29 +11,45 @@ fails (non-zero exit, no result line) on any fault:
      and prints each build's time;
   2. kernel phase — each range-scorer kernel against its plain PyTorch
      version on the card, bitwise: the standalone scatter and decode over
-     the CPU tests' cases and main-path shapes, and the fused range step
+     the CPU tests' cases and main-path shapes, the fused range step
      (``range_step``) at both accumulator placements (shared memory at
      ``s_pad`` 9,984, a global scratch at 65,536), k 1, 10 and 1,024,
-     θ = 0 and θ > 0, four configurations, pruning on and off;
+     θ = 0 and θ > 0, four configurations, pruning on and off; then the
+     device-side loop (``traverse``) against ``traverse_ref`` on every
+     carry field of every lane: both placements, k 1/10/1,024, N 1/5/32
+     lanes with dummy and parked lanes and tie-heavy mid-flight states,
+     four configurations, quantum None/1/2/3 with every chained run equal
+     to the uninterrupted one;
   3. preset phase — the benchmark preset (24,000 docs, ``clustered_bp``),
      200 queries: four engines on the card, int32/int8 impacts ×
      int32/packed docids, each equal to the plain path (``impl="torch"``)
      on the card and to the numpy oracle on safe exits (up to ties at the
      k-th score, as the reference's own tests allow), with one
-     ``range_step`` launch per range each engine scored and no standalone
-     scatter or decode launch;
+     ``traverse`` launch per whole-query traversal and no ``range_step``,
+     scatter or decode launch; then the anytime loop (``Engine.step``)
+     on every query, run to its end and under ``Fixed`` caps, kernel
+     engine equal to plain and to the whole-query traversal, with one
+     ``range_step`` launch per range and nothing else;
   4. scale phase — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
-     the same parity, then the standalone kernels' own path
+     the same parity; the standalone kernels' own path
      (``ops.score_blocks(impl="cuda")`` on each query's first range, both
-     docid formats, against its plain version), then the serving loop of
+     docid formats, against its plain version); batch parity
+     (``BatchEngine`` on cuda == on torch == ``Engine.traverse`` per
+     query, 200 queries at ``max_batch`` 32, unbudgeted, budgeted and
+     range-capped, one ``traverse`` per chunk); the serving loop of
      ``launch/serve.py`` (Reactive policy, SLA = 25% of the exhaustive
-     P99) with the launch counters reset just before and read just after
-     (one ``range_step`` per scored range), then a profiled serving window
-     that splits a query's time between the device and the host (plan
-     time per query apart), then each kernel's time at main-path shapes
-     beside its bound, its plain version and, for the scatter,
-     ``Tensor.index_add_`` (CUDA events around many calls, launch gaps
-     included, and device-only time from ``torch.profiler``);
+     P99: one ``range_step`` per range of the anytime loop, one
+     ``traverse`` per warm-up traversal); the batch serving window of
+     ``launch/serve.py --mode batch`` (``MicroBatchServer`` at batch 16:
+     one ``traverse`` per dispatch); each window with the launch counters
+     reset just before and read just after; then a profiled serving
+     window that splits a query's time between the device and the host
+     (plan time per query apart), a profiled batch window (plan,
+     dispatch, device and read ms per batch, device idle share), and each
+     kernel's time at main-path shapes beside its bound, its plain
+     version and, for the scatter, ``Tensor.index_add_`` (CUDA events
+     around many calls, launch gaps included, and device-only time from
+     ``torch.profiler``);
   5. bag phase — the bag-reduce kernel against its plain version on the
      card, float32 and bfloat16, over the CPU tests' shapes, then the
      EmbeddingBag lookup (``models/embedding.py``) at the recsys
@@ -91,6 +107,8 @@ BAG_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 CONFIGS = [(dt, fmt) for dt in ("int32", "int8") for fmt in ("int32", "packed")]
 N_QUERIES = 200
 QUERY_SEED = 42
+BATCH = 16  # the batch serving window's micro-batch (launch/serve.py --mode batch)
+MAX_BATCH = 32  # batch parity's largest bucket (BucketSpec's default)
 PRESET = dict(n_docs=24_000, n_terms=12_000, n_topics=24, mean_doc_len=220,
               n_ranges=32, strategy="clustered_bp")
 SCALE = dict(n_docs=250_000, n_terms=50_000, n_topics=32, mean_doc_len=220,
@@ -169,9 +187,9 @@ class Parity:
 
     def __init__(self):
         self.max_err = {"scatter_accumulate": 0, "unpack_locals": 0, "range_step": 0,
-                        "bag_reduce": 0.0}
+                        "traverse": 0, "bag_reduce": 0.0}
         self.cases = {"scatter_accumulate": 0, "unpack_locals": 0, "range_step": 0,
-                      "bag_reduce": 0}
+                      "traverse": 0, "bag_reduce": 0}
         self.float_err = {}  # (name, dtype) -> largest |err|
 
     def record(self, name: str, got, want, ctx: str) -> None:
@@ -195,6 +213,18 @@ class Parity:
             return torch.cat([st.vals, st.postings[None], st.blocks[None], st.ids])
 
         self.record("range_step", flat(got), flat(want), ctx)
+
+    def record_carry(self, got, want, k: int, ctx: str) -> None:
+        """A traversal's [N, 2k+5] carry, every field of every lane, bitwise."""
+        fields = (("vals", slice(0, k)), ("postings", slice(k, k + 1)),
+                  ("blocks", slice(k + 1, k + 2)), ("ids", slice(k + 2, 2 * k + 2)),
+                  ("i", slice(2 * k + 2, 2 * k + 3)),
+                  ("exit_safe", slice(2 * k + 3, 2 * k + 4)),
+                  ("exit_budget", slice(2 * k + 4, 2 * k + 5)))
+        check(got.shape == want.shape, f"traverse {ctx}: shape {tuple(got.shape)} vs "
+              f"{tuple(want.shape)}")
+        for name, col in fields:
+            self.record("traverse", got[:, col], want[:, col], f"{ctx} {name}")
 
     def record_close(self, name: str, got, want, ctx: str) -> None:
         """Float outputs within ``BAG_TOL`` of the plain version's.
@@ -285,6 +315,119 @@ def step_case(rng, dev, s_pad, impact_dtype, docs_format, k, theta, n_blocks=256
         buf[k:k + 2] = (12_345, 67)
     return (dix, ref.state_views(t(buf), k), t(blk), t(rest),
             torch.tensor(rs, dtype=torch.int32, device=dev))
+
+
+def traverse_case(rng, dev, s_pad, impact_dtype, docs_format, k, n_lanes, ties=False,
+                  n_ranges=5, n_blocks=48):
+    """``traverse`` inputs on ``dev``: R ranges of ``s_pad`` docs, each with a
+    pool of blocks of sorted docids; per lane a random block table (-1
+    padded), order and descending bounds; budgets and caps mixing
+    unbounded, small and 0 (the last lane a dummy: budget 0, cap 0); and a
+    carry that is fresh, or mid-flight with a full tie-heavy state (θ > 0),
+    or parked. ``ties`` draws every impact from {3, 5}."""
+    import numpy as np
+    import torch
+    from repro_torch.core.clustered_index import BLOCK, pack_dir_entries, pack_docs
+    from repro_torch.core.range_daat import DeviceIndex
+    from repro_torch.kernels.range_scorer import ref
+
+    def t(a, dtype=np.int32):
+        a = np.ascontiguousarray(a if dtype is None else np.asarray(a).astype(dtype))
+        return torch.from_numpy(a).to(dev)
+
+    R, pool = n_ranges, 64
+    docs, starts, lens, pools = [], [], [], []
+    off = 0
+    for r in range(R):
+        ln = rng.integers(1, BLOCK + 1, size=pool)
+        ln[::5] = BLOCK
+        ids = []
+        for n in ln:
+            docs.append(np.sort(rng.choice(s_pad, size=int(n), replace=False))
+                        + 1_000 + r * s_pad)
+            ids.append(len(starts))
+            starts.append(off)
+            lens.append(int(n))
+            off += int(n)
+        pools.append(ids)
+    docs = np.concatenate(docs).astype(np.int64)
+    imps = rng.choice([3, 5], size=off) if ties else rng.integers(1, 256, size=off)
+    starts, lens = np.asarray(starts), np.asarray(lens)
+    maximp = np.array([imps[a:a + n].max() for a, n in zip(starts, lens)])
+    stored = (imps - ref.IMPACT_BIAS).astype(np.int8) if impact_dtype == "int8" \
+        else imps.astype(np.int32)
+    cols = dict(docs=docs, blk_start=starts, blk_len=lens, blk_maximp=maximp,
+                bounds_dense=np.zeros((1, 1)), range_starts=1_000 + np.arange(R) * s_pad,
+                range_sizes=np.full(R, s_pad))
+    if docs_format == "packed":
+        packed = pack_docs(docs, starts, lens)
+        cols.update(docs=np.zeros(1), pack_words=np.asarray(packed.words,
+                                                            np.uint32).view(np.int32),
+                    pack_dir=pack_dir_entries(packed), pack_first=packed.blk_first)
+    dix = DeviceIndex(impacts=t(stored, None), **{n: t(a) for n, a in cols.items()})
+    N = n_lanes
+    blk = np.full((N, R, n_blocks), -1, np.int32)
+    for n in range(N):
+        for r in range(R):
+            m = int(rng.integers(0, n_blocks + 1))
+            blk[n, r, :m] = rng.choice(pools[r], size=m, replace=False)
+    rest = rng.integers(0, 400, size=(N, R, n_blocks))
+    order = np.stack([rng.permutation(R) for _ in range(N)])
+    bounds = -np.sort(-rng.integers(0, 2_500, size=(N, R)), axis=1)
+    budget = rng.choice([0, 60, 700, 4_000, 2**31 - 1], size=N)
+    maxr = rng.choice([0, 1, 3, R, 2**31 - 1], size=N)
+    budget[:N // 2 + 1] = 2**31 - 1  # at least half the lanes run freely
+    maxr[:N // 2 + 1] = 2**31 - 1
+    if N > 1:
+        budget[-1] = maxr[-1] = 0  # a dummy lane
+    width = ref.carry_width(k)
+    carry = np.zeros((N, width), np.int32)
+    carry[:, k + 2:2 * k + 2] = -1
+    for n in range(N):
+        if n % 4 == 2:  # mid-flight, a full state tied at θ
+            theta = int(rng.integers(20, 400))
+            carry[n, :k] = np.sort(rng.choice([theta, theta, theta + 7, theta + 40],
+                                              size=k))[::-1]
+            carry[n, k + 2:2 * k + 2] = rng.choice(
+                np.arange(1_000 + R * s_pad, 1_000 + R * s_pad + 4 * k), size=k,
+                replace=False)
+            carry[n, k:k + 2] = rng.integers(0, 3_000, size=2)
+            carry[n, 2 * k + 2] = rng.integers(0, R)
+        elif n % 4 == 3 and n != N - 1:  # parked
+            carry[n, 2 * k + 4] = 1
+    return dix, [t(a) for a in (blk, rest, order, bounds, budget, maxr, carry)]
+
+
+def traverse_phase(dev, parity: Parity) -> None:
+    """``traverse`` against ``traverse_ref``, bitwise, on every carry field:
+    both accumulator placements, k 1/10/1024, N 1/5/32 with dummy and
+    parked lanes, four configurations, plain and tie-heavy impacts,
+    quantum None/1/2/3 with each chained run equal to the uninterrupted one."""
+    import numpy as np
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    for s_pad in (9_984, 65_536):
+        for ki, k in enumerate((1, 10, kernel.MAX_K)):
+            rng = np.random.default_rng(s_pad + 7 * k)
+            for ci, (dt, fmt) in enumerate(CONFIGS):
+                n_lanes = (1, 5, 32)[(ci + ki) % 3]
+                ties = (ci + ki) % 2 == 1
+                dix, lanes = traverse_case(rng, dev, s_pad, dt, fmt, k, n_lanes, ties)
+                kw = dict(s_pad=s_pad, k=k, docs_format=fmt)
+                ctx = (f"s_pad={s_pad} ({kernel.acc_placement(s_pad, 'traverse')}) k={k} "
+                       f"{dt}/{fmt} N={n_lanes} ties={ties}")
+                whole = kernel.traverse(dix, *lanes, **kw)
+                parity.record_carry(whole, ref.traverse_ref(dix, *lanes, **kw), k, ctx)
+                for quantum in (1, 2, 3):
+                    carry = kernel.traverse(dix, *lanes, quantum=quantum, **kw)
+                    parity.record_carry(carry, ref.traverse_ref(dix, *lanes,
+                                                                quantum=quantum, **kw),
+                                        k, f"{ctx} quantum={quantum}")
+                    for _ in range(6):
+                        carry = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum,
+                                                **kw)
+                    parity.record_carry(carry, whole, k,
+                                        f"{ctx} chained quantum={quantum}")
 
 
 def kernel_phase(dev, parity: Parity) -> None:
@@ -514,8 +657,11 @@ def bag_timings(dev, parity: Parity, full_shapes=BAG_FULL_SHAPES) -> dict:
 # ------------------------------------------------------------- engine phases
 
 
-def observe(engine, plan, budget=None) -> tuple:
+def observe(engine, plan, budget=None, max_ranges=None) -> tuple:
+    """The seven ``observe_query`` fields of one ``Engine.traverse``."""
     kw = {} if budget is None else {"budget_postings": int(budget)}
+    if max_ranges is not None:
+        kw["max_ranges"] = int(max_ranges)
     res = engine.traverse(plan, **kw)
     ids, vals = engine.topk_docs(res.state)
     return (ids.tolist(), vals.tolist(), int(res.state.postings),
@@ -541,7 +687,7 @@ def rank_safe(ids, vals, oracle_topk, scores) -> bool:
         int(scores[d]) == kth for d, v in zip(ids, vals) if v == kth)
 
 
-SCORER_KERNELS = ("range_step", "scatter_accumulate", "unpack_locals")
+SCORER_KERNELS = ("range_step", "traverse", "scatter_accumulate", "unpack_locals")
 
 
 def reset_launches() -> None:
@@ -557,17 +703,58 @@ def read_launches() -> dict:
     return {name: getattr(kernel, name).launches for name in SCORER_KERNELS}
 
 
-def check_one_launch_per_range(launches: dict, ranges: int, ctx: str) -> None:
-    """The engine's path: one range_step per scored range, nothing else."""
-    check(ranges > 0 and launches["range_step"] == ranges,
-          f"{ctx}: {launches['range_step']} range_step launches for {ranges} "
-          "scored ranges")
-    check(launches["scatter_accumulate"] == 0 and launches["unpack_locals"] == 0,
-          f"{ctx}: standalone scorer kernels launched on the engine's path: {launches}")
+def check_launches(launches: dict, want: dict, ctx: str) -> None:
+    """Exactly ``want`` launches of each named scorer kernel, none of the others."""
+    full = {name: want.get(name, 0) for name in SCORER_KERNELS}
+    check(any(full.values()), f"{ctx}: the path launched nothing to count")
+    check(launches == full, f"{ctx}: launches {launches}, expected {full}")
+
+
+def anytime_fields(res) -> tuple:
+    """An ``AnytimeResult`` as ``observe``'s seven fields, the budget flag
+    standing for a policy exit."""
+    return (res.doc_ids.tolist(), res.scores.tolist(), res.postings, res.blocks,
+            res.ranges_processed, res.exit_reason == "safe", res.exit_reason == "policy")
+
+
+def anytime_parity(kern, plain, plans, whole, caps, name: str) -> dict:
+    """The anytime loop (``Engine.step``, one ``range_step`` per range) on
+    the kernel engine against the plain engine, every query run to its end
+    and again under a ``Fixed`` cap of ``caps[i]`` ranges; both against the
+    whole-query traversal (``whole``, and ``Engine.traverse`` under
+    ``max_ranges``) on the top-k, counters, ranges and safe flag. A capped
+    run and a traversal may both see the cap and a safe stop at one
+    iteration; the anytime loop then reports the safe stop alone."""
+    from repro_torch.core.anytime import Fixed, run_query_anytime
+
+    out = {"launches": 0, "ranges": 0, "kernels_s": 0.0, "plain_s": 0.0}
+    for capped in (False, True):
+        policies = [Fixed(c) if capped else None for c in caps]
+        reset_launches()
+        t0 = time.perf_counter()
+        got = [anytime_fields(run_query_anytime(kern, p, pol))
+               for p, pol in zip(plans, policies)]
+        out["kernels_s"] += time.perf_counter() - t0
+        launches = read_launches()
+        ranges = sum(g[4] for g in got)
+        ctx = f"{name} anytime{' capped' if capped else ''}"
+        check_launches(launches, {"range_step": ranges}, ctx)
+        t0 = time.perf_counter()
+        want = [anytime_fields(run_query_anytime(plain, p, pol))
+                for p, pol in zip(plans, policies)]
+        out["plain_s"] += time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g == w, f"{ctx} query {i}: kernels {g} != plain {w}")
+            trav = observe(kern, plans[i], max_ranges=caps[i]) if capped else whole[i]
+            check(g[:6] == trav[:6], f"{ctx} query {i}: anytime {g} != traverse {trav}")
+        out["launches"] += launches["range_step"]
+        out["ranges"] += ranges
+    return out
 
 
 def four_way_parity(index, queries, label: str, dev) -> dict:
-    """Kernel engines == plain engines on the card; == oracle on safe exits."""
+    """Kernel engines == plain engines on the card; == oracle on safe exits;
+    the anytime loop's kernel engine == its plain engine (``anytime_parity``)."""
     import numpy as np
     from repro_torch.core.oracle import exhaustive_scores, exhaustive_topk
     from repro_torch.core.range_daat import Engine
@@ -603,28 +790,37 @@ def four_way_parity(index, queries, label: str, dev) -> dict:
                 check(rank_safe(g[0], g[1], *oracle[i]),
                       f"{name} query {i}: differs from the exhaustive oracle")
         ranges = sum(g[4] for g in got)
-        check_one_launch_per_range(launches, ranges, name)
+        # A whole-query traversal is one traverse launch, and nothing else.
+        check_launches(launches, {"traverse": len(plans)}, name)
         budgets = [int(rng.integers(1, max(w[2], 1) + 1)) for w in want]
         reset_launches()
         budgeted = [observe(kern, p, b) for p, b in zip(plans, budgets)]
         budget_launches = read_launches()
         budget_ranges = sum(g[4] for g in budgeted)
-        check_one_launch_per_range(budget_launches, budget_ranges, f"{name} budgeted")
+        check_launches(budget_launches, {"traverse": len(plans)}, f"{name} budgeted")
         n_budget_exits = 0
         for i, (p, b, g) in enumerate(zip(plans, budgets, budgeted)):
             w = observe(plain, p, b)
             check(g == w, f"{name} query {i} budget {b}: kernels {g} != plain {w}")
             n_budget_exits += g[6]
+        caps = [int(rng.integers(0, g[4] + 1)) for g in got]
+        anytime = anytime_parity(kern, plain, plans, got, caps, name)
         out["engines"][f"{dt}/{fmt}"] = dict(
             kernels_s=kern_s, plain_s=plain_s, ranges=ranges, launches=launches,
             budget_ranges=budget_ranges, budget_launches=budget_launches,
-            safe_exits=safe, budget_exits=n_budget_exits)
+            safe_exits=safe, budget_exits=n_budget_exits, anytime=anytime)
         log(f"{name}: {len(queries)} queries equal to plain and oracle "
             f"({safe} safe/exhausted exits), {len(queries)} budgeted equal "
             f"({n_budget_exits} budget exits); kernels {kern_s:.2f} s, plain "
-            f"{plain_s:.2f} s; range_step launches {launches['range_step']} = "
-            f"{ranges} ranges scored, budgeted {budget_launches['range_step']} = "
-            f"{budget_ranges}; standalone scatter/decode launches 0")
+            f"{plain_s:.2f} s; traverse launches {launches['traverse']} = queries "
+            f"({ranges} ranges scored), budgeted {budget_launches['traverse']} "
+            f"({budget_ranges} ranges); range_step and standalone scatter/decode "
+            "launches 0")
+        log(f"{name} anytime loop: {len(queries)} queries run to their end and "
+            f"{len(queries)} under Fixed-n caps, kernels == plain == Engine.traverse; "
+            f"range_step launches {anytime['launches']} = ranges scored "
+            f"{anytime['ranges']}, nothing else; kernels {anytime['kernels_s']:.2f} s, "
+            f"plain {anytime['plain_s']:.2f} s")
         del kern, plain
     return out
 
@@ -686,19 +882,30 @@ def _profile_rows(fn, iters: int, match: str | None = None) -> list:
 def device_us(fn, match: str | None = None, iters: int = 100) -> float:
     """Device time of one call, from the profiler: no launch gaps.
 
-    With ``match``, only the kernel whose name contains it; else every
-    device operation the call issues (fills, kernels, copies).
+    With ``match``, only the kernel whose name contains it (launched once
+    per call), per launch kept; else every device operation the call
+    issues (fills, kernels, copies), per call.
     """
     rows = _profile_rows(fn, iters, match)
     check(bool(rows), f"profiler recorded no device time for {match or 'the call'}")
-    return sum(_self_device_us(e) for e in rows) / iters
+    total = sum(_self_device_us(e) for e in rows)
+    if match is None:
+        return total / iters
+    # Each call launches the matched kernel once: divide by the launches
+    # the profiler kept, which late in a long run fall short of the calls
+    # (two of 25 bag launches were lost in one run; PERF.md §6).
+    kept = sum(e.count for e in rows)
+    if kept != iters:
+        log(f"  profiler: kept {kept} of {iters} {match} launches")
+    return total / kept
 
 
 def profile_serving(engine, queries, n: int = 32) -> dict:
     """Where one unbudgeted query's time goes: device busy vs wall.
 
-    Planning (``Engine.plan``: the host's block table and four uploads) is
-    timed apart, per query. The loop's wall time comes from a run without
+    Planning (``Engine.plan``: the host's block table; the anytime loop
+    uploads the plan's tables once, before its clock starts) is timed
+    apart, per query. The loop's wall time comes from a run without
     the profiler; the device busy time from a second, profiled run of the
     same plans.
     """
@@ -760,9 +967,9 @@ def score_blocks_path(index, queries, parity: Parity, dev) -> dict:
         got = [ops.score_blocks(*a, s_pad=eng.s_pad, impl="cuda", docs_format=fmt, **kw)
                for a, kw in args]
         out[fmt] = read_launches()
-        check(out[fmt]["range_step"] == 0 and out[fmt]["scatter_accumulate"] == len(args)
-              and out[fmt]["unpack_locals"] == (len(args) if fmt == "packed" else 0),
-              f"score_blocks {fmt}: launches {out[fmt]} for {len(args)} ranges")
+        check_launches(out[fmt], {"scatter_accumulate": len(args),
+                                  "unpack_locals": len(args) if fmt == "packed" else 0},
+                       f"score_blocks {fmt} ({len(args)} ranges)")
         for i, ((a, kw), g) in enumerate(zip(args, got)):
             parity.record("scatter_accumulate", g,
                           ops.score_blocks(*a, s_pad=eng.s_pad, impl="torch",
@@ -776,37 +983,241 @@ def score_blocks_path(index, queries, parity: Parity, dev) -> dict:
     return launches
 
 
-def step_bytes(dix, state, blk, rest, docs_format: str) -> int:
-    """Bytes a range step must move: block rows, the kept blocks' postings
-    (impacts, and docids or packed words) and the state in and out; the
-    accumulator stays on chip."""
+def batch_result_fields(r) -> tuple:
+    """A ``BatchResult`` as ``observe``'s seven fields."""
+    return (r.doc_ids.tolist(), r.scores.tolist(), r.postings, r.blocks,
+            r.ranges_processed, r.exit_safe, r.exit_budget)
+
+
+def batch_parity(index, queries, dev) -> dict:
+    """``BatchEngine`` on cuda == ``BatchEngine`` on torch == ``Engine.traverse``
+    per query, on all seven fields: unbudgeted, random per-query postings
+    budgets, and random ``max_ranges`` caps (0 included), at ``MAX_BATCH``;
+    one ``traverse`` launch per chunk and nothing else."""
     import numpy as np
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serving import BatchEngine, BucketSpec
+
+    kern = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    plain = Engine(index, k=10, device=dev, impl="torch", impact_dtype="int8",
+                   docs_format="packed")
+    kb, pb = (BatchEngine(e, BucketSpec(max_batch=MAX_BATCH)) for e in (kern, plain))
+    plans = kb.plan_many(queries)
+    n = len(plans)
+    rng = np.random.default_rng(13)
+    out = {}
+    first = None
+    for label in ("unbudgeted", "budgets", "max_ranges"):
+        budgets = maxr = None
+        if label == "budgets":
+            budgets = [int(rng.integers(1, max(r.postings, 1) + 1)) for r in first]
+        elif label == "max_ranges":
+            maxr = rng.integers(0, index.n_ranges + 1, size=n).tolist()
+        before = kb.batches_run
+        reset_launches()
+        t0 = time.perf_counter()
+        got = kb.run_batch(plans, budget_postings=budgets, max_ranges=maxr)
+        kern_s = time.perf_counter() - t0
+        launches = read_launches()
+        chunks = kb.batches_run - before
+        check_launches(launches, {"traverse": chunks}, f"batch parity {label}")
+        t0 = time.perf_counter()
+        want = pb.run_batch(plans, budget_postings=budgets, max_ranges=maxr)
+        plain_s = time.perf_counter() - t0
+        first = first or got
+        exits = {"safe": 0, "budget": 0, "exhausted": 0}
+        for i, (g, w, p) in enumerate(zip(got, want, plans)):
+            gf = batch_result_fields(g)
+            check(gf == batch_result_fields(w),
+                  f"batch parity {label} query {i}: cuda {gf} != torch "
+                  f"{batch_result_fields(w)}")
+            one = observe(kern, p, None if budgets is None else budgets[i],
+                          None if maxr is None else maxr[i])
+            check(gf == one, f"batch parity {label} query {i}: batch {gf} != "
+                  f"Engine.traverse {one}")
+            exits[g.exit_reason] += 1
+        out[label] = dict(chunks=chunks, launches=launches, kernel_s=kern_s,
+                          plain_s=plain_s, exits=exits,
+                          ranges=sum(g.ranges_processed for g in got))
+        log(f"batch parity {label}: {n} queries at max_batch {MAX_BATCH}, cuda == "
+            f"torch == Engine.traverse on all seven fields; {chunks} chunks, traverse "
+            f"launches {launches['traverse']}, others 0; exits {exits}, "
+            f"{out[label]['ranges']} ranges; cuda {kern_s:.3f} s, torch {plain_s:.2f} s")
+    return out
+
+
+def profile_batches(engine, queries, batch: int = BATCH, n: int = 64) -> dict:
+    """Where an unbudgeted micro-batch's time goes, and the device's idle share.
+
+    Per batch of ``batch`` queries: plan ms (``BatchEngine.plan_many``),
+    dispatch ms (``run_batch`` up to the ``traverse`` launch's return:
+    stacking, the chunk's one upload, the launch), device ms (the wait for the kernel after
+    the launch returned) and read ms (the carry's copy back and its
+    unpacking). Then ``n`` queries through a ``MicroBatchServer`` without
+    the profiler (wall) and again with it (device busy).
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import BatchEngine, BucketSpec, MicroBatchServer, SlaBudgeter
+    from repro_torch.serving import batch_engine
+
+    bengine = BatchEngine(engine, BucketSpec(max_batch=batch))
+    marks = []
+    launch = batch_engine.traverse_lanes
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = launch(*a, **kw)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        marks.append((t0, t1, time.perf_counter()))
+        return out
+
+    rows = []
+    batch_engine.traverse_lanes = timed
+    try:
+        for lo in range(0, n, batch):
+            t0 = time.perf_counter()
+            plans = bengine.plan_many(queries[lo:lo + batch])
+            t1 = time.perf_counter()
+            res = bengine.run_batch(plans)
+            t2 = time.perf_counter()
+            check(len(marks) == 1, f"{len(marks)} dispatches for one batch")
+            (d0, d1, d2), = marks
+            marks.clear()
+            rows.append(dict(plan_ms=(t1 - t0) * 1e3, dispatch_ms=(d1 - t1) * 1e3,
+                             device_ms=(d2 - d1) * 1e3, read_ms=(t2 - d2) * 1e3,
+                             ranges=sum(r.ranges_processed for r in res),
+                             slowest_lane=max(r.ranges_processed for r in res)))
+    finally:
+        batch_engine.traverse_lanes = launch
+
+    def serve_window():
+        server = MicroBatchServer(bengine, SlaBudgeter(sla_ms=float("inf")),
+                                  max_batch=batch)
+        return server.replay(queries[:n], batch_size=batch)
+
+    serve_window()
+    engine.synchronize()
+    t0 = time.perf_counter()
+    served = serve_window()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    before = bengine.batches_run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve_window()
+        torch.cuda.synchronize()
+    dispatches = bengine.batches_run - before
+    events = _device_events(prof)
+    check(bool(events), "profiler recorded no device time for the batch window")
+    # A dispatch uploads its chunk once (tables, caps and carries together).
+    htod = sum(e.count for e in events if "HtoD" in e.key)
+    check(htod <= dispatches, f"batch window: {htod} host-to-device copies over "
+          f"{dispatches} dispatches")
+    busy_ms = sum(_self_device_us(e) for e in events) / 1e3
+    kern = [e for e in events if "traverse_kernel" in e.key]
+    check(bool(kern), "profiler recorded no traverse_kernel in the batch window")
+    ranges = sum(s.result.ranges_processed for s in served)
+    mean = {key: sum(r[key] for r in rows) / len(rows)
+            for key in ("plan_ms", "dispatch_ms", "device_ms", "read_ms")}
+    return dict(
+        batch=batch, queries=n, batches=rows, **{f"mean_{k}": v for k, v in mean.items()},
+        wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+        ranges=ranges, dispatches=dispatches, htod_copies=htod,
+        traverse_device_us=sum(_self_device_us(e) for e in kern),
+        traverse_launches=sum(e.count for e in kern),
+        traverse_us_per_lane_range=sum(_self_device_us(e) for e in kern) / ranges,
+        top=[dict(name=e.key[:80], us=_self_device_us(e), count=e.count)
+             for e in sorted(events, key=_self_device_us, reverse=True)[:6]],
+    )
+
+
+class StepBytes:
+    """Bytes a range step must move, from host copies of the block rows.
+
+    Per listed block: a padding id (-1) costs its 4-byte id alone; a valid
+    block its id, rest bound and max impact (12 B), which decide whether
+    it is kept (max impact plus rest beats θ); a kept block also its row
+    (start and length, plus the directory and first docid when packed)
+    and its postings (impacts, and docids or packed words). The
+    accumulator never leaves the chip.
+    """
+
+    def __init__(self, dix, docs_format: str):
+        from repro_torch.kernels.range_scorer import ref
+
+        self.packed = docs_format == "packed"
+        self.lens = dix.blk_len.cpu().numpy()
+        self.maximp = dix.blk_maximp.cpu().numpy()
+        self.widths = ref.unpack_dir(dix.pack_dir)[1].cpu().numpy() if self.packed \
+            else None
+        self.imp_size = dix.impacts.element_size()
+
+    def __call__(self, blk, rest, theta: int) -> int:
+        import numpy as np
+
+        safe = np.clip(blk, 0, None)
+        valid = blk >= 0
+        keep = valid & (self.maximp[safe] + rest > theta)
+        lens = self.lens[safe][keep].astype(np.int64)
+        row = 4 * 2 + (4 * 2 if self.packed else 0)  # start, len (+ dir, first)
+        docs = (int(((lens * self.widths[safe][keep] + 31) // 32).sum()) * 4
+                if self.packed else int(lens.sum()) * 4)
+        return (blk.shape[0] * 4 + int(valid.sum()) * 8 + int(keep.sum()) * row
+                + int(lens.sum()) * self.imp_size + docs)
+
+
+def step_bytes(dix, state, blk, rest, docs_format: str) -> int:
+    """One range_step's bytes: its step (``StepBytes``), the state in and
+    out, and the range start."""
+    k = state.vals.shape[0]
+    return (StepBytes(dix, docs_format)(blk.cpu().numpy(), rest.cpu().numpy(),
+                                       int(state.vals[-1])) + 2 * (2 * k + 2) * 4 + 4)
+
+
+def traverse_bytes(eng, lanes) -> tuple[int, int, int]:
+    """(bytes, ranges scored, the slowest lane's ranges) of one
+    ``traverse`` call, from a step-by-step replay of each lane with the
+    plain range step: per scored range its step (``StepBytes``), its order
+    entry and range start, per decision its bound entry, per lane its
+    carry in and out and its two caps. The state stays on chip."""
     from repro_torch.kernels.range_scorer import ref
 
-    k = state.vals.shape[0]
-    b = blk.cpu().numpy()
-    safe = np.clip(b, 0, None)
-    lens = dix.blk_len.cpu().numpy()[safe]
-    keep = (b >= 0) & (dix.blk_maximp.cpu().numpy()[safe] + rest.cpu().numpy()
-                       > int(state.vals[-1]))
-    row = 4 * 2 + 4 * 3 + (4 * 2 if docs_format == "packed" else 0)
-    n = int(lens[keep].sum())
-    if docs_format == "packed":
-        _, widths = ref.unpack_dir(dix.pack_dir[blk.clamp(min=0)])
-        w = widths.cpu().numpy()[keep].astype(np.int64)
-        docs = int(((lens[keep].astype(np.int64) * w + 31) // 32).sum()) * 4
-    else:
-        docs = n * 4
-    return (b.shape[0] * row + n * dix.impacts.element_size() + docs
-            + 2 * (2 * k + 2) * 4 + 4)
+    blk, rest, order, bounds, budget, maxr, carry = lanes
+    blk_h, rest_h = blk.cpu().numpy(), rest.cpu().numpy()
+    order_h, bounds_h = order.cpu().numpy(), bounds.cpu().numpy()
+    cost = StepBytes(eng.dix, eng.docs_format)
+    k, (N, R) = eng.k, order_h.shape
+    total = N * (2 * ref.carry_width(k) * 4 + 8)
+    scored = slowest = 0
+    for n in range(N):
+        state = ref.state_views(carry[n, : 2 * k + 2], k)
+        i = int(carry[n, 2 * k + 2])
+        while i < R:
+            th, postings = ref.theta_postings(state)
+            total += 4  # bound[i]
+            if (bounds_h[n, i] <= th and th > 0) or postings >= int(budget[n]) \
+                    or i >= int(maxr[n]):
+                break
+            r = int(order_h[n, i])
+            total += 4 + cost(blk_h[n, r], rest_h[n, r], th) + 4  # order[i], range start
+            state = ref.range_step_ref(eng.dix, state, blk[n, r], rest[n, r],
+                                       eng.dix.range_starts[r], s_pad=eng.s_pad, k=k,
+                                       docs_format=eng.docs_format)
+            i += 1
+            scored += 1
+        slowest = max(slowest, i - int(carry[n, 2 * k + 2]))
+    return total, scored, slowest
 
 
 def kernel_timings(index, queries, parity: Parity, dev) -> dict:
-    """Each kernel at a main-path shape: the widest first range of the log."""
+    """Each kernel at a main-path shape: the widest first range of the log
+    for the range kernels, a micro-batch of the log for ``traverse``."""
     import numpy as np
     import torch
-    from repro_torch.core.range_daat import Engine
+    from repro_torch.core.range_daat import (
+        INT32_MAX, Engine, batched_init_carry, carry_buffer, upload_int32)
     from repro_torch.kernels.range_scorer import kernel, ref
+    from repro_torch.serving import BucketSpec, stack_plans
 
     eng = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
     raw = Engine(index, k=10, device=dev, impact_dtype="int8")
@@ -881,9 +1292,33 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
         library_device_us=None,
         bytes=step_bytes(eng.dix, state, blk, plan.rest_tab[r], "packed"),
     )
-    for d in (scatter, unpack, step):
+    # traverse: one unbudgeted micro-batch of the batch serving window's
+    # size (the log's first BATCH queries, stacked at their widest bucket).
+    spec = BucketSpec()
+    batch = plans[:BATCH]
+    width = max(spec.width_bucket(p.blk_tab_host.shape[1]) for p in batch)
+    bp = stack_plans(batch, width, BATCH)
+    bud, mr, carry = upload_int32(([INT32_MAX] * BATCH, [INT32_MAX] * BATCH,
+                                   carry_buffer(batched_init_carry(BATCH, eng.k))), dev)
+    lanes = (bp.blk_tab, bp.rest_tab, bp.order, bp.ordered_bounds, bud, mr, carry)
+    parity.record_carry(kernel.traverse(eng.dix, *lanes, **kw),
+                        ref.traverse_ref(eng.dix, *lanes, **kw), eng.k, "timing inputs")
+    nbytes, scored, slowest = traverse_bytes(eng, lanes)
+    wrapper = functools.partial(kernel.traverse, eng.dix, *lanes, **kw)
+    plain = functools.partial(ref.traverse_ref, eng.dix, *lanes, **kw)
+    trav = dict(
+        shape=(f"N={BATCH} R={index.n_ranges} B={width} s_pad={s_pad} k={eng.k} "
+               f"({kernel.acc_placement(s_pad, 'traverse')} acc), {scored} ranges"),
+        ms=time_ms(wrapper, 100), plain_ms=time_ms(plain, 2, warmup=1), library_ms=None,
+        kernel_device_us=device_us(wrapper, "traverse_kernel", 50),
+        wrapper_device_us=device_us(wrapper, None, 50),
+        plain_device_us=device_us(plain, None, 2), library_device_us=None,
+        bytes=nbytes, ranges=scored, slowest_lane_ranges=slowest,
+    )
+    for d in (scatter, unpack, step, trav):
         d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
-    return {"scatter_accumulate": scatter, "unpack_locals": unpack, "range_step": step}
+    return {"scatter_accumulate": scatter, "unpack_locals": unpack, "range_step": step,
+            "traverse": trav}
 
 
 # ----------------------------------------------------------------------- main
@@ -936,7 +1371,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             record["nvcc_s"][src] = build_s
 
     parity = Parity()
+    t0 = time.perf_counter()
     kernel_phase(dev, parity)
+    t1 = time.perf_counter()
+    traverse_phase(dev, parity)
+    log(f"kernel phase {t1 - t0:.1f} s, traverse phase {time.perf_counter() - t1:.1f} s")
     log("kernels: " + ", ".join(
         f"{n} ({parity.cases[n]} cases, {getattr(kernel, n).launches} launches)"
         for n in SCORER_KERNELS) + ": parity ok (bitwise)")
@@ -952,6 +1391,7 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     # The standalone scatter and decode, off the engine's path, on their own.
     blocks_launches = score_blocks_path(index, queries, parity, dev)
     record["scale"]["score_blocks_launches"] = blocks_launches
+    record["scale"]["batch_parity"] = batch_parity(index, queries, dev)
 
     # The main path: the serving loop over the kernels' engine.
     engine = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
@@ -961,13 +1401,33 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     reset_launches()
     stats = serve.serve(engine, queries, Reactive(alpha=1.0, beta=1.2, q=0.01))
     launches = read_launches()
-    check_one_launch_per_range(launches, stats["ranges"], "serving window")
+    # One range_step per range of the anytime loop; one traverse per
+    # warm-up traversal.
+    check_launches(launches, {"range_step": stats["ranges"],
+                              "traverse": stats["traversals"]}, "serving window")
     runs = stats["runs"]
     log(serve.format_report("reactive", stats))
     log(f"main path launches: {launches} over {runs} query runs, "
-        f"{stats['ranges']} ranges scored")
+        f"{stats['ranges']} ranges scored by the anytime loop, "
+        f"{stats['traversals']} warm-up traversals ({stats['traverse_ranges']} ranges)")
     record["scale"]["serve"] = stats
     record["scale"]["main_path_launches"] = launches
+
+    # This slice's path: the batch serving window, launch/serve.py --mode batch.
+    reset_launches()
+    bstats = serve.serve_batch(engine, queries, BATCH)
+    batch_launches = read_launches()
+    # One traverse per dispatch (warm-up, probe, warm batch, window); one
+    # range_step per range of the calibration's anytime runs.
+    check_launches(batch_launches, {"traverse": bstats["batches"],
+                                    "range_step": bstats["ranges"]},
+                   "batch serving window")
+    log(serve.format_report("batch", bstats))
+    log(f"batch serving window launches: {batch_launches} over {bstats['batches']} "
+        f"dispatches at batch {BATCH}, shapes {bstats['shapes']}, final alpha "
+        f"{bstats['final_alpha']:.3f}")
+    record["scale"]["serve_batch"] = bstats
+    record["scale"]["batch_path_launches"] = batch_launches
 
     # Profiler sessions only after the serving window: opened before it,
     # they slowed its host time per range (PERF.md).
@@ -983,21 +1443,43 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
           f"{prof['device_ops_per_range']:.2f} device ops per range, more than 3")
     for row in prof["top"]:
         log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
+    bprof = profile_batches(engine, queries)
+    record["scale"]["profile_batches"] = bprof
+    log(f"batch profile ({bprof['queries']} unbudgeted queries, batch {bprof['batch']}, "
+        f"{bprof['ranges']} lane-ranges): per batch plan {bprof['mean_plan_ms']:.3f} ms, "
+        f"dispatch {bprof['mean_dispatch_ms']:.3f} ms, device {bprof['mean_device_ms']:.3f}"
+        f" ms, read {bprof['mean_read_ms']:.3f} ms; window wall {bprof['wall_ms']:.1f} ms, "
+        f"device busy {bprof['device_busy_ms']:.3f} ms, idle share "
+        f"{bprof['idle_share']:.4f}, {bprof['htod_copies']} host-to-device copies over "
+        f"{bprof['dispatches']} dispatches; traverse_kernel "
+        f"{bprof['traverse_device_us']:.1f} us "
+        f"over {bprof['traverse_launches']} launches = "
+        f"{bprof['traverse_us_per_lane_range']:.2f} us per scored lane-range")
+    for row in bprof["batches"]:
+        log("  batch: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                                    f"{k} {v}" for k, v in row.items()))
+    for row in bprof["top"]:
+        log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
 
     timings = kernel_timings(index, queries, parity, dev)
     kernels = []
     # The standalone kernels report their own path's launches (score_blocks);
-    # range_step the serving window's.
-    path_launches = dict(blocks_launches, range_step=launches["range_step"])
+    # range_step the serving window's, traverse the batch serving window's.
+    path_launches = dict(blocks_launches, range_step=launches["range_step"],
+                         traverse=batch_launches["traverse"])
     replaces = {"scatter_accumulate": f"{TPU_SCORER}:47",
                 "unpack_locals": f"{TPU_SCORER}:107",
-                "range_step": f"{TPU_SCORER}:47 + {TPU_SCORER}:107"}
-    for kname in ("scatter_accumulate", "unpack_locals", "range_step"):
+                "range_step": f"{TPU_SCORER}:47 + {TPU_SCORER}:107",
+                "traverse": f"{TPU_SCORER}:47 + {TPU_SCORER}:107"}
+    for kname in ("scatter_accumulate", "unpack_locals", "range_step", "traverse"):
         tm = timings[kname]
         lib = "-" if tm["library_ms"] is None else f"{tm['library_ms'] * 1e3:.2f} us"
-        per_query = (f"{launches[kname] / runs:.2f} launches/query on the main path"
-                     if kname == "range_step" else
-                     f"{path_launches[kname]} launches on score_blocks, 0 on the main path")
+        per_query = {
+            "range_step": f"{launches[kname] / runs:.2f} launches/query on the serving "
+                          "window",
+            "traverse": f"{path_launches[kname]} launches on the batch serving window",
+        }.get(kname, f"{path_launches[kname]} launches on score_blocks, 0 on the main "
+                     "path")
         log(f"{kname} [{tm['shape']}]: {tm['ms'] * 1e3:.2f} us/call, plain "
             f"{tm['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
             f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bytes']} B), {per_query}; "
@@ -1014,6 +1496,13 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         "then the CTA's barrier-separated phases in turn): "
         f"{timings['range_step']['kernel_device_us']:.2f} us device-only against a "
         f"{timings['range_step']['bound_ms'] * 1e6:.1f} ns byte bound")
+    tr = timings["traverse"]
+    log(f"traverse: {tr['kernel_device_us']:.2f} us device-only for {tr['ranges']} "
+        f"lane-ranges = {tr['kernel_device_us'] / max(tr['ranges'], 1):.2f} us per "
+        f"lane-range (throughput over {BATCH} lanes at once); per step of the "
+        f"slowest lane ({tr['slowest_lane_ranges']} ranges) "
+        f"{tr['kernel_device_us'] / max(tr['slowest_lane_ranges'], 1):.2f} us; "
+        f"against a {tr['bound_ms'] * 1e3:.4f} us byte bound")
 
     record["bag"] = bag_phase(dev, parity)
     record["bag"]["timings"] = bag_timings(dev, parity)

@@ -147,6 +147,7 @@ def run_query_anytime(
     """Host-driven anytime traversal of one query under an SLA budget."""
     state: TopKState = engine.init_state()
     n_ranges = plan.order_host.shape[0]
+    plan.upload()  # the steps read the device tables: upload before the clock
     t0 = clock()
     times: list[float] = []
     exit_reason = "exhausted"

@@ -9,11 +9,15 @@ same per-range scoring step:
   * whole-query — ``device_traverse`` runs the query to an exit condition
     under a postings budget (the deterministic JASS-style proxy).
 
-The whole-query loop runs on the host here: it reads θ and the postings
-counter once per range (one device->host copy per range) to take the same
-exit decisions as the reference's ``lax.while_loop``. Under ``impl="cuda"``
-a range step is one launch of the fused ``range_step`` kernel; under
-``impl="torch"`` it is that kernel's plain version. Scores, ids and
+and their batched forms, ``batched_traverse`` (N queries to an exit, the
+reference's vmap) and ``batched_traverse_resume`` (N carries advanced at
+most ``quantum`` ranges). Every whole-query entry point goes through
+``traverse_lanes``: under ``impl="cuda"`` one launch of the ``traverse``
+kernel, one CTA per query walking its processing order and taking the
+reference's ``lax.while_loop`` exit decisions on the device; under
+``impl="torch"`` its plain version, a host loop that reads θ and the
+postings counter once per range. ``Engine.step`` scores one range with
+the fused ``range_step`` kernel (or its plain version). Scores, ids and
 counters stay int32 on the device; every host-observable matches the
 reference bitwise.
 
@@ -24,6 +28,7 @@ Baselines share this engine via flags (DESIGN.md §2 table):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -47,16 +52,24 @@ __all__ = [
     "QueryPlan",
     "Engine",
     "init_state",
-    "init_carry",
+    "batched_init_carry",
+    "carry_buffer",
     "carry_done",
+    "carry_from_buffer",
     "carry_result",
+    "lane_caps",
     "merge_topk",
     "pack_impacts",
     "resolve_device",
     "score_range_step",
     "device_traverse",
+    "batched_traverse",
+    "batched_traverse_resume",
     "theta",
     "topk_docs",
+    "batched_topk_docs",
+    "traverse_lanes",
+    "upload_int32",
     "exit_reason",
     "exit_reasons",
 ]
@@ -148,6 +161,8 @@ def score_range_step(
 
 
 class TraverseResult(NamedTuple):
+    """A finished traversal: host values for one query, [N] tensors for N."""
+
     state: TopKState
     ranges_processed: int
     exit_safe: bool  # stopped because remaining bounds <= theta
@@ -155,30 +170,52 @@ class TraverseResult(NamedTuple):
 
 
 class TraverseCarry(NamedTuple):
-    """Resumable mid-flight traversal state (DESIGN.md §11).
+    """Resumable mid-flight traversal state of N lanes (DESIGN.md §11).
 
-    The cursor into the processing order, the running top-k state (whose
-    ``postings`` counter is cumulative, so the budget keeps its meaning
-    across calls) and the two exit flags. The loop runs on the host, so
-    the cursor and flags are host values; a query stepped ``quantum``
-    ranges at a time finishes identical to one uninterrupted call.
+    The cursors into the processing orders ([N] int32), the running top-k
+    states ([N, k]; the ``postings`` counter is cumulative, so the budget
+    keeps its meaning across calls) and the two exit flags ([N] bool):
+    numpy from ``batched_init_carry``, tensors from
+    ``batched_traverse_resume``. A query stepped ``quantum`` ranges at a
+    time finishes identical to one uninterrupted call.
     """
 
-    i: int
+    i: np.ndarray | torch.Tensor
     state: TopKState
-    exit_safe: bool
-    exit_budget: bool
+    exit_safe: np.ndarray | torch.Tensor
+    exit_budget: np.ndarray | torch.Tensor
 
 
-def init_carry(k: int, device="cpu") -> TraverseCarry:
-    """A fresh single-query carry (cursor 0, empty heap, no exit flags)."""
-    return TraverseCarry(i=0, state=init_state(k, device), exit_safe=False,
-                         exit_budget=False)
+def batched_init_carry(n: int, k: int, parked: bool = False) -> TraverseCarry:
+    """[n]-lane host (numpy) carry, fresh on every lane.
+
+    ``parked=True`` raises every lane's ``exit_budget`` flag: a parked lane
+    is inert (the loop stops before any work), which is how vacant
+    in-flight slots ride along in a dispatch at zero cost.
+    """
+    return TraverseCarry(
+        i=np.zeros(n, np.int32),
+        state=TopKState(
+            vals=np.zeros((n, k), np.int32),
+            ids=np.full((n, k), -1, np.int32),
+            postings=np.zeros(n, np.int32),
+            blocks=np.zeros(n, np.int32),
+        ),
+        exit_safe=np.zeros(n, bool),
+        exit_budget=np.full(n, parked, bool),
+    )
 
 
-def carry_done(carry: TraverseCarry, n_ranges: int) -> bool:
-    """Completion: an exit flag fired, or the order is spent."""
-    return bool(carry.exit_safe or carry.exit_budget or carry.i >= n_ranges)
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def carry_done(carry: TraverseCarry, n_ranges: int) -> np.ndarray:
+    """Host-side [N] completion mask: an exit flag fired, or the order is
+    spent. A lane whose flags are still False but whose cursor reached R
+    exited "exhausted"."""
+    return (_host(carry.exit_safe) | _host(carry.exit_budget)
+            | (_host(carry.i) >= n_ranges))
 
 
 def carry_result(carry: TraverseCarry) -> TraverseResult:
@@ -191,72 +228,99 @@ def carry_result(carry: TraverseCarry) -> TraverseResult:
     )
 
 
-def _host_list(x) -> list:
-    return x.tolist() if isinstance(x, torch.Tensor) else np.asarray(x).tolist()
+def carry_buffer(carry: TraverseCarry):
+    """A batched carry as the kernels' [N, 2k+5] int32 rows
+    ``vals[k] | postings | blocks | ids[k] | i | exit_safe | exit_budget``:
+    numpy for a host carry (``batched_init_carry``), a tensor on the
+    carry's device for a device one (``batched_traverse_resume``'s)."""
+    st = carry.state
+    cols = (st.vals, st.postings, st.blocks, st.ids, carry.i, carry.exit_safe,
+            carry.exit_budget)
+    n = len(carry.i)
+    if isinstance(carry.i, torch.Tensor):
+        return torch.cat([c.to(torch.int32).reshape(n, -1) for c in cols], dim=1)
+    return np.concatenate([np.asarray(c, np.int32).reshape(n, -1) for c in cols], axis=1)
 
 
-def _traverse_loop(
+def carry_from_buffer(buf: torch.Tensor, k: int) -> TraverseCarry:
+    """The batched carry over an [N, 2k+5] buffer: [N] tensors (views, and
+    bool flags), the state's fields views of the buffer."""
+    return TraverseCarry(
+        i=buf[:, 2 * k + 2],
+        state=TopKState(vals=buf[:, :k], ids=buf[:, k + 2:2 * k + 2],
+                        postings=buf[:, k], blocks=buf[:, k + 1]),
+        exit_safe=buf[:, 2 * k + 3] != 0,
+        exit_budget=buf[:, 2 * k + 4] != 0,
+    )
+
+
+def upload_int32(arrays, device) -> list[torch.Tensor]:
+    """Int32 tensors on ``device`` for ``arrays``, the host ones in one copy.
+
+    Every array that is not a tensor is written into one flat int32
+    staging buffer, which is uploaded once; its tensors are views of that
+    buffer in the arrays' shapes. A tensor passes through as it is.
+    """
+    host = [np.asarray(a) for a in arrays if not isinstance(a, torch.Tensor)]
+    flat = np.empty(sum(a.size for a in host), np.int32)
+    offsets, o = [], 0
+    for a in host:
+        flat[o:o + a.size] = a.reshape(-1)
+        offsets.append(o)
+        o += a.size
+    if not host:
+        return list(arrays)
+    dev = torch.from_numpy(flat).to(device)
+    views = iter([dev[o:o + a.size].view(a.shape) for o, a in zip(offsets, host)])
+    return [a if isinstance(a, torch.Tensor) else next(views) for a in arrays]
+
+
+def lane_caps(x):
+    """Per-lane postings budgets or range caps, clamped to [0, 2^31 - 1]
+    (a tensor passes through)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return np.clip(np.asarray(x, np.int64).reshape(-1), 0, INT32_MAX)
+
+
+def traverse_lanes(
     dix: DeviceIndex,
-    blk_tab: torch.Tensor,  # [R, B]
-    rest_tab: torch.Tensor,  # [R, B]
-    order,  # [R] processing order (tensor or host array)
-    ordered_bounds,  # [R] BoundSum of order[i]
-    carry: TraverseCarry,
-    budget: int,
-    maxr: int,
+    blk_tabs: torch.Tensor,  # [N, R, B] int32, -1 padded
+    rest_tabs: torch.Tensor,  # [N, R, B] int32
+    orders: torch.Tensor,  # [N, R] int32
+    ordered_bounds: torch.Tensor,  # [N, R] int32
+    budgets: torch.Tensor,  # [N] int32
+    max_ranges: torch.Tensor,  # [N] int32
+    carry: torch.Tensor,  # [N, 2k+5] int32 carry in
     *,
     s_pad: int,
     k: int,
-    quantum: int | None,
-    safe_stop: bool,
-    prune_blocks: bool,
-    impl: str,
+    quantum: int | None = None,
+    safe_stop: bool = True,
+    prune_blocks: bool = True,
+    impl: str = "torch",
     docs_format: str = "int32",
-) -> TraverseCarry:
-    """The one range-at-a-time loop both entry points share.
+) -> torch.Tensor:
+    """N lanes' loops from a carry buffer; the [N, 2k+5] carry out.
 
-    ``quantum=None`` runs to an exit condition (``device_traverse``);
-    ``quantum=Q`` also stops after Q iterations, returning the carry
-    mid-flight. As in the reference, the stop flags are computed at the top
-    of each iteration from the state so far, and the iteration that finds
-    an exit scores nothing and leaves the cursor alone.
+    ``impl="cuda"`` is one launch of the ``traverse`` kernel (no host
+    round trip until the caller reads the result); ``impl="torch"`` its
+    plain version, ``kernels.range_scorer.ref.traverse_ref``.
     """
-    R = blk_tab.shape[0]
-    order_h = _host_list(order)
-    bounds_h = _host_list(ordered_bounds)
-    i, state = int(carry.i), carry.state
-    s_safe, s_budget = bool(carry.exit_safe), bool(carry.exit_budget)
-    steps = 0
-    while i < R and not s_safe and not s_budget and (
-        quantum is None or steps < quantum
-    ):
-        # One device->host read per range: θ and the postings counter.
-        th, postings = scorer_ref.theta_postings(state)
-        s_safe = safe_stop and bounds_h[i] <= th and th > 0
-        s_budget = postings >= budget or i >= maxr
-        if not (s_safe or s_budget):
-            r = order_h[i]
-            state = score_range_step(
-                dix,
-                state,
-                blk_tab[r],
-                rest_tab[r],
-                dix.range_starts[r],
-                s_pad=s_pad,
-                k=k,
-                impl=impl,
-                prune_blocks=prune_blocks,
-                docs_format=docs_format,
-            )
-            i += 1
-        steps += 1
-    return TraverseCarry(i=i, state=state, exit_safe=s_safe, exit_budget=s_budget)
+    kw = dict(s_pad=s_pad, k=k, quantum=quantum, safe_stop=safe_stop,
+              prune_blocks=prune_blocks, docs_format=docs_format)
+    args = (dix, blk_tabs, rest_tabs, orders, ordered_bounds, budgets, max_ranges, carry)
+    if impl == "cuda":
+        return scorer_kernel.traverse(*args, **kw)
+    if impl == "torch":
+        return scorer_ref.traverse_ref(*args, **kw)
+    raise ValueError(f"impl {impl!r} not in {IMPLS}")
 
 
 def device_traverse(
     dix: DeviceIndex,
-    blk_tab: torch.Tensor,  # [R, B] int32, -1 padded — per-range block ids
-    rest_tab: torch.Tensor,  # [R, B] int32
+    blk_tab,  # [R, B] int32, -1 padded — per-range block ids
+    rest_tab,  # [R, B] int32
     order,  # [R] int32 — processing order of ranges
     ordered_bounds,  # [R] int32 — BoundSum of order[i] (0 if unused)
     *,
@@ -269,33 +333,120 @@ def device_traverse(
     impl: str = "torch",
     docs_format: str = "int32",
 ) -> TraverseResult:
-    """Whole-query traversal to an exit condition."""
-    carry = _traverse_loop(
-        dix,
-        blk_tab,
-        rest_tab,
-        order,
-        ordered_bounds,
-        init_carry(k, dix.blk_start.device),
-        int(budget_postings),
-        int(max_ranges),
-        s_pad=s_pad,
-        k=k,
-        quantum=None,
-        safe_stop=safe_stop,
-        prune_blocks=prune_blocks,
-        impl=impl,
-        docs_format=docs_format,
+    """Whole-query traversal to an exit condition.
+
+    The tables may be host arrays or tensors on the index's device. Under
+    ``impl="cuda"``: one upload (the host tables, the carry, the budget
+    and the cap together), one ``traverse`` launch and one read of the
+    cursor and flags; the state stays on the device.
+    """
+    lanes = upload_int32(
+        (blk_tab[None], rest_tab[None], order[None], ordered_bounds[None],
+         lane_caps(budget_postings), lane_caps(max_ranges),
+         carry_buffer(batched_init_carry(1, k))),
+        dix.blk_start.device,
     )
-    return carry_result(carry)
+    out = traverse_lanes(
+        dix, *lanes, s_pad=s_pad, k=k, safe_stop=safe_stop, prune_blocks=prune_blocks,
+        impl=impl, docs_format=docs_format,
+    )[0]
+    i, s_safe, s_budget = out[2 * k + 2:].tolist()
+    return TraverseResult(state=scorer_ref.state_views(out[: 2 * k + 2], k),
+                          ranges_processed=i, exit_safe=bool(s_safe),
+                          exit_budget=bool(s_budget))
+
+
+def batched_traverse(
+    dix: DeviceIndex,
+    blk_tabs: torch.Tensor,  # [N, R, B] int32, -1 padded
+    rest_tabs: torch.Tensor,  # [N, R, B] int32
+    orders: torch.Tensor,  # [N, R] int32
+    ordered_bounds: torch.Tensor,  # [N, R] int32
+    budgets,  # [N] int32 — per-query postings budgets
+    max_ranges,  # [N] int32 — per-query range budgets
+    *,
+    s_pad: int,
+    k: int,
+    safe_stop: bool = True,
+    prune_blocks: bool = True,
+    impl: str = "torch",
+    docs_format: str = "int32",
+) -> TraverseResult:
+    """``device_traverse`` over a stacked batch of query plans.
+
+    Every plan leaf and both budgets map over the leading batch axis, so
+    one lagging query cannot consume another query's budget: each lane
+    carries its own stop flags. The result has [N] leaves on the device:
+    ``state.vals`` is [N, k], ``ranges_processed`` [N] int32 and the exit
+    flags [N] bool, all from one carry buffer (``traverse_lanes``).
+    """
+    n = blk_tabs.shape[0]
+    lanes = upload_int32(
+        (blk_tabs, rest_tabs, orders, ordered_bounds, lane_caps(budgets),
+         lane_caps(max_ranges), carry_buffer(batched_init_carry(n, k))),
+        dix.blk_start.device,
+    )
+    out = traverse_lanes(
+        dix, *lanes, s_pad=s_pad, k=k, safe_stop=safe_stop, prune_blocks=prune_blocks,
+        impl=impl, docs_format=docs_format,
+    )
+    return carry_result(carry_from_buffer(out, k))
+
+
+def batched_traverse_resume(
+    dix: DeviceIndex,
+    blk_tabs: torch.Tensor,  # [N, R, B] int32, -1 padded
+    rest_tabs: torch.Tensor,  # [N, R, B] int32
+    orders: torch.Tensor,  # [N, R] int32
+    ordered_bounds: torch.Tensor,  # [N, R] int32
+    budgets,  # [N] int32 — per-lane postings budgets
+    max_ranges,  # [N] int32 — per-lane range budgets
+    carry: TraverseCarry,  # [N]-batched leaves
+    *,
+    s_pad: int,
+    k: int,
+    quantum: int,
+    safe_stop: bool = True,
+    prune_blocks: bool = True,
+    impl: str = "torch",
+    docs_format: str = "int32",
+) -> TraverseCarry:
+    """Advance every lane at most ``quantum`` ranges from its carry.
+
+    Lanes whose exit flags are already set (finished queries, parked
+    slots) stop at once and ride along untouched. Chaining dispatches
+    until ``carry_done`` ends bitwise equal to one ``device_traverse``
+    per lane: same heap, counters and exit flags.
+    """
+    lanes = upload_int32(
+        (blk_tabs, rest_tabs, orders, ordered_bounds, lane_caps(budgets),
+         lane_caps(max_ranges), carry_buffer(carry)),
+        dix.blk_start.device,
+    )
+    out = traverse_lanes(
+        dix, *lanes, s_pad=s_pad, k=k, quantum=quantum, safe_stop=safe_stop,
+        prune_blocks=prune_blocks, impl=impl, docs_format=docs_format,
+    )
+    return carry_from_buffer(out, k)
 
 
 def topk_docs(state: TopKState) -> tuple[np.ndarray, np.ndarray]:
     """(docids, scores) for one query's state with empty slots stripped."""
-    vals = state.vals.cpu().numpy()
-    ids = state.ids.cpu().numpy()
+    vals = _host(state.vals)
+    ids = _host(state.ids)
     keep = ids >= 0
     return ids[keep], vals[keep]
+
+
+def batched_topk_docs(state: TopKState) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per-query (docids, scores) lists from an [N, k] state."""
+    vals = _host(state.vals)
+    ids = _host(state.ids)
+    out = []
+    for n in range(ids.shape[0]):
+        keep = ids[n] >= 0
+        out.append((ids[n][keep], vals[n][keep]))
+    return out
 
 
 def exit_reason(safe: bool, budget: bool) -> str:
@@ -309,8 +460,8 @@ def exit_reason(safe: bool, budget: bool) -> str:
 
 def exit_reasons(result: TraverseResult) -> list[str]:
     """Exit reason strings of a ``TraverseResult`` (one per query)."""
-    safe = np.asarray(result.exit_safe).reshape(-1)
-    budget = np.asarray(result.exit_budget).reshape(-1)
+    safe = _host(result.exit_safe).reshape(-1)
+    budget = _host(result.exit_budget).reshape(-1)
     return [exit_reason(bool(s), bool(b)) for s, b in zip(safe, budget)]
 
 
@@ -321,15 +472,50 @@ def exit_reasons(result: TraverseResult) -> list[str]:
 
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
-    """Device-ready per-query traversal inputs."""
+    """Per-query traversal inputs, held on the host.
+
+    The whole-query and batch paths stage the host tables into their one
+    upload per launch. ``Engine.step`` (the anytime loop) reads the device
+    tables, which are uploaded together, once, on first use.
+    """
 
     q_terms: np.ndarray  # [L] int32, -1 padded
-    blk_tab: torch.Tensor  # [R, B] int32
-    rest_tab: torch.Tensor  # [R, B] int32
-    order: torch.Tensor  # [R] int32
-    ordered_bounds: torch.Tensor  # [R] int32
-    order_host: np.ndarray  # same as order, on host
-    bounds_host: np.ndarray  # ordered bounds, on host
+    blk_tab_host: np.ndarray  # [R, B] int32, -1 padded — per-range block ids
+    rest_tab_host: np.ndarray  # [R, B] int32
+    order_host: np.ndarray  # [R] int32 — processing order of ranges
+    bounds_host: np.ndarray  # [R] ordered bounds (int64, unsaturated)
+    device: torch.device
+
+    @property
+    def ordered_bounds_host(self) -> np.ndarray:
+        """The ordered bounds saturated to int32, as the device reads them."""
+        return np.clip(self.bounds_host, 0, INT32_MAX).astype(np.int32)
+
+    @functools.cached_property
+    def _device_tables(self) -> list[torch.Tensor]:
+        return upload_int32((self.blk_tab_host, self.rest_tab_host, self.order_host,
+                             self.ordered_bounds_host), self.device)
+
+    def upload(self) -> list[torch.Tensor]:
+        """The device tables (block ids, rest bounds, order, ordered
+        bounds), uploaded together on the first call."""
+        return self._device_tables
+
+    @property
+    def blk_tab(self) -> torch.Tensor:  # [R, B] int32 on the device
+        return self._device_tables[0]
+
+    @property
+    def rest_tab(self) -> torch.Tensor:  # [R, B] int32 on the device
+        return self._device_tables[1]
+
+    @property
+    def order(self) -> torch.Tensor:  # [R] int32 on the device
+        return self._device_tables[2]
+
+    @property
+    def ordered_bounds(self) -> torch.Tensor:  # [R] int32 on the device
+        return self._device_tables[3]
 
 
 def _next_pow2(n: int, lo: int = 32) -> int:
@@ -470,21 +656,14 @@ class Engine:
             raise ValueError(f"unknown ordering {self.ordering!r}")
         # The device tables are int32; a BoundSum past 2^31 must saturate,
         # not wrap — a negative bound satisfies `bound <= theta` at once and
-        # defeats safe termination. Saturation only errs conservative.
-        bounds_host = per_range_bound[order].astype(np.int64)
-        ordered_bounds = np.clip(bounds_host, 0, INT32_MAX).astype(np.int32)
-
-        def up(a) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
-
+        # defeats safe termination (``ordered_bounds_host`` saturates).
         return QueryPlan(
             q_terms=q,
-            blk_tab=up(blk),
-            rest_tab=up(rest),
-            order=up(order),
-            ordered_bounds=up(ordered_bounds),
+            blk_tab_host=np.ascontiguousarray(blk, np.int32),
+            rest_tab_host=np.ascontiguousarray(rest, np.int32),
             order_host=order,
-            bounds_host=bounds_host,
+            bounds_host=per_range_bound[order].astype(np.int64),
+            device=self.device,
         )
 
     # ------------------------------------------------------- execution modes
@@ -520,13 +699,14 @@ class Engine:
         safe_stop: bool = True,
         prune_blocks: bool = True,
     ) -> TraverseResult:
-        """Whole-query traversal to an exit condition."""
+        """Whole-query traversal to an exit condition (one ``traverse``
+        launch under ``impl="cuda"``)."""
         return device_traverse(
             self.dix,
-            plan.blk_tab,
-            plan.rest_tab,
+            plan.blk_tab_host,
+            plan.rest_tab_host,
             plan.order_host,
-            plan.bounds_host.clip(0, INT32_MAX),
+            plan.ordered_bounds_host,
             s_pad=self.s_pad,
             k=self.k,
             budget_postings=budget_postings,
@@ -539,5 +719,11 @@ class Engine:
 
     # ----------------------------------------------------------------- util
     def topk_docs(self, state: TopKState):
-        """(docids, scores) with empty slots stripped, host-side."""
+        """(docids, scores) with empty slots stripped, host-side.
+
+        Accepts a single-query [k] state or an [N, k] state; the latter
+        returns a per-query list of (docids, scores) pairs.
+        """
+        if state.ids.ndim == 2:
+            return batched_topk_docs(state)
         return topk_docs(state)

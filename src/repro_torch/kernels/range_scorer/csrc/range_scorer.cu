@@ -201,7 +201,8 @@ unpack_locals_kernel(const uint32_t* __restrict__ words, int64_t n_words,
 //     descending in shared memory (n = next_pow2(2k) <= 2048: one warp when
 //     n <= 64); the first k are the new state.
 // Scores are sums of non-negative impacts, so never negative; 1 <= k <=
-// min(s_pad, kMaxK).
+// min(s_pad, kMaxK). The step itself is range_step_body, which the
+// traverse kernel below runs once per scored range of its loop.
 constexpr int kStepThreads = 1024;
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kRegSlots = 16;  // accumulator slots a thread keeps in registers
@@ -215,7 +216,8 @@ constexpr int kStaticReserve = 1024;             // the kernel's static shared m
 // alone. kernel.py mirrors this number (SHARED_ACC_SLOTS).
 constexpr int kMaxSharedSlots = (kSmemOptIn - kStaticReserve - kSortBytes) / 4;
 
-struct StepArgs {
+// The index and the settings a range step reads, shared by both kernels.
+struct IndexArgs {
   const int32_t* docs;      // [n_docs] int32 (int32 format)
   const void* impacts;      // [n_imps] int32, or int8 biased by 128
   const int32_t* blk_start;
@@ -224,6 +226,41 @@ struct StepArgs {
   const uint32_t* words;    // packed format: stream, directory, first docids
   const int32_t* pack_dir;
   const int32_t* pack_first;
+  int64_t n_docs;
+  int64_t n_imps;
+  int64_t n_words;
+  int s_pad;
+  int k;
+  int sort_n;
+  int prune;
+};
+
+// One top-k state: vals[k], ids[k] and the two counters, in global or
+// shared memory.
+struct StateRef {
+  int32_t* vals;
+  int32_t* ids;
+  int32_t* postings;
+  int32_t* blocks;
+};
+
+// The state laid out vals[k] | postings | blocks | ids[k] at base.
+__device__ __forceinline__ StateRef state_at(int32_t* base, int k) {
+  return StateRef{base, base + k + 2, base + k, base + k + 1};
+}
+
+// The step's static shared memory, declared by each kernel that runs it.
+struct StepShared {
+  int32_t red[2 * 32];   // cta_reduce's two buffers
+  int32_t cnt2[2 * 64];  // the candidate pass's two buffers of warp counts
+  uint32_t counters[2];  // postings and blocks of the kept blocks
+};
+
+static_assert(sizeof(StepShared) + 5 * 4 <= kStaticReserve,
+              "the kernels' static shared memory outgrew its reserve");
+
+struct StepArgs {
+  IndexArgs ix;
   const int32_t* blk_ids;   // [B], -1 padded
   const int32_t* rest;      // [B]
   const int32_t* range_start;
@@ -233,14 +270,7 @@ struct StepArgs {
   const int32_t* blocks;
   int32_t* out;             // state out: vals[k] | postings | blocks | ids[k]
   int32_t* acc_global;      // [s_pad] scratch for the global placement
-  int64_t n_docs;
-  int64_t n_imps;
-  int64_t n_words;
   int n_blocks;
-  int s_pad;
-  int k;
-  int sort_n;
-  int prune;
 };
 
 __device__ __forceinline__ uint64_t heap_key(int32_t val, int32_t id) {
@@ -261,21 +291,25 @@ __device__ __forceinline__ int32_t cta_reduce(int32_t x, int32_t* red, int parit
   return kMax ? __reduce_max_sync(kFull, y) : __reduce_add_sync(kFull, y);
 }
 
+// One range step of one query on the whole CTA: the state `in` and B
+// block ids in, the new state written to `out` (which must not alias
+// `in`: the merge reads the old state while it writes the new one). skey
+// and sid are the sort scratch, acc the [s_pad] accumulator (shared or
+// global), all owned by the caller. Every thread of the CTA must call it:
+// it is full of CTA barriers.
 template <bool kSharedAcc, bool kPacked, bool kInt8>
-__global__ void __launch_bounds__(kStepThreads) range_step_kernel(const StepArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* skey = reinterpret_cast<uint64_t*>(smem);
-  int32_t* sid = reinterpret_cast<int32_t*>(skey + a.sort_n);
-  int32_t* acc = kSharedAcc ? sid + a.sort_n : a.acc_global;
-  __shared__ int32_t red[2 * 32];   // cta_reduce's two buffers
-  __shared__ int32_t cnt2[2 * 64];  // the candidate pass's two buffers of warp counts
-  __shared__ uint32_t counters[2];  // postings and blocks of the kept blocks
+__device__ __forceinline__ void range_step_body(
+    const IndexArgs& a, const int32_t* __restrict__ blk_ids,
+    const int32_t* __restrict__ rest, int n_blocks, uint32_t rs, StateRef in,
+    StateRef out, uint64_t* skey, int32_t* sid, int32_t* acc, StepShared& sh) {
+  int32_t* red = sh.red;
+  int32_t* cnt2 = sh.cnt2;
+  uint32_t* counters = sh.counters;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned lt_mask = (1u << lane) - 1u;
   const int k = a.k, s_pad = a.s_pad;
-  const int32_t theta = a.vals[k - 1];
-  const uint32_t rs = (uint32_t)*a.range_start;
+  const int32_t theta = in.vals[k - 1];
 
   for (int s = tid; s < s_pad; s += kStepThreads) acc[s] = 0;
   if (tid < 2) counters[tid] = 0u;
@@ -283,8 +317,8 @@ __global__ void __launch_bounds__(kStepThreads) range_step_kernel(const StepArgs
 
   // Scatter: warp w scores blocks w, w + 32, ... into acc.
   uint32_t my_post = 0u, my_blocks = 0u;
-  for (int b = warp; b < a.n_blocks; b += kStepWarps) {
-    const int32_t id = a.blk_ids[b];
+  for (int b = warp; b < n_blocks; b += kStepWarps) {
+    const int32_t id = blk_ids[b];
     const int32_t safe = id < 0 ? 0 : id;
     const int32_t start = a.blk_start[safe];
     const int len = a.blk_len[safe];
@@ -292,7 +326,7 @@ __global__ void __launch_bounds__(kStepThreads) range_step_kernel(const StepArgs
     if (a.prune) {
       // Block-level refinement: own max impact plus the other terms'
       // bounds must beat theta (int32 wraparound, as in the reference).
-      keep = keep && (int32_t)((uint32_t)a.blk_maximp[safe] + (uint32_t)a.rest[b]) > theta;
+      keep = keep && (int32_t)((uint32_t)a.blk_maximp[safe] + (uint32_t)rest[b]) > theta;
     }
     if (!keep) continue;  // uniform across the warp
     my_post += (uint32_t)len;
@@ -440,8 +474,8 @@ __global__ void __launch_bounds__(kStepThreads) range_step_kernel(const StepArgs
     }
   }
   for (int i = tid; i < k; i += kStepThreads) {
-    skey[i] = heap_key(a.vals[i], a.ids[i]);
-    sid[i] = a.ids[i];
+    skey[i] = heap_key(in.vals[i], in.ids[i]);
+    sid[i] = in.ids[i];
   }
   for (int i = 2 * k + tid; i < a.sort_n; i += kStepThreads) {
     skey[i] = 0ull;  // below every real key
@@ -479,12 +513,164 @@ __global__ void __launch_bounds__(kStepThreads) range_step_kernel(const StepArgs
   if (one_warp) __syncthreads();
 
   for (int i = tid; i < k; i += kStepThreads) {
-    a.out[i] = (int32_t)((uint32_t)(skey[i] >> 32) ^ 0x80000000u);
-    a.out[k + 2 + i] = sid[i];
+    out.vals[i] = (int32_t)((uint32_t)(skey[i] >> 32) ^ 0x80000000u);
+    out.ids[i] = sid[i];
   }
   if (tid == 0) {
-    a.out[k] = (int32_t)((uint32_t)*a.postings + counters[0]);
-    a.out[k + 1] = (int32_t)((uint32_t)*a.blocks + counters[1]);
+    *out.postings = (int32_t)((uint32_t)*in.postings + counters[0]);
+    *out.blocks = (int32_t)((uint32_t)*in.blocks + counters[1]);
+  }
+}
+
+template <bool kSharedAcc, bool kPacked, bool kInt8>
+__global__ void __launch_bounds__(kStepThreads)
+range_step_kernel(const __grid_constant__ StepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ StepShared sh;
+  uint64_t* skey = reinterpret_cast<uint64_t*>(smem);
+  int32_t* sid = reinterpret_cast<int32_t*>(skey + a.ix.sort_n);
+  int32_t* acc = kSharedAcc ? sid + a.ix.sort_n : a.acc_global;
+  range_step_body<kSharedAcc, kPacked, kInt8>(
+      a.ix, a.blk_ids, a.rest, a.n_blocks, (uint32_t)*a.range_start,
+      StateRef{const_cast<int32_t*>(a.vals), const_cast<int32_t*>(a.ids),
+               const_cast<int32_t*>(a.postings), const_cast<int32_t*>(a.blocks)},
+      state_at(a.out, a.ix.k), skey, sid, acc, sh);
+}
+
+// traverse
+//
+// Replaces, on the whole-query and batched paths, both TPU kernels above
+// inside the reference's device-side loop: _traverse_loop's
+// lax.while_loop (src/repro/core/range_daat.py:301-383), vmapped over N
+// queries by batched_traverse (:432-487) and batched_traverse_resume
+// (:490-545), each iteration a score_range_step that reaches
+// _scatter_kernel (src/repro/kernels/range_scorer/kernel.py:47) and, for
+// packed docids, _unpack_kernel (:107). One CTA of 1024 threads per lane
+// (grid = N) walks its lane's processing order from a carry in
+//   vals[k] | postings | blocks | ids[k] | i | exit_safe | exit_budget
+// and writes the carry out, same layout, once at the end. Each iteration
+// thread 0 takes the decision, as the reference's loop body does: stop if
+// i >= R, an exit flag is set or `quantum` iterations ran; else set
+//   exit_safe   = safe_stop & (bound[i] <= theta) & (theta > 0),
+//   exit_budget = (postings >= budget) | (i >= maxr)     (signed int32),
+// and, when neither is set, score range order[i] with range_step_body and
+// advance i. The iteration that finds an exit scores nothing, leaves i
+// alone and still counts toward the quantum, so chained quanta end where
+// one uninterrupted run ends. Every thread reads the decision from shared
+// memory between two barriers, so the CTA takes one decision per
+// iteration (a thread that disagreed would deadlock at the step's
+// barriers).
+//
+// Bound: latency, as range_step: per scored range the bytes are those of
+// one range step (block rows, kept postings) plus 2B+2 plan entries; the
+// loop removes the host's launch, state copy and theta read per range,
+// not the step's own barrier-separated phases. The state lives in shared
+// memory in two buffers (old and new), swapped after each step; the
+// accumulator is shared memory up to kMaxTraverseSlots (the two state
+// buffers for k = kMaxK take 16,400 bytes of the budget) and otherwise
+// the lane's own [s_pad] slice of a [N, s_pad] global scratch, re-zeroed
+// by every step. A dummy lane (budget 0 or maxr 0) stops at its first
+// decision.
+constexpr int kStateBytes = 2 * (2 * kMaxK + 2) * 4;  // two states at k = kMaxK
+// kernel.py mirrors this number (TRAVERSE_SHARED_ACC_SLOTS).
+constexpr int kMaxTraverseSlots =
+    (kSmemOptIn - kStaticReserve - kSortBytes - kStateBytes) / 4;
+
+// The reference's traced gather index into an axis of n: a negative index
+// counts from the end, then the index clamps to [0, n).
+__device__ __forceinline__ int32_t gather_index(int32_t i, int32_t n) {
+  i = i < 0 ? i + n : i;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+struct TraverseArgs {
+  IndexArgs ix;
+  const int32_t* range_starts;  // [R]
+  const int32_t* blk_tab;       // [N, R, B], -1 padded
+  const int32_t* rest_tab;      // [N, R, B]
+  const int32_t* order;         // [N, R]
+  const int32_t* bounds;        // [N, R]
+  const int32_t* budget;        // [N]
+  const int32_t* maxr;          // [N]
+  const int32_t* carry_in;      // [N, 2k+5]
+  int32_t* carry_out;           // [N, 2k+5]
+  int32_t* acc_global;          // [N, s_pad] scratch for the global placement
+  int n_ranges;
+  int n_blocks;
+  int quantum;                  // < 0: run to an exit
+  int safe_stop;
+};
+
+template <bool kSharedAcc, bool kPacked, bool kInt8>
+__global__ void __launch_bounds__(kStepThreads)
+traverse_kernel(const __grid_constant__ TraverseArgs t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ StepShared sh;
+  // The loop's control: decision (0 stop, 1 exit found, 2 score), range,
+  // cursor, exit_safe, exit_budget.
+  __shared__ int32_t ctl[5];
+  const IndexArgs& a = t.ix;
+  const int k = a.k, width = 2 * k + 2, R = t.n_ranges;
+  const int64_t n = blockIdx.x;
+  uint64_t* skey = reinterpret_cast<uint64_t*>(smem);
+  int32_t* sid = reinterpret_cast<int32_t*>(skey + a.sort_n);
+  int32_t* cur = sid + a.sort_n;
+  int32_t* nxt = cur + width;
+  int32_t* acc = kSharedAcc ? nxt + width : t.acc_global + n * a.s_pad;
+  const int tid = threadIdx.x;
+
+  const int32_t* cin = t.carry_in + n * (width + 3);
+  for (int j = tid; j < width; j += kStepThreads) cur[j] = cin[j];
+  if (tid == 0) {
+    ctl[2] = cin[width];
+    ctl[3] = cin[width + 1];
+    ctl[4] = cin[width + 2];
+  }
+  const int32_t* order = t.order + n * R;
+  const int32_t* bounds = t.bounds + n * R;
+  const int32_t budget = t.budget[n], maxr = t.maxr[n];
+  int steps = 0;  // thread 0's count of iterations
+  for (;;) {
+    __syncthreads();  // the last step's state is written; ctl was read
+    if (tid == 0) {
+      const int32_t i = ctl[2];
+      int32_t d = 0;
+      if (i < R && ctl[3] == 0 && ctl[4] == 0 && (t.quantum < 0 || steps < t.quantum)) {
+        const int32_t theta = cur[k - 1];
+        const int32_t s_safe =
+            t.safe_stop && bounds[gather_index(i, R)] <= theta && theta > 0;
+        const int32_t s_budget = cur[k] >= budget || i >= maxr;
+        ctl[3] = s_safe;
+        ctl[4] = s_budget;
+        d = s_safe || s_budget ? 1 : 2;
+        if (d == 2) {
+          ctl[1] = gather_index(order[gather_index(i, R)], R);
+          ctl[2] = i + 1;
+        }
+        ++steps;
+      }
+      ctl[0] = d;
+    }
+    __syncthreads();
+    const int32_t d = ctl[0];
+    if (d == 0) break;
+    if (d == 2) {
+      const int32_t r = ctl[1];
+      const int64_t row = (n * R + r) * t.n_blocks;
+      range_step_body<kSharedAcc, kPacked, kInt8>(
+          a, t.blk_tab + row, t.rest_tab + row, t.n_blocks, (uint32_t)t.range_starts[r],
+          state_at(cur, k), state_at(nxt, k), skey, sid, acc, sh);
+      int32_t* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  }
+  int32_t* cout = t.carry_out + n * (width + 3);
+  for (int j = tid; j < width; j += kStepThreads) cout[j] = cur[j];
+  if (tid == 0) {
+    cout[width] = ctl[2];
+    cout[width + 1] = ctl[3];
+    cout[width + 2] = ctl[4];
   }
 }
 
@@ -512,6 +698,46 @@ cudaError_t launch_range_step(const StepArgs& a, size_t smem, cudaStream_t strea
   if (err != cudaSuccess) return err;
   range_step_kernel<kSharedAcc, kPacked, kInt8><<<1, kStepThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kSharedAcc, bool kPacked, bool kInt8>
+cudaError_t launch_traverse(const TraverseArgs& t, unsigned n_lanes, size_t smem,
+                            cudaStream_t stream) {
+  const cudaError_t err = allow_smem(traverse_kernel<kSharedAcc, kPacked, kInt8>,
+                                     kSharedAcc * 4 + kPacked * 2 + kInt8, smem);
+  if (err != cudaSuccess) return err;
+  traverse_kernel<kSharedAcc, kPacked, kInt8><<<n_lanes, kStepThreads, smem, stream>>>(t);
+  return cudaGetLastError();
+}
+
+// The index arguments both entry points take, checked; false if refused.
+bool index_args(IndexArgs* a, const void* docs, int64_t n_docs, const void* impacts,
+                int64_t n_imps, const void* blk_start, const void* blk_len,
+                const void* blk_maximp, const void* words, int64_t n_words,
+                const void* pack_dir, const void* pack_first, int packed, int64_t k,
+                int64_t s_pad, int prune) {
+  if (k < 1 || k > kMaxK || k > s_pad || s_pad > INT32_MAX ||
+      (packed ? (words == nullptr && n_words > 0) : n_docs <= 0) || n_imps <= 0) {
+    return false;
+  }
+  int sort_n = 2;
+  while (sort_n < 2 * k) sort_n <<= 1;
+  a->docs = (const int32_t*)docs;
+  a->impacts = impacts;
+  a->blk_start = (const int32_t*)blk_start;
+  a->blk_len = (const int32_t*)blk_len;
+  a->blk_maximp = (const int32_t*)blk_maximp;
+  a->words = (const uint32_t*)words;
+  a->pack_dir = (const int32_t*)pack_dir;
+  a->pack_first = (const int32_t*)pack_first;
+  a->n_docs = n_docs;
+  a->n_imps = n_imps;
+  a->n_words = n_words;
+  a->s_pad = (int)s_pad;
+  a->k = (int)k;
+  a->sort_n = sort_n;
+  a->prune = prune;
+  return true;
 }
 
 }  // namespace
@@ -558,22 +784,13 @@ int rs_range_step(const void* docs, int64_t n_docs, const void* impacts,
                   const void* range_start, const void* vals, const void* ids,
                   const void* postings, const void* blocks, int64_t k, int64_t s_pad,
                   int prune, void* acc_global, void* out, void* stream) {
-  if (k < 1 || k > kMaxK || k > s_pad || n_blocks < 0 || n_blocks > INT32_MAX ||
-      s_pad > INT32_MAX || (acc_global == nullptr && s_pad > kMaxSharedSlots) ||
-      (packed ? (words == nullptr && n_words > 0) : n_docs <= 0) || n_imps <= 0) {
+  StepArgs a;
+  if (!index_args(&a.ix, docs, n_docs, impacts, n_imps, blk_start, blk_len, blk_maximp,
+                  words, n_words, pack_dir, pack_first, packed, k, s_pad, prune) ||
+      n_blocks < 0 || n_blocks > INT32_MAX ||
+      (acc_global == nullptr && s_pad > kMaxSharedSlots)) {
     return (int)cudaErrorInvalidValue;
   }
-  int sort_n = 2;
-  while (sort_n < 2 * k) sort_n <<= 1;
-  StepArgs a;
-  a.docs = (const int32_t*)docs;
-  a.impacts = impacts;
-  a.blk_start = (const int32_t*)blk_start;
-  a.blk_len = (const int32_t*)blk_len;
-  a.blk_maximp = (const int32_t*)blk_maximp;
-  a.words = (const uint32_t*)words;
-  a.pack_dir = (const int32_t*)pack_dir;
-  a.pack_first = (const int32_t*)pack_first;
   a.blk_ids = (const int32_t*)blk_ids;
   a.rest = (const int32_t*)rest;
   a.range_start = (const int32_t*)range_start;
@@ -583,16 +800,9 @@ int rs_range_step(const void* docs, int64_t n_docs, const void* impacts,
   a.blocks = (const int32_t*)blocks;
   a.out = (int32_t*)out;
   a.acc_global = (int32_t*)acc_global;
-  a.n_docs = n_docs;
-  a.n_imps = n_imps;
-  a.n_words = n_words;
   a.n_blocks = (int)n_blocks;
-  a.s_pad = (int)s_pad;
-  a.k = (int)k;
-  a.sort_n = sort_n;
-  a.prune = prune;
   const bool shared_acc = acc_global == nullptr;
-  const size_t smem = (size_t)sort_n * 12 + (shared_acc ? (size_t)s_pad * 4 : 0);
+  const size_t smem = (size_t)a.ix.sort_n * 12 + (shared_acc ? (size_t)s_pad * 4 : 0);
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch ((shared_acc ? 4 : 0) + (packed ? 2 : 0) + (impacts_int8 ? 1 : 0)) {
@@ -604,6 +814,61 @@ int rs_range_step(const void* docs, int64_t n_docs, const void* impacts,
     case 5: err = launch_range_step<true, false, true>(a, smem, st); break;
     case 6: err = launch_range_step<true, true, false>(a, smem, st); break;
     default: err = launch_range_step<true, true, true>(a, smem, st); break;
+  }
+  return (int)err;
+}
+
+// N lanes' whole-query loops from their carries. acc_global is null for
+// the shared-memory accumulator (s_pad <= kMaxTraverseSlots) and a
+// [n_lanes, s_pad] int32 scratch buffer otherwise; quantum < 0 runs each
+// lane to an exit.
+int rs_traverse(const void* docs, int64_t n_docs, const void* impacts, int64_t n_imps,
+                int impacts_int8, const void* blk_start, const void* blk_len,
+                const void* blk_maximp, const void* words, int64_t n_words,
+                const void* pack_dir, const void* pack_first, int packed,
+                const void* range_starts, const void* blk_tab, const void* rest_tab,
+                const void* order, const void* bounds, const void* budget,
+                const void* maxr, const void* carry_in, void* carry_out,
+                int64_t n_lanes, int64_t n_ranges, int64_t n_blocks, int64_t k,
+                int64_t s_pad, int64_t quantum, int safe_stop, int prune,
+                void* acc_global, void* stream) {
+  TraverseArgs t;
+  if (!index_args(&t.ix, docs, n_docs, impacts, n_imps, blk_start, blk_len, blk_maximp,
+                  words, n_words, pack_dir, pack_first, packed, k, s_pad, prune) ||
+      n_lanes < 1 || n_lanes > 65535 || n_ranges < 1 || n_ranges > INT32_MAX ||
+      n_blocks < 0 || n_blocks > INT32_MAX || quantum > INT32_MAX ||
+      (acc_global == nullptr && s_pad > kMaxTraverseSlots)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  t.range_starts = (const int32_t*)range_starts;
+  t.blk_tab = (const int32_t*)blk_tab;
+  t.rest_tab = (const int32_t*)rest_tab;
+  t.order = (const int32_t*)order;
+  t.bounds = (const int32_t*)bounds;
+  t.budget = (const int32_t*)budget;
+  t.maxr = (const int32_t*)maxr;
+  t.carry_in = (const int32_t*)carry_in;
+  t.carry_out = (int32_t*)carry_out;
+  t.acc_global = (int32_t*)acc_global;
+  t.n_ranges = (int)n_ranges;
+  t.n_blocks = (int)n_blocks;
+  t.quantum = quantum < 0 ? -1 : (int)quantum;
+  t.safe_stop = safe_stop;
+  const bool shared_acc = acc_global == nullptr;
+  const size_t smem = (size_t)t.ix.sort_n * 12 + (size_t)(2 * k + 2) * 8 +
+                      (shared_acc ? (size_t)s_pad * 4 : 0);
+  const unsigned g = (unsigned)n_lanes;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch ((shared_acc ? 4 : 0) + (packed ? 2 : 0) + (impacts_int8 ? 1 : 0)) {
+    case 0: err = launch_traverse<false, false, false>(t, g, smem, st); break;
+    case 1: err = launch_traverse<false, false, true>(t, g, smem, st); break;
+    case 2: err = launch_traverse<false, true, false>(t, g, smem, st); break;
+    case 3: err = launch_traverse<false, true, true>(t, g, smem, st); break;
+    case 4: err = launch_traverse<true, false, false>(t, g, smem, st); break;
+    case 5: err = launch_traverse<true, false, true>(t, g, smem, st); break;
+    case 6: err = launch_traverse<true, true, false>(t, g, smem, st); break;
+    default: err = launch_traverse<true, true, true>(t, g, smem, st); break;
   }
   return (int)err;
 }

@@ -1,12 +1,17 @@
 """The range scorer's CUDA kernels: build, binding and launch wrappers.
 
-``csrc/range_scorer.cu`` holds three kernels written by hand for Hopper
+``csrc/range_scorer.cu`` holds four kernels written by hand for Hopper
 (``sm_90a``):
 
   * ``range_step`` — one whole range step of the engine (block pruning,
     gather, packed decode, scatter into an on-chip accumulator, range top-k
     and merge into the running state) in one launch; the engine's path,
     fusing both Pallas TPU kernels of the JAX package;
+  * ``traverse`` — N queries' whole-query loops in one launch, one CTA per
+    lane running ``range_step``'s step from a carry and taking the
+    reference's exit decisions on the device; the whole-query and batched
+    paths (``core.range_daat.device_traverse``, ``batched_traverse`` and
+    ``batched_traverse_resume`` under ``impl="cuda"``);
   * ``scatter_accumulate`` — range-local impact accumulation, the port of
     ``_scatter_kernel``, run by ``ops.score_blocks``;
   * ``unpack_locals`` — decode of bit-packed docid deltas to range-local
@@ -38,11 +43,13 @@ __all__ = [
     "MAX_K",
     "NVCC_FLAGS",
     "SHARED_ACC_SLOTS",
+    "TRAVERSE_SHARED_ACC_SLOTS",
     "acc_placement",
     "build",
     "find_nvcc",
     "range_step",
     "scatter_accumulate",
+    "traverse",
     "unpack_locals",
 ]
 
@@ -53,6 +60,12 @@ BLOCK = ref.BLOCK
 # shared memory up to SHARED_ACC_SLOTS slots, in a global scratch above.
 MAX_K = 1024
 SHARED_ACC_SLOTS = 51_712
+# The traverse kernel's limit (kMaxTraverseSlots): two states of k = MAX_K
+# share the budget with the accumulator.
+TRAVERSE_SHARED_ACC_SLOTS = 47_612
+
+# docs, impacts (and whether int8), block rows, packed stream and directory.
+_INDEX_ARGTYPES = (PTR, I64, PTR, I64, INT, PTR, PTR, PTR, PTR, I64, PTR, PTR, INT)
 
 _LIB = CudaLibrary(
     SOURCE,
@@ -60,8 +73,13 @@ _LIB = CudaLibrary(
         "rs_scatter_accumulate": [PTR, PTR, I64, PTR, I64, PTR],
         "rs_unpack_locals": [PTR, I64, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR],
         "rs_range_step": [
-            PTR, I64, PTR, I64, INT, PTR, PTR, PTR, PTR, I64, PTR, PTR, INT,
+            *_INDEX_ARGTYPES,
             PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR, I64, I64, INT, PTR, PTR, PTR,
+        ],
+        "rs_traverse": [
+            *_INDEX_ARGTYPES,
+            PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+            I64, I64, I64, I64, I64, I64, INT, INT, PTR, PTR,
         ],
     },
     error_fn="rs_error_string",
@@ -182,9 +200,65 @@ def unpack_locals(
 unpack_locals.launches = 0
 
 
-def acc_placement(s_pad: int) -> str:
-    """Where ``range_step`` keeps its accumulator: ``"shared"`` or ``"global"``."""
-    return "shared" if int(s_pad) <= SHARED_ACC_SLOTS else "global"
+def acc_placement(s_pad: int, kernel: str = "range_step") -> str:
+    """Where ``kernel`` keeps its accumulator: ``"shared"`` or ``"global"``.
+
+    ``range_step`` takes a shared-memory accumulator up to
+    ``SHARED_ACC_SLOTS`` slots, ``traverse`` (which also keeps two states
+    in shared memory) up to ``TRAVERSE_SHARED_ACC_SLOTS``.
+    """
+    limits = {"range_step": SHARED_ACC_SLOTS, "traverse": TRAVERSE_SHARED_ACC_SLOTS}
+    if kernel not in limits:
+        raise ValueError(f"kernel {kernel!r} not in {tuple(limits)}")
+    return "shared" if int(s_pad) <= limits[kernel] else "global"
+
+
+def _check_k(name: str, s_pad: int, k: int) -> None:
+    if not 1 <= k <= min(s_pad, MAX_K):
+        raise ValueError(
+            f"{name} takes 1 <= k <= min(s_pad, {MAX_K}) = {min(s_pad, MAX_K)}, "
+            f"got k={k}: its top-k keeps 2k candidates in shared memory"
+        )
+
+
+def _index_tensors(dix, docs_format: str) -> tuple:
+    """(name, tensor, ndim) of the index columns a step reads, dtype-checked."""
+    if docs_format not in ref.DOCS_FORMATS:
+        raise ValueError(f"docs_format {docs_format!r} not in {ref.DOCS_FORMATS}")
+    if dix.impacts.dtype not in (torch.int32, torch.int8):
+        raise TypeError(f"dix.impacts must be int32 or int8, got {dix.impacts.dtype}")
+    docs = (("dix.pack_words", dix.pack_words, 1), ("dix.pack_dir", dix.pack_dir, 1),
+            ("dix.pack_first", dix.pack_first, 1)) if docs_format == "packed" else (
+        ("dix.docs", dix.docs, 1),)
+    return (("dix.blk_start", dix.blk_start, 1), ("dix.blk_len", dix.blk_len, 1),
+            ("dix.blk_maximp", dix.blk_maximp, 1), *docs)
+
+
+def _check_all(tensors, docs_format: str) -> None:
+    for name, t, ndim in tensors:
+        if t is None:
+            raise ValueError(f"docs_format={docs_format!r} needs {name}")
+        _check(t, name, torch.int32, ndim)
+
+
+def _check_on(device: torch.device, dix, tensors) -> None:
+    # get_device() is an int: cheaper than comparing torch.device objects.
+    index = device.index
+    for name, t, _ in (*tensors, ("dix.impacts", dix.impacts, 1)):
+        if t.get_device() != index:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _index_args(dix, packed: bool) -> tuple:
+    """The index arguments both entry points take, in their order."""
+    return (
+        0 if packed else _ptr(dix.docs), 0 if packed else dix.docs.numel(),
+        _ptr(dix.impacts), dix.impacts.numel(), int(dix.impacts.dtype == torch.int8),
+        _ptr(dix.blk_start), _ptr(dix.blk_len), _ptr(dix.blk_maximp),
+        _ptr(dix.pack_words) if packed else 0, dix.pack_words.numel() if packed else 0,
+        _ptr(dix.pack_dir) if packed else 0, _ptr(dix.pack_first) if packed else 0,
+        int(packed),
+    )
 
 
 def range_step(
@@ -208,30 +282,14 @@ def range_step(
     Raises for k outside [1, min(s_pad, MAX_K)].
     """
     s_pad, k = int(s_pad), int(k)
-    if not 1 <= k <= min(s_pad, MAX_K):
-        raise ValueError(
-            f"range_step takes 1 <= k <= min(s_pad, {MAX_K}) = {min(s_pad, MAX_K)}, "
-            f"got k={k}: its top-k keeps 2k candidates in shared memory"
-        )
-    if docs_format not in ref.DOCS_FORMATS:
-        raise ValueError(f"docs_format {docs_format!r} not in {ref.DOCS_FORMATS}")
-    packed = docs_format == "packed"
-    i32 = torch.int32
-    if dix.impacts.dtype not in (i32, torch.int8):
-        raise TypeError(f"dix.impacts must be int32 or int8, got {dix.impacts.dtype}")
-    docs = (("dix.pack_words", dix.pack_words, 1), ("dix.pack_dir", dix.pack_dir, 1),
-            ("dix.pack_first", dix.pack_first, 1)) if packed else (("dix.docs", dix.docs, 1),)
+    _check_k("range_step", s_pad, k)
     tensors = (
         ("blk_ids", blk_ids, 1), ("rest", rest, 1), ("range_start", range_start, 0),
         ("state.vals", state.vals, 1), ("state.ids", state.ids, 1),
         ("state.postings", state.postings, 0), ("state.blocks", state.blocks, 0),
-        ("dix.blk_start", dix.blk_start, 1), ("dix.blk_len", dix.blk_len, 1),
-        ("dix.blk_maximp", dix.blk_maximp, 1), *docs,
+        *_index_tensors(dix, docs_format),
     )
-    for name, t, ndim in tensors:
-        if t is None:
-            raise ValueError(f"docs_format={docs_format!r} needs {name}")
-        _check(t, name, i32, ndim)
+    _check_all(tensors, docs_format)
     if rest.shape != blk_ids.shape:
         raise ValueError(f"rest {tuple(rest.shape)} and blk_ids {tuple(blk_ids.shape)} differ")
     if state.vals.shape[0] != k or state.ids.shape[0] != k:
@@ -242,22 +300,13 @@ def range_step(
                                   k=k, prune_blocks=prune_blocks, docs_format=docs_format)
     if device.type != "cuda":
         raise ValueError(f"range_step runs on cuda or cpu, not {device}")
-    # get_device() is an int: cheaper than comparing torch.device objects.
-    index = device.index
-    for name, t, _ in (*tensors, ("dix.impacts", dix.impacts, 1)):
-        if t.get_device() != index:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-    out = torch.empty(2 * k + 2, dtype=i32, device=device)
+    _check_on(device, dix, tensors)
+    out = torch.empty(2 * k + 2, dtype=torch.int32, device=device)
     acc = None if acc_placement(s_pad) == "shared" else torch.empty(
-        s_pad, dtype=i32, device=device)
+        s_pad, dtype=torch.int32, device=device)
     _launch(
-        "rs_range_step", device,
-        0 if packed else _ptr(dix.docs), 0 if packed else dix.docs.numel(),
-        _ptr(dix.impacts), dix.impacts.numel(), int(dix.impacts.dtype == torch.int8),
-        _ptr(dix.blk_start), _ptr(dix.blk_len), _ptr(dix.blk_maximp),
-        _ptr(dix.pack_words) if packed else 0, dix.pack_words.numel() if packed else 0,
-        _ptr(dix.pack_dir) if packed else 0, _ptr(dix.pack_first) if packed else 0,
-        int(packed), _ptr(blk_ids), _ptr(rest), blk_ids.numel(), _ptr(range_start),
+        "rs_range_step", device, *_index_args(dix, docs_format == "packed"),
+        _ptr(blk_ids), _ptr(rest), blk_ids.numel(), _ptr(range_start),
         _ptr(state.vals), _ptr(state.ids), _ptr(state.postings), _ptr(state.blocks),
         k, s_pad, int(bool(prune_blocks)), 0 if acc is None else _ptr(acc), _ptr(out),
     )
@@ -266,3 +315,80 @@ def range_step(
 
 
 range_step.launches = 0
+
+
+def traverse(
+    dix,
+    blk_tab: torch.Tensor,
+    rest_tab: torch.Tensor,
+    order: torch.Tensor,
+    ordered_bounds: torch.Tensor,
+    budget: torch.Tensor,
+    maxr: torch.Tensor,
+    carry: torch.Tensor,
+    *,
+    s_pad: int,
+    k: int,
+    quantum: int | None = None,
+    safe_stop: bool = True,
+    prune_blocks: bool = True,
+    docs_format: str = "int32",
+) -> torch.Tensor:
+    """N lanes' whole-query loops in one launch; see ``ref.traverse_ref``.
+
+    ``blk_tab``/``rest_tab`` are int32 [N, R, B], ``order``/``ordered_bounds``
+    int32 [N, R], ``budget``/``maxr`` int32 [N], and ``carry`` the int32
+    [N, 2k+5] carry in (``vals[k] | postings | blocks | ids[k] | i |
+    exit_safe | exit_budget`` per lane); ``dix.range_starts`` has R entries.
+    Returns the carry out, a fresh buffer of the same layout. ``quantum``
+    (None: run to an exit) caps each lane's loop iterations. Raises for k
+    outside [1, min(s_pad, MAX_K)].
+    """
+    s_pad, k = int(s_pad), int(k)
+    _check_k("traverse", s_pad, k)
+    if quantum is not None and not 0 <= int(quantum) <= ref.INT32_MAX:
+        raise ValueError(f"quantum must be None or in [0, 2^31), got {quantum}")
+    tensors = (
+        ("blk_tab", blk_tab, 3), ("rest_tab", rest_tab, 3), ("order", order, 2),
+        ("ordered_bounds", ordered_bounds, 2), ("budget", budget, 1), ("maxr", maxr, 1),
+        ("carry", carry, 2), ("dix.range_starts", dix.range_starts, 1),
+        *_index_tensors(dix, docs_format),
+    )
+    _check_all(tensors, docs_format)
+    N, R, B = blk_tab.shape
+    want = {"rest_tab": (N, R, B), "order": (N, R), "ordered_bounds": (N, R),
+            "budget": (N,), "maxr": (N,), "carry": (N, ref.carry_width(k)),
+            "dix.range_starts": (R,)}
+    for name, t, _ in tensors:
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]} "
+                             f"(N={N}, R={R}, B={B}, k={k})")
+    if R == 0:
+        raise ValueError("traverse needs at least one range")
+    kw = dict(s_pad=s_pad, k=k, quantum=None if quantum is None else int(quantum),
+              safe_stop=bool(safe_stop), prune_blocks=bool(prune_blocks),
+              docs_format=docs_format)
+    device = carry.device
+    if device.type == "cpu":
+        return ref.traverse_ref(dix, blk_tab, rest_tab, order, ordered_bounds, budget,
+                                maxr, carry, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"traverse runs on cuda or cpu, not {device}")
+    _check_on(device, dix, tensors)
+    out = torch.empty_like(carry)
+    if N == 0:
+        return out
+    acc = None if acc_placement(s_pad, "traverse") == "shared" else torch.empty(
+        (N, s_pad), dtype=torch.int32, device=device)
+    _launch(
+        "rs_traverse", device, *_index_args(dix, docs_format == "packed"),
+        _ptr(dix.range_starts), _ptr(blk_tab), _ptr(rest_tab), _ptr(order),
+        _ptr(ordered_bounds), _ptr(budget), _ptr(maxr), _ptr(carry), _ptr(out),
+        N, R, B, k, s_pad, -1 if quantum is None else int(quantum),
+        int(kw["safe_stop"]), int(kw["prune_blocks"]), 0 if acc is None else _ptr(acc),
+    )
+    traverse.launches += 1
+    return out
+
+
+traverse.launches = 0

@@ -8,13 +8,18 @@ must match :func:`scatter_accumulate_ref`, :func:`unpack_locals_ref` and
 :func:`range_step_ref` exactly. :func:`range_step_ref` is one whole range
 step of the engine (the reference's ``core/range_daat.py::score_range_step``):
 block pruning, the scorer, the range top-k and the merge into the running
-top-k state. The CPU tests run these functions, and ``chip_smoke.py`` holds
-the kernels against them on the card.
+top-k state. :func:`traverse_ref` is the plain version of the ``traverse``
+kernel: the reference's whole-query loop (``_traverse_loop``) run on each of
+N lanes from a carry. The CPU tests run these functions, and
+``chip_smoke.py`` holds the kernels against them on the card.
 
 The running state is one int32 buffer laid out ``vals[k] | postings |
 blocks | ids[k]``, and :class:`TopKState`'s fields are views of it: θ and
 the postings counter sit side by side, so the host reads both in one copy
 (:func:`theta_postings`). The ``range_step`` kernel writes the same layout.
+A traversal's carry appends three fields to it, ``i | exit_safe |
+exit_budget`` (the cursor and the two exit flags, 0 or 1), one row of
+``carry_width(k) = 2k + 5`` int32 per lane.
 
 The packed word stream is held as int32 carrying the uint32 bit pattern:
 PyTorch has no right shift for ``uint32`` on the CPU, so the decode widens
@@ -47,6 +52,7 @@ __all__ = [
     "DOCS_FORMATS",
     "IMPACT_BIAS",
     "TopKState",
+    "carry_width",
     "gather_block_impacts",
     "gather_block_postings",
     "gather_block_postings_packed",
@@ -60,6 +66,7 @@ __all__ = [
     "state_views",
     "theta",
     "theta_postings",
+    "traverse_ref",
     "unpack_dir",
     "unpack_locals_ref",
 ]
@@ -70,6 +77,11 @@ class TopKState(NamedTuple):
     ids: torch.Tensor  # [k] int32 (-1 = empty)
     postings: torch.Tensor  # 0-d int32 — postings scored so far
     blocks: torch.Tensor  # 0-d int32 — blocks processed so far
+
+
+def carry_width(k: int) -> int:
+    """Int32 slots of one lane's carry: the state, then i | exit_safe | exit_budget."""
+    return 2 * k + 5
 
 
 def state_views(buf: torch.Tensor, k: int) -> TopKState:
@@ -367,3 +379,75 @@ def range_step_ref(
     postings = state.postings + torch.where(keep, lens, 0).sum(dtype=torch.int32)
     blocks = state.blocks + keep.sum(dtype=torch.int32)
     return state_views(torch.cat([nv, postings[None], blocks[None], ni]), k)
+
+
+def _gather_index(i: int, n: int) -> int:
+    """A traced gather's index into an axis of n: negative counts from the
+    end, then the index clamps to [0, n) (``jnp`` indexing under ``jit``)."""
+    i = i + n if i < 0 else i
+    return min(max(i, 0), n - 1)
+
+
+def traverse_ref(
+    dix,
+    blk_tab: torch.Tensor,  # [N, R, B] int32, -1 padded
+    rest_tab: torch.Tensor,  # [N, R, B] int32
+    order: torch.Tensor,  # [N, R] int32 processing order
+    ordered_bounds: torch.Tensor,  # [N, R] int32 BoundSum of order[i]
+    budget: torch.Tensor,  # [N] int32 postings budgets
+    maxr: torch.Tensor,  # [N] int32 range budgets
+    carry: torch.Tensor,  # [N, 2k+5] int32 carry in
+    *,
+    s_pad: int,
+    k: int,
+    quantum: int | None = None,
+    safe_stop: bool = True,
+    prune_blocks: bool = True,
+    docs_format: str = "int32",
+) -> torch.Tensor:
+    """Each lane's whole-query loop from its carry; the new [N, 2k+5] carry.
+
+    The plain version of the ``traverse`` kernel, and the reference's
+    ``_traverse_loop`` run once per lane: the exit flags are computed at
+    the top of each iteration (``θ = vals[k-1]``; safe when ``safe_stop``
+    and ``bound <= θ`` and ``θ > 0``; budget when ``postings >= budget`` or
+    ``i >= maxr``, all signed int32); the iteration that finds an exit
+    scores nothing and leaves the cursor alone but still counts toward
+    ``quantum``; ``quantum=None`` runs to an exit. ``order[i]``,
+    ``ordered_bounds[i]`` and the tables at ``order[i]`` are read as the
+    reference's traced gathers read them (:func:`_gather_index`). Each
+    iteration reads
+    θ and the postings counter to the host, so this is the tests' and the
+    CPU's path, never the card's.
+    """
+    N, R = order.shape
+    rows = []
+    for n in range(N):
+        order_h = order[n].tolist()
+        bounds_h = ordered_bounds[n].tolist()
+        bud, mr = int(budget[n]), int(maxr[n])
+        state = state_views(carry[n, : 2 * k + 2], k)
+        i, s_safe, s_budget = (int(x) for x in carry[n, 2 * k + 2:].tolist())
+        steps = 0
+        while i < R and not s_safe and not s_budget and (
+            quantum is None or steps < quantum
+        ):
+            th, postings = theta_postings(state)
+            s_safe = int(safe_stop and bounds_h[_gather_index(i, R)] <= th and th > 0)
+            s_budget = int(postings >= bud or i >= mr)
+            if not (s_safe or s_budget):
+                r = _gather_index(order_h[_gather_index(i, R)], R)
+                state = range_step_ref(
+                    dix, state, blk_tab[n, r], rest_tab[n, r], dix.range_starts[r],
+                    s_pad=s_pad, k=k, prune_blocks=prune_blocks,
+                    docs_format=docs_format,
+                )
+                i += 1
+            steps += 1
+        tail = torch.tensor([i, s_safe, s_budget], dtype=torch.int32,
+                            device=carry.device)
+        rows.append(torch.cat([state.vals, state.postings[None], state.blocks[None],
+                               state.ids, tail]))
+    if not rows:
+        return carry.new_empty((0, carry_width(k)))
+    return torch.stack(rows)

@@ -1,14 +1,24 @@
 """Serving launcher of the port: anytime IR under an SLA, on the card.
 
-``python -m repro_torch.launch.serve [--sla-ms B] [--policy reactive]
-[--queries N] [--n-docs N] [--n-terms V] [--strategy S] [--device cuda]``
+``python -m repro_torch.launch.serve [--mode host|batch] [--sla-ms B]
+[--policy reactive] [--batch-size 16] [--queries N] [--n-docs N]
+[--n-terms V] [--strategy S] [--device cuda]``
 
 Builds a clustered index over the planted-topic benchmark corpus (the JAX
 package's benchmark preset: 24,000 docs, 12,000 terms, 24 topics, 32
-ranges, mean length 220, ``clustered_bp``) and serves a query stream
-through the host-driven anytime loop under the chosen §6 termination
-policy, reporting percentile latencies, SLA compliance and RBO against
-the exhaustive oracle. The index is built on the host each run.
+ranges, mean length 220, ``clustered_bp``) and serves a query stream in
+one of two modes, reporting q/s, percentile latencies, SLA compliance and
+RBO against the exhaustive oracle:
+
+  * ``--mode host`` (default) — the host-driven anytime loop under the
+    chosen §6 termination policy, one ``range_step`` per range;
+  * ``--mode batch`` — the production path: ``MicroBatchServer`` over
+    ``BatchEngine``, one ``traverse`` launch per micro-batch, the SLA
+    compiled into per-query postings budgets by ``SlaBudgeter`` (the
+    counterpart of the reference's ``examples/serve_anytime.py --mode
+    batch``).
+
+The index is built on the host each run.
 """
 
 from __future__ import annotations
@@ -26,8 +36,12 @@ from repro_torch.core.metrics import rbo
 from repro_torch.core.oracle import exhaustive_topk
 from repro_torch.core.range_daat import Engine
 from repro_torch.data.synth import Corpus, make_corpus, make_query_log
+from repro_torch.serving import BatchEngine, BucketSpec, MicroBatchServer, SlaBudgeter
 
-__all__ = ["POLICIES", "PRESET", "build_preset", "format_report", "main", "serve"]
+__all__ = [
+    "POLICIES", "PRESET", "build_preset", "calibrate", "format_report", "main",
+    "serve", "serve_batch",
+]
 
 PRESET = dict(
     n_docs=24_000, n_terms=12_000, n_topics=24, n_ranges=32, mean_doc_len=220,
@@ -64,6 +78,42 @@ def build_preset(
     return corpus, index
 
 
+def calibrate(engine: Engine, queries: list, n: int = 64) -> dict:
+    """Unbudgeted anytime runs of the first ``n`` queries.
+
+    They warm the engine and give the exhaustive latency distribution (its
+    P99), the median postings scored per ms (the batch budgeter's first
+    rate), the oracle top-k that RBO is measured against, and the range
+    steps they took.
+    """
+    base, rates, oracle, ranges = [], [], {}, 0
+    for i, q in enumerate(queries[:n]):
+        res = run_query_anytime(engine, engine.plan(q), policy=None)
+        ranges += res.ranges_processed
+        base.append(res.elapsed_ms)
+        if res.elapsed_ms > 0:
+            rates.append(res.postings / res.elapsed_ms)
+        oracle[i] = exhaustive_topk(engine.index, q, engine.k)[0].tolist()
+    return dict(exhaustive_p99_ms=float(np.percentile(base, 99)), oracle=oracle,
+                rate=float(np.median(rates)), ranges=ranges)
+
+
+def _latency_stats(times, quality, budget: float, wall: float, n: int) -> dict:
+    t = np.asarray(times)
+    return {
+        "queries": n,
+        "sla_ms": budget,
+        "wall_s": wall,
+        "qps": n / wall,
+        "p50_ms": float(np.percentile(t, 50)),
+        "p95_ms": float(np.percentile(t, 95)),
+        "p99_ms": float(np.percentile(t, 99)),
+        "miss_pct": float((t > budget).mean() * 100),
+        "rbo": float(np.mean(quality)),
+        "sla_met": bool(np.percentile(t, 99) <= budget),
+    }
+
+
 def serve(
     engine: Engine,
     queries: list,
@@ -73,27 +123,22 @@ def serve(
 ) -> dict:
     """Serve ``queries`` through the anytime loop; latency and quality stats.
 
-    The first ``n_calibrate`` queries run unbudgeted first: they warm the
-    engine, give the exhaustive latency distribution (the default SLA is a
-    quarter of its P99) and the oracle rankings RBO is measured against.
-    ``runs`` counts every traversal made, warm-up and calibration included,
-    and ``ranges`` the ranges they scored.
+    Three whole-query traversals (``Engine.traverse``) warm the engine
+    first; then the first ``n_calibrate`` queries run unbudgeted through
+    the anytime loop (``calibrate``; the default SLA is a quarter of their
+    P99). ``runs`` counts every query run; ``ranges`` the range steps of
+    the anytime loop (calibration and serving), ``traversals`` the
+    warm-up's whole-query traversals and ``traverse_ranges`` their ranges.
     """
-    k = engine.k
-    warm, calib = queries[:3], queries[:n_calibrate]
-    ranges = 0
+    warm = queries[:3]
+    traverse_ranges = 0
     for q in warm:  # first launches, allocator, kernel load
-        ranges += engine.traverse(engine.plan(q)).ranges_processed
+        traverse_ranges += engine.traverse(engine.plan(q)).ranges_processed
     engine.synchronize()
 
-    base, oracle = [], {}
-    for i, q in enumerate(calib):
-        res = run_query_anytime(engine, engine.plan(q), policy=None)
-        ranges += res.ranges_processed
-        base.append(res.elapsed_ms)
-        oracle[i] = exhaustive_topk(engine.index, q, k)[0].tolist()
-    exh_p99 = float(np.percentile(base, 99))
-    budget = sla_ms or exh_p99 * 0.25
+    cal = calibrate(engine, queries, n_calibrate)
+    oracle, ranges = cal["oracle"], cal["ranges"]
+    budget = sla_ms or cal["exhaustive_p99_ms"] * 0.25
 
     times, vals = [], []
     t0 = time.perf_counter()
@@ -105,28 +150,85 @@ def serve(
         if i in oracle:
             vals.append(rbo(res.doc_ids.tolist(), oracle[i], phi=0.8))
     wall = time.perf_counter() - t0
-    t = np.asarray(times)
     return {
-        "queries": len(queries),
-        "runs": len(warm) + len(calib) + len(queries),
+        **_latency_stats(times, vals, budget, wall, len(queries)),
+        "runs": len(warm) + len(oracle) + len(queries),
         "ranges": ranges,
-        "sla_ms": budget,
-        "exhaustive_p99_ms": exh_p99,
-        "wall_s": wall,
-        "qps": len(queries) / wall,
-        "p50_ms": float(np.percentile(t, 50)),
-        "p95_ms": float(np.percentile(t, 95)),
-        "p99_ms": float(np.percentile(t, 99)),
-        "miss_pct": float((t > budget).mean() * 100),
-        "rbo": float(np.mean(vals)),
-        "sla_met": bool(np.percentile(t, 99) <= budget),
+        "traversals": len(warm),
+        "traverse_ranges": traverse_ranges,
+        "exhaustive_p99_ms": cal["exhaustive_p99_ms"],
+    }
+
+
+def serve_batch(
+    engine: Engine,
+    queries: list,
+    batch_size: int = 16,
+    sla_ms: float | None = None,
+    n_calibrate: int = 64,
+) -> dict:
+    """Serve ``queries`` through ``MicroBatchServer`` over ``BatchEngine``.
+
+    The reference's ``serve_batch``: calibrate (oracle, exhaustive P99 and
+    the budgeter's first rate), run every (batch, width) shape once, probe
+    4 x ``batch_size`` queries unbudgeted (the default SLA is half their
+    P99: one dispatch serves a whole batch, so the single-query
+    distribution understates it), let a ``Reactive(1.0, 1.5, 0.01)``
+    budgeter see one warm batch, then time the replay of every query in
+    micro-batches. RBO compares each result, sorted by (score desc, id
+    asc), with the exhaustive top-k. ``batches`` counts the dispatches
+    (``traverse`` launches under ``impl="cuda"``), ``ranges`` the
+    calibration's range steps.
+    """
+    spec = BucketSpec(max_batch=batch_size)
+    beng = BatchEngine(engine, spec)
+    cal = calibrate(engine, queries, n_calibrate)
+    oracle = cal["oracle"]
+    widths = {spec.width_bucket(engine.plan(q).blk_tab_host.shape[1]) for q in queries}
+    beng.warmup(sorted(widths))
+
+    probe = MicroBatchServer(
+        beng, SlaBudgeter(sla_ms=float("inf"), rate=cal["rate"]), max_batch=batch_size
+    )
+    lat = [s.latency_ms for s in probe.replay(queries[: 4 * batch_size],
+                                              batch_size=batch_size)]
+    probe_p99 = float(np.percentile(lat, 99))
+    budget = sla_ms or probe_p99 * 0.5
+
+    budgeter = SlaBudgeter(sla_ms=budget, policy=Reactive(alpha=1.0, beta=1.5, q=0.01),
+                           rate=cal["rate"])
+    server = MicroBatchServer(beng, budgeter, max_batch=batch_size)
+    server.replay(queries[:batch_size])  # the budgeter sees one real batch
+    rid0 = server._next_rid
+
+    times, vals = [], []
+    t0 = time.perf_counter()
+    served = server.replay(queries, batch_size=batch_size)
+    wall = time.perf_counter() - t0
+    for s in served:
+        times.append(s.latency_ms)
+        qi = s.rid - rid0
+        if qi in oracle:
+            ids = s.result.doc_ids[np.lexsort((s.result.doc_ids, -s.result.scores))]
+            vals.append(rbo(ids.tolist(), oracle[qi], phi=0.8))
+    return {
+        **_latency_stats(times, vals, budget, wall, len(queries)),
+        "batch_size": batch_size,
+        "batches": beng.batches_run,
+        "ranges": cal["ranges"],
+        "shapes": sorted(beng.compiled_shapes),
+        "probe_p99_ms": probe_p99,
+        "exhaustive_p99_ms": cal["exhaustive_p99_ms"],
+        "final_alpha": budgeter.policy.alpha,
     }
 
 
 def format_report(policy_name: str, s: dict) -> str:
+    probe = (f"unbudgeted batch P99 {s['probe_p99_ms']:.2f} ms, "
+             if "probe_p99_ms" in s else "")
     return (
         f"policy={policy_name} SLA: P99 <= {s['sla_ms']:.2f} ms "
-        f"(exhaustive P99 {s['exhaustive_p99_ms']:.2f} ms)\n"
+        f"({probe}exhaustive P99 {s['exhaustive_p99_ms']:.2f} ms)\n"
         f"{s['queries']} queries in {s['wall_s']:.1f}s ({s['qps']:.1f} q/s)\n"
         f"P50/P95/P99: {s['p50_ms']:.2f} / {s['p95_ms']:.2f} / {s['p99_ms']:.2f} ms"
         f" | miss {s['miss_pct']:.2f}% | RBO {s['rbo']:.4f} | SLA "
@@ -136,6 +238,8 @@ def format_report(policy_name: str, s: dict) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="host", choices=("host", "batch"))
+    ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--sla-ms", type=float, default=None)
     ap.add_argument("--policy", default="reactive", choices=sorted(POLICIES))
     ap.add_argument("--alpha", type=float, default=1.0)
@@ -154,9 +258,15 @@ def main(argv=None):
     log = make_query_log(corpus, n_queries=args.queries, seed=42)
     engine = Engine(index, k=args.k, device=args.device)
     queries = [log.terms[i] for i in range(log.n_queries)]
+    print(f"device={engine.device} impl={engine.impl} mode={args.mode}")
+    if args.mode == "batch":
+        stats = serve_batch(engine, queries, args.batch_size, sla_ms=args.sla_ms)
+        print(format_report("batch", stats))
+        print(f"batch={stats['batch_size']}, {stats['batches']} dispatches, shapes "
+              f"{stats['shapes']}, final alpha {stats['final_alpha']:.2f}")
+        return
     policy = POLICIES[args.policy](args.alpha)
     stats = serve(engine, queries, policy, sla_ms=args.sla_ms)
-    print(f"device={engine.device} impl={engine.impl}")
     print(format_report(args.policy, stats))
 
 

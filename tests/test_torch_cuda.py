@@ -11,7 +11,10 @@ fixtures with the JAX package.) Kernel outputs must equal their plain
 versions bitwise, and the kernels' engine must equal the plain engine on
 every host-observable. The fused ``range_step`` kernel is held bitwise
 against ``range_step_ref`` at both accumulator placements (shared memory
-at ``s_pad`` 9,984, a global scratch at 65,536). The bag reduce sums
+at ``s_pad`` 9,984, a global scratch at 65,536), and the ``traverse``
+kernel (N lanes' whole-query loops) against ``traverse_ref`` on every
+carry field, with ``BatchEngine`` on ``cuda`` equal to ``torch``. The bag
+reduce sums
 floats in another order than its plain version, so it is held within a
 stated tolerance instead.
 """
@@ -29,6 +32,7 @@ from repro_torch.data.synth import make_corpus, make_query_log
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
 from repro_torch.kernels.range_scorer import kernel, ref
+from repro_torch.serving import BatchEngine, BucketSpec
 from repro_torch.models.embedding import (
     bag_inputs,
     combine_bags,
@@ -216,14 +220,184 @@ def test_range_step_raises_above_its_k_limit(cuda_device):
 @pytest.mark.parametrize("docs_format", ["int32", "packed"])
 def test_cuda_engine_launches_range_step_once_per_range(cuda_device, small_index,
                                                         docs_format):
+    """The anytime loop's Engine.step launches range_step once per range;
+    a whole-query Engine.traverse launches traverse once per query."""
+    from repro_torch.core.anytime import run_query_anytime
+
     index, queries = small_index
     kern = Engine(index, k=10, device=cuda_device, impact_dtype="int8",
                   docs_format=docs_format)
     counts = (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches)
-    kernel.range_step.launches = 0
-    ranges = sum(kern.traverse(kern.plan(q)).ranges_processed for q in queries)
+    kernel.range_step.launches = kernel.traverse.launches = 0
+    ranges = sum(run_query_anytime(kern, kern.plan(q)).ranges_processed for q in queries)
     assert kernel.range_step.launches == ranges > 0
+    assert kernel.traverse.launches == 0
+    kernel.range_step.launches = 0
+    assert sum(kern.traverse(kern.plan(q)).ranges_processed for q in queries) == ranges
+    assert (kernel.traverse.launches, kernel.range_step.launches) == (len(queries), 0)
     assert (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches) == counts
+
+
+def _traverse_case(rng, dev, s_pad, impact_dtype, docs_format, k, n_lanes, ties=False,
+                   n_ranges=5, n_blocks=48):
+    """``traverse`` inputs on ``dev``: R ranges of ``s_pad`` docs, each with a
+    pool of blocks of sorted docids; per lane a random block table (-1
+    padded), order and descending bounds; budgets and caps mixing
+    unbounded, small and 0 (the last lane a dummy: budget 0, cap 0); and a
+    carry that is fresh, or mid-flight with a full tie-heavy state (θ > 0),
+    or parked. ``ties`` draws every impact from {3, 5}."""
+    R, pool = n_ranges, 64
+    docs, imps, starts, lens, pools = [], [], [], [], []
+    off = 0
+    for r in range(R):
+        rs = 1_000 + r * s_pad
+        ln = rng.integers(1, BLOCK + 1, size=pool)
+        ln[::5] = BLOCK
+        ids = []
+        for n in ln:
+            d = np.sort(rng.choice(s_pad, size=int(n), replace=False)) + rs
+            docs.append(d)
+            ids.append(len(starts))
+            starts.append(off)
+            lens.append(int(n))
+            off += int(n)
+        pools.append(ids)
+    docs = np.concatenate(docs).astype(np.int64)
+    imps = rng.choice([3, 5], size=off) if ties else rng.integers(1, 256, size=off)
+    starts, lens = np.asarray(starts), np.asarray(lens)
+    maximp = np.array([imps[a:a + n].max() for a, n in zip(starts, lens)])
+    stored = (imps - ref.IMPACT_BIAS).astype(np.int8) if impact_dtype == "int8" \
+        else imps.astype(np.int32)
+    cols = dict(docs=docs, impacts=stored, blk_start=starts, blk_len=lens,
+                blk_maximp=maximp, bounds_dense=np.zeros((1, 1)),
+                range_starts=1_000 + np.arange(R) * s_pad,
+                range_sizes=np.full(R, s_pad))
+    if docs_format == "packed":
+        packed = pack_docs(docs, starts, lens)
+        cols.update(docs=np.zeros(1), pack_words=np.asarray(packed.words,
+                                                            np.uint32).view(np.int32),
+                    pack_dir=pack_dir_entries(packed), pack_first=packed.blk_first)
+    dix = DeviceIndex(**{n: _cuda(a, dev, None if n == "impacts" else np.int32)
+                         for n, a in cols.items()})
+    N = n_lanes
+    blk = np.full((N, R, n_blocks), -1, np.int32)
+    for n in range(N):
+        for r in range(R):
+            m = int(rng.integers(0, n_blocks + 1))
+            blk[n, r, :m] = rng.choice(pools[r], size=m, replace=False)
+    rest = rng.integers(0, 400, size=(N, R, n_blocks)).astype(np.int32)
+    order = np.stack([rng.permutation(R) for _ in range(N)]).astype(np.int32)
+    bounds = -np.sort(-rng.integers(0, 2_500, size=(N, R)), axis=1).astype(np.int32)
+    budget = rng.choice([0, 60, 700, 4_000, 2**31 - 1], size=N).astype(np.int32)
+    maxr = rng.choice([0, 1, 3, R, 2**31 - 1], size=N).astype(np.int32)
+    budget[:N // 2 + 1] = 2**31 - 1  # at least half the lanes run freely
+    maxr[:N // 2 + 1] = 2**31 - 1
+    budget[-1] = maxr[-1] = 0 if N > 1 else budget[-1]
+    width = ref.carry_width(k)
+    carry = np.zeros((N, width), np.int32)
+    carry[:, k + 2:2 * k + 2] = -1
+    for n in range(N):
+        kind = n % 4
+        if kind == 2:  # mid-flight, a full state tied at θ
+            theta = int(rng.integers(20, 400))
+            carry[n, :k] = np.sort(rng.choice([theta, theta, theta + 7, theta + 40],
+                                              size=k))[::-1]
+            carry[n, k + 2:2 * k + 2] = rng.choice(
+                np.arange(1_000 + R * s_pad, 1_000 + R * s_pad + 4 * k), size=k,
+                replace=False)
+            carry[n, k:k + 2] = rng.integers(0, 3_000, size=2)
+            carry[n, 2 * k + 2] = rng.integers(0, R)
+        elif kind == 3 and n != N - 1:  # parked
+            carry[n, 2 * k + 4] = 1
+    lanes = [_cuda(a, dev) for a in (blk, rest, order, bounds, budget, maxr, carry)]
+    return dix, lanes
+
+
+def _assert_carry_equal(got, want, k, ctx):
+    fields = (("vals", slice(0, k)), ("postings", k), ("blocks", k + 1),
+              ("ids", slice(k + 2, 2 * k + 2)), ("i", 2 * k + 2),
+              ("exit_safe", 2 * k + 3), ("exit_budget", 2 * k + 4))
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.int32, ctx
+    for name, col in fields:
+        assert torch.equal(got[:, col], want[:, col]), f"{ctx}: {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 1024])
+@pytest.mark.parametrize("s_pad", [9_984, 65_536])
+def test_traverse_matches_plain(cuda_device, s_pad, k):
+    """Every carry field of every lane, both placements, four configurations,
+    quantum None and chained quanta."""
+    assert kernel.acc_placement(s_pad, "traverse") == (
+        "shared" if s_pad == 9_984 else "global")
+    rng = np.random.default_rng(s_pad + 7 * k)
+    for ci, (impact_dtype, docs_format) in enumerate(CONFIGS):
+        n_lanes = (1, 5, 32)[ci % 3] if ci < 3 else 5
+        dix, lanes = _traverse_case(rng, cuda_device, s_pad, impact_dtype, docs_format, k,
+                                    n_lanes, ties=ci % 2 == 1)
+        kw = dict(s_pad=s_pad, k=k, docs_format=docs_format)
+        ctx = f"{impact_dtype}/{docs_format} N={n_lanes}"
+        before = kernel.traverse.launches
+        whole = kernel.traverse(dix, *lanes, **kw)
+        torch.cuda.synchronize()
+        assert kernel.traverse.launches == before + 1
+        _assert_carry_equal(whole, ref.traverse_ref(dix, *lanes, **kw), k, ctx)
+        for quantum in (1, 2, 3):
+            carry = lanes[-1]
+            first = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum, **kw)
+            _assert_carry_equal(first, ref.traverse_ref(dix, *lanes[:-1], carry,
+                                                        quantum=quantum, **kw),
+                                k, f"{ctx} quantum={quantum}")
+            carry = first
+            for _ in range(6):
+                carry = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum, **kw)
+            _assert_carry_equal(carry, whole, k, f"{ctx} chained quantum={quantum}")
+
+
+@pytest.mark.cuda
+def test_traverse_accumulator_limit_both_sides(cuda_device):
+    """The last shared-memory s_pad and the first global one."""
+    for s_pad in (47_488, 47_616):
+        rng = np.random.default_rng(s_pad)
+        dix, lanes = _traverse_case(rng, cuda_device, s_pad, "int8", "packed", 10, 3)
+        kw = dict(s_pad=s_pad, k=10, docs_format="packed")
+        _assert_carry_equal(kernel.traverse(dix, *lanes, **kw),
+                            ref.traverse_ref(dix, *lanes, **kw), 10, f"s_pad={s_pad}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impact_dtype,docs_format", CONFIGS)
+def test_cuda_batch_engine_matches_plain(cuda_device, small_index, impact_dtype,
+                                         docs_format):
+    """BatchEngine on cuda == on torch == Engine.traverse, one launch a chunk."""
+    index, queries = small_index
+    kern = Engine(index, k=10, device=cuda_device, impact_dtype=impact_dtype,
+                  docs_format=docs_format)
+    plain = Engine(index, k=10, device=cuda_device, impl="torch",
+                   impact_dtype=impact_dtype, docs_format=docs_format)
+    kb, pb = (BatchEngine(e, BucketSpec(max_batch=4)) for e in (kern, plain))
+    plans = kb.plan_many(queries)
+    rng = np.random.default_rng(0)
+    for kw in ({}, dict(budget_postings=rng.choice([0, 300, 2**31 - 1], len(plans))),
+               dict(max_ranges=rng.choice([0, 1, 3, 2**31 - 1], len(plans)))):
+        before = (kernel.traverse.launches, kernel.range_step.launches)
+        got = kb.run_batch(plans, **kw)
+        assert kernel.traverse.launches - before[0] == kb.batches_run - pb.batches_run
+        assert kernel.range_step.launches == before[1]
+        want = pb.run_batch(plans, **kw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.doc_ids.tolist() == w.doc_ids.tolist(), i
+            assert g.scores.tolist() == w.scores.tolist(), i
+            assert g[2:] == w[2:], i
+            b = kw.get("budget_postings", [2**31 - 1] * len(plans))[i]
+            m = kw.get("max_ranges", [2**31 - 1] * len(plans))[i]
+            one = kern.traverse(plans[i], budget_postings=int(b), max_ranges=int(m))
+            ids, vals = kern.topk_docs(one.state)
+            assert (ids.tolist(), vals.tolist(), one.ranges_processed,
+                    int(one.state.postings), int(one.state.blocks), one.exit_safe,
+                    one.exit_budget) == (g.doc_ids.tolist(), g.scores.tolist(),
+                                         g.ranges_processed, g.postings, g.blocks,
+                                         g.exit_safe, g.exit_budget), i
 
 
 # The bag reduce sums L terms in ascending order; the plain version's einsum

@@ -36,6 +36,9 @@ def test_port_modules_import_neither_jax_nor_reference():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) >= 15, names\n"
+        "serving = {'repro_torch.serving.bucketing', 'repro_torch.serving.batch_engine',\n"
+        "           'repro_torch.serving.microbatch'}\n"
+        "assert serving <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

@@ -230,23 +230,24 @@ def test_quantum_resume_equals_one_traversal(index, queries):
     for q in queries[:4]:
         plan = port.plan(q)
         whole = port.traverse(plan, budget_postings=900)
-        carry = range_daat.init_carry(port.k)
+        carry = range_daat.batched_init_carry(1, port.k)
         n = 0
-        while not range_daat.carry_done(carry, index.n_ranges):
-            carry = range_daat._traverse_loop(
-                port.dix, plan.blk_tab, plan.rest_tab, plan.order, plan.ordered_bounds,
-                carry, 900, 2**31 - 1, s_pad=port.s_pad, k=port.k, quantum=1,
-                safe_stop=True, prune_blocks=True, impl="torch",
-                docs_format="packed",
+        while not range_daat.carry_done(carry, index.n_ranges).all():
+            carry = range_daat.batched_traverse_resume(
+                port.dix, plan.blk_tab[None], plan.rest_tab[None], plan.order[None],
+                plan.ordered_bounds[None], [900], [2**31 - 1], carry,
+                s_pad=port.s_pad, k=port.k, quantum=1, safe_stop=True,
+                prune_blocks=True, impl="torch", docs_format="packed",
             )
             n += 1
         res = range_daat.carry_result(carry)
-        assert n >= res.ranges_processed
-        assert (res.ranges_processed, res.exit_safe, res.exit_budget) == (
+        assert n >= int(res.ranges_processed[0])
+        assert (int(res.ranges_processed[0]), bool(res.exit_safe[0]),
+                bool(res.exit_budget[0])) == (
             whole.ranges_processed, whole.exit_safe, whole.exit_budget)
-        assert torch.equal(res.state.vals, whole.state.vals)
-        assert torch.equal(res.state.ids, whole.state.ids)
-        assert int(res.state.postings) == int(whole.state.postings)
+        assert torch.equal(res.state.vals[0], whole.state.vals)
+        assert torch.equal(res.state.ids[0], whole.state.ids)
+        assert int(res.state.postings[0]) == int(whole.state.postings)
 
 
 def test_engine_rejects_cuda_impl_on_cpu(index):
