@@ -19,7 +19,10 @@ fails (non-zero exit, no result line) on any fault:
      carry field of every lane: both placements, k 1/10/1,024, N 1/5/32
      lanes with dummy and parked lanes and tie-heavy mid-flight states,
      four configurations, quantum None/1/2/3 with every chained run equal
-     to the uninterrupted one;
+     to the uninterrupted one; and ``traverse`` over stacked range shards
+     (lane n reads shard n % S, S 2/3/4, unequal shard rows, padded range
+     slots, a block stretched past its row's end to reach the clamp),
+     every carry field, chained quanta equal to one run;
   3. preset phase — the benchmark preset (24,000 docs, ``clustered_bp``),
      200 queries: four engines on the card, int32/int8 impacts ×
      int32/packed docids, each equal to the plain path (``impl="torch"``)
@@ -31,7 +34,8 @@ fails (non-zero exit, no result line) on any fault:
      engine equal to plain and to the whole-query traversal, with one
      ``range_step`` launch per range and nothing else;
   4. scale phase — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
-     the same parity; the standalone kernels' own path
+     the same parity (the anytime loop on the first 64 queries); the
+     standalone kernels' own path
      (``ops.score_blocks(impl="cuda")`` on each query's first range, both
      docid formats, against its plain version); batch parity
      (``BatchEngine`` on cuda == on torch == ``Engine.traverse`` per
@@ -41,15 +45,31 @@ fails (non-zero exit, no result line) on any fault:
      P99: one ``range_step`` per range of the anytime loop, one
      ``traverse`` per warm-up traversal); the batch serving window of
      ``launch/serve.py --mode batch`` (``MicroBatchServer`` at batch 16:
-     one ``traverse`` per dispatch); each window with the launch counters
-     reset just before and read just after; then a profiled serving
-     window that splits a query's time between the device and the host
-     (plan time per query apart), a profiled batch window (plan,
-     dispatch, device and read ms per batch, device idle share), and each
+     one ``traverse`` per dispatch); in-flight parity (``InflightServer``
+     on cuda at 16 slots, quantum 1 and 3, unbudgeted and two fixed
+     budgets, each served query equal to ``Engine.traverse``; 64 queries
+     at quantum 2 equal to the plain server; one ``traverse`` per step);
+     sharded parity (S = 2 and 4: ``ShardedBatchEngine`` on cuda at
+     ``max_batch`` 16 equal to the plain sharded path on every
+     ``ShardedResult`` field for 64 queries, unbudgeted, budgeted and one
+     shard down; the merged top-k equal to ``Engine.traverse``, bitwise
+     when both run exhaustively (no safe stop, no block pruning) and up
+     to ties at the k-th score under safe stop and pruning;
+     one ``traverse`` per chunk); the serving windows of ``--mode
+     inflight`` (16 slots, quantum 1) and ``--mode sharded`` (S = 4,
+     batch 16); each window with the launch counters reset just before
+     and read just after; then a profiled serving window that splits a
+     query's time between the device and the host (plan time per query
+     apart), a profiled batch window (plan, dispatch, device and read ms
+     per batch, device idle share), a profiled in-flight window (upload,
+     dispatch, device, plan and read ms per step, host-to-device copies
+     per step, idle share), a profiled sharded window (plan, shard-plan,
+     dispatch, device and read ms per batch, idle share), and each
      kernel's time at main-path shapes beside its bound, its plain
      version and, for the scatter, ``Tensor.index_add_`` (CUDA events
      around many calls, launch gaps included, and device-only time from
-     ``torch.profiler``);
+     ``torch.profiler``), ``traverse`` also at the sharded shape (16
+     queries x 4 shards);
   5. bag phase — the bag-reduce kernel against its plain version on the
      card, float32 and bfloat16, over the CPU tests' shapes, then the
      EmbeddingBag lookup (``models/embedding.py``) at the recsys
@@ -106,8 +126,10 @@ BAG_PAD_SHARE = 5  # the last L // 5 ids of every bag are padding (-1)
 BAG_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 CONFIGS = [(dt, fmt) for dt in ("int32", "int8") for fmt in ("int32", "packed")]
 N_QUERIES = 200
+SCALE_ANYTIME_QUERIES = 64  # the anytime loop's parity at scale (all N_QUERIES at preset)
 QUERY_SEED = 42
-BATCH = 16  # the batch serving window's micro-batch (launch/serve.py --mode batch)
+BATCH = 16  # the batch and sharded windows' micro-batch, the in-flight window's slots
+SHARDS = 4  # the sharded serving window's range shards (launch/serve.py --mode sharded)
 MAX_BATCH = 32  # batch parity's largest bucket (BucketSpec's default)
 PRESET = dict(n_docs=24_000, n_terms=12_000, n_topics=24, mean_doc_len=220,
               n_ranges=32, strategy="clustered_bp")
@@ -428,6 +450,98 @@ def traverse_phase(dev, parity: Parity) -> None:
                                                 **kw)
                     parity.record_carry(carry, whole, k,
                                         f"{ctx} chained quantum={quantum}")
+
+
+def stacked_traverse_case(rng, dev, s_pad, impact_dtype, docs_format, k, n_queries,
+                          n_shards, clamp=True):
+    """``traverse`` inputs over S stacked range shards of unequal size on
+    ``dev``: shard s is a ``traverse_case`` of R_max - s ranges (its padded
+    order slots point at an all -1 row with zero bounds), every column
+    padded to the widest row, and lane q * S + s reads shard s. With
+    ``clamp`` the widest shard's last block is stretched to 128 postings,
+    past its row's end, and listed first in its range for every lane of
+    that shard, so its gathers reach the clamp at the row's end."""
+    import numpy as np
+    import torch
+    from repro_torch.core.clustered_index import BLOCK
+    from repro_torch.core.range_daat import DeviceIndex
+    from repro_torch.kernels.range_scorer import ref
+
+    R, cpu = n_shards + 2, torch.device("cpu")
+    shards = [traverse_case(rng, cpu, s_pad, impact_dtype, docs_format, k, n_queries,
+                            n_ranges=R - s) for s in range(n_shards)]
+    names = [n for n in shards[0][0]._fields if getattr(shards[0][0], n) is not None]
+    cols = {n: [getattr(d, n).numpy() for d, _ in shards] for n in names}
+    last = len(cols["blk_len"][0]) - 1
+    if clamp:
+        cols["blk_len"][0] = cols["blk_len"][0].copy()
+        cols["blk_len"][0][last] = BLOCK
+
+    def stack(rows):
+        out = np.zeros((len(rows), max(max(len(r) for r in rows), 1)), rows[0].dtype)
+        for i, r in enumerate(rows):
+            out[i, :len(r)] = r
+        return out
+
+    cols = {n: stack(c) for n, c in cols.items()}
+    cols["bounds_dense"] = np.zeros((n_shards, 1, 1), np.int32)
+    dix = DeviceIndex(**{n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for n, a in cols.items()})
+    N, nb = n_queries * n_shards, shards[0][1][0].shape[2]
+    blk = np.full((N, R, nb), -1, np.int32)
+    rest = np.zeros((N, R, nb), np.int32)
+    order = np.zeros((N, R), np.int32)
+    bounds = np.zeros((N, R), np.int32)
+    caps = np.zeros((2, N), np.int32)
+    carry = np.zeros((N, ref.carry_width(k)), np.int32)
+    for s, (_, lanes) in enumerate(shards):
+        b, r, o, bd, bud, mr, c = (x.numpy() for x in lanes)
+        rs = R - s
+        lane = np.arange(n_queries) * n_shards + s
+        blk[lane, :rs], rest[lane, :rs] = b, r
+        order[lane, :rs], bounds[lane, :rs] = o, bd
+        order[lane, rs:] = rs if rs < R else 0
+        caps[:, lane] = bud, mr
+        carry[lane] = c
+        if clamp and s == 0:
+            blk[lane, R - 1, 0] = last
+    return dix, [torch.from_numpy(a).to(dev) for a in (blk, rest, order, bounds, caps[0],
+                                                       caps[1], carry)]
+
+
+def stacked_traverse_phase(dev, parity: Parity) -> None:
+    """``traverse`` over stacked shards against ``traverse_ref``, bitwise, on
+    every carry field: both accumulator placements, k 1/10/1024, S 2/3/4,
+    four configurations, chained quanta equal to one run; and one stacked
+    shard equal to the unstacked index."""
+    import numpy as np
+    from repro_torch.core.range_daat import DeviceIndex
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    for s_pad, k in ((9_984, 10), (65_536, 1), (9_984, kernel.MAX_K)):
+        rng = np.random.default_rng(s_pad + k + 1)
+        for ci, (dt, fmt) in enumerate(CONFIGS):
+            n_shards = (2, 3, 4, 2)[ci]
+            dix, lanes = stacked_traverse_case(rng, dev, s_pad, dt, fmt, k, 3, n_shards)
+            kw = dict(s_pad=s_pad, k=k, docs_format=fmt)
+            ctx = f"stacked s_pad={s_pad} k={k} {dt}/{fmt} S={n_shards}"
+            whole = kernel.traverse(dix, *lanes, **kw)
+            parity.record_carry(whole, ref.traverse_ref(dix, *lanes, **kw), k, ctx)
+            for quantum in (1, 3):
+                carry = kernel.traverse(dix, *lanes, quantum=quantum, **kw)
+                parity.record_carry(carry, ref.traverse_ref(dix, *lanes, quantum=quantum,
+                                                            **kw), k, f"{ctx} q={quantum}")
+                for _ in range(8):
+                    carry = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum, **kw)
+                parity.record_carry(carry, whole, k, f"{ctx} chained quantum={quantum}")
+    for dt, fmt in CONFIGS:
+        dix, lanes = stacked_traverse_case(np.random.default_rng(3), dev, 9_984, dt, fmt,
+                                           10, 5, 1, clamp=False)
+        flat = DeviceIndex(*(None if t is None else t[0].contiguous() for t in dix))
+        kw = dict(s_pad=9_984, k=10, docs_format=fmt)
+        parity.record_carry(kernel.traverse(dix, *lanes, **kw),
+                            kernel.traverse(flat, *lanes, **kw), 10,
+                            f"one stacked shard == unstacked {dt}/{fmt}")
 
 
 def kernel_phase(dev, parity: Parity) -> None:
@@ -752,9 +866,10 @@ def anytime_parity(kern, plain, plans, whole, caps, name: str) -> dict:
     return out
 
 
-def four_way_parity(index, queries, label: str, dev) -> dict:
+def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = None) -> dict:
     """Kernel engines == plain engines on the card; == oracle on safe exits;
-    the anytime loop's kernel engine == its plain engine (``anytime_parity``)."""
+    the anytime loop's kernel engine == its plain engine (``anytime_parity``)
+    on the first ``n_anytime`` queries (None: all)."""
     import numpy as np
     from repro_torch.core.oracle import exhaustive_scores, exhaustive_topk
     from repro_torch.core.range_daat import Engine
@@ -803,8 +918,8 @@ def four_way_parity(index, queries, label: str, dev) -> dict:
             w = observe(plain, p, b)
             check(g == w, f"{name} query {i} budget {b}: kernels {g} != plain {w}")
             n_budget_exits += g[6]
-        caps = [int(rng.integers(0, g[4] + 1)) for g in got]
-        anytime = anytime_parity(kern, plain, plans, got, caps, name)
+        caps = [int(rng.integers(0, g[4] + 1)) for g in got][:n_anytime]
+        anytime = anytime_parity(kern, plain, plans[:len(caps)], got, caps, name)
         out["engines"][f"{dt}/{fmt}"] = dict(
             kernels_s=kern_s, plain_s=plain_s, ranges=ranges, launches=launches,
             budget_ranges=budget_ranges, budget_launches=budget_launches,
@@ -816,8 +931,8 @@ def four_way_parity(index, queries, label: str, dev) -> dict:
             f"({ranges} ranges scored), budgeted {budget_launches['traverse']} "
             f"({budget_ranges} ranges); range_step and standalone scatter/decode "
             "launches 0")
-        log(f"{name} anytime loop: {len(queries)} queries run to their end and "
-            f"{len(queries)} under Fixed-n caps, kernels == plain == Engine.traverse; "
+        log(f"{name} anytime loop: {len(caps)} queries run to their end and "
+            f"{len(caps)} under Fixed-n caps, kernels == plain == Engine.traverse; "
             f"range_step launches {anytime['launches']} = ranges scored "
             f"{anytime['ranges']}, nothing else; kernels {anytime['kernels_s']:.2f} s, "
             f"plain {anytime['plain_s']:.2f} s")
@@ -1046,6 +1161,189 @@ def batch_parity(index, queries, dev) -> dict:
     return out
 
 
+def served_fields(s) -> tuple:
+    """A ``ServedQuery``'s rid, quanta and its result's seven fields."""
+    return (s.rid, s.quanta) + batch_result_fields(s.result)
+
+
+def inflight_parity(index, queries, dev, n_slots: int = BATCH, n_plain: int = 64) -> dict:
+    """``InflightServer`` on cuda: every served query equal to
+    ``Engine.traverse`` under its budget (the bitwise-resume invariant) at
+    quantum 1 and 3, unbudgeted and under two fixed budgets; ``n_plain``
+    queries at quantum 2 equal to the plain server (``impl="torch"`` on
+    the card); one ``traverse`` launch per step and nothing else."""
+    import numpy as np
+    from repro_torch.core.range_daat import INT32_MAX, Engine
+    from repro_torch.serving import BatchEngine, BucketSpec, InflightServer, SlaBudgeter
+
+    class FixedBudgeter(SlaBudgeter):
+        """Every admission gets the same postings cap."""
+
+        cap = INT32_MAX
+
+        def budgets(self, n, plans=None):
+            return np.full(n, self.cap, np.int32)
+
+    def server(eng, cap, quantum):
+        budgeter = FixedBudgeter(sla_ms=float("inf"))
+        budgeter.cap = cap
+        return InflightServer(BatchEngine(eng, BucketSpec(max_batch=n_slots)), budgeter,
+                              n_slots=n_slots, quantum=quantum)
+
+    kern = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    plain = Engine(index, k=10, device=dev, impl="torch", impact_dtype="int8",
+                   docs_format="packed")
+    plans = [kern.plan(q) for q in queries]
+    whole = [observe(kern, p) for p in plans]
+    post = sorted(w[2] for w in whole)
+    caps = (INT32_MAX, post[len(post) // 2] // 2, post[len(post) // 4] // 4)
+    out = {"caps": caps, "runs": {}}
+    for quantum in (1, 3):
+        for cap in caps:
+            srv = server(kern, cap, quantum)
+            reset_launches()
+            t0 = time.perf_counter()
+            served = srv.replay(queries)
+            run_s = time.perf_counter() - t0
+            launches = read_launches()
+            ctx = f"in-flight parity quantum={quantum} cap={cap}"
+            check_launches(launches, {"traverse": srv.steps_run}, ctx)
+            check(sorted(s.rid for s in served) == list(range(len(queries))),
+                  f"{ctx}: served rids differ from the submitted ones")
+            exits = {"safe": 0, "budget": 0, "exhausted": 0}
+            for s in served:
+                want = whole[s.rid] if cap == INT32_MAX else observe(kern, plans[s.rid], cap)
+                got = batch_result_fields(s.result)
+                check(got == want, f"{ctx} query {s.rid}: in-flight {got} != "
+                      f"Engine.traverse {want}")
+                exits[s.result.exit_reason] += 1
+            out["runs"][f"q{quantum} cap {cap}"] = dict(
+                steps=srv.steps_run, launches=launches["traverse"], seconds=run_s,
+                exits=exits, quanta=sum(s.quanta for s in served))
+            log(f"{ctx}: {len(queries)} queries at {n_slots} slots == Engine.traverse on "
+                f"all seven fields; {srv.steps_run} steps, traverse launches "
+                f"{launches['traverse']}, others 0; exits {exits}; {run_s:.3f} s")
+    kq, pq = (server(e, caps[1], 2) for e in (kern, plain))
+    reset_launches()
+    got = sorted(kq.replay(queries[:n_plain]), key=lambda s: s.rid)
+    launches = read_launches()
+    check_launches(launches, {"traverse": kq.steps_run}, "in-flight vs plain")
+    t0 = time.perf_counter()
+    want = sorted(pq.replay(queries[:n_plain]), key=lambda s: s.rid)
+    plain_s = time.perf_counter() - t0
+    check(kq.steps_run == pq.steps_run, f"in-flight vs plain: {kq.steps_run} steps vs "
+          f"{pq.steps_run}")
+    for g, w in zip(got, want):
+        check(served_fields(g) == served_fields(w), f"in-flight vs plain query {g.rid}: "
+              f"cuda {served_fields(g)} != torch {served_fields(w)}")
+    out["plain"] = dict(queries=n_plain, steps=kq.steps_run, plain_s=plain_s)
+    log(f"in-flight vs plain (quantum 2, cap {caps[1]}): {n_plain} queries, cuda == torch "
+        f"on rid, quanta and all seven fields, {kq.steps_run} steps each; torch "
+        f"{plain_s:.2f} s")
+    return out
+
+
+def sharded_fields(r) -> tuple:
+    """Every ``ShardedResult`` field, as plain Python values."""
+    return (r.doc_ids.tolist(), r.scores.tolist(), r.shard_postings.tolist(),
+            r.shard_blocks.tolist(), r.shard_ranges.tolist(), r.shard_exit_reasons,
+            r.fidelity_bound, r.exact)
+
+
+def same_topk_up_to_ties(ids, vals, want_ids, want_vals) -> bool:
+    """Equal scores, and equal documents above the k-th score (a document
+    tying the k-th score may differ, as safe termination allows)."""
+    if vals != want_vals:
+        return False
+    kth = vals[-1] if vals else 0
+    return [d for d, v in zip(ids, vals) if v > kth] == \
+        [d for d, v in zip(want_ids, want_vals) if v > kth]
+
+
+def sharded_parity(index, queries, dev, n_plain: int = 64) -> dict:
+    """``ShardedBatchEngine`` on cuda at ``max_batch`` BATCH, S = 2 and 4:
+    equal to the plain sharded path on every ``ShardedResult`` field for
+    ``n_plain`` queries (unbudgeted, budgeted, one shard down), the merged
+    top-k equal to ``Engine.traverse`` (bitwise when both run exhaustively:
+    ``safe_stop=False``, ``prune_blocks=False``; up to ties at the k-th
+    score under safe stop and pruning), one ``traverse`` launch per chunk
+    and nothing else."""
+    import numpy as np
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serving import BucketSpec, ShardedBatchEngine, ShardedEngine
+
+    kern = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    plain = Engine(index, k=10, device=dev, impl="torch", impact_dtype="int8",
+                   docs_format="packed")
+    plans = [kern.plan(q) for q in queries]
+    whole = [observe(kern, p) for p in plans]
+    # Exhaustive (no safe stop, no block pruning): the merged top-k must
+    # equal the single engine's bitwise. With pruning, a block whose bound
+    # only ties θ is skipped, and the shards' lower θ keeps some such
+    # blocks, so the lists agree up to ties at the k-th score.
+    full = [kern.topk_docs(kern.traverse(p, safe_stop=False, prune_blocks=False).state)
+            for p in plans]
+    rng = np.random.default_rng(17)
+    budgets = [int(rng.integers(1, max(w[2], 1) + 1)) for w in whole]
+    out = {}
+    for n_shards in (2, 4):
+        ks = ShardedEngine(kern, n_shards)
+        ps = ShardedEngine(plain, n_shards, shards=ks.shards)
+        kb, pb = (ShardedBatchEngine(e, BucketSpec(max_batch=BATCH)) for e in (ks, ps))
+        down = np.zeros(n_shards, bool)
+        down[-1] = True
+        forms = {"unbudgeted": {}, "budgeted": dict(budget_postings=budgets),
+                 "shard down": dict(down_mask=down),
+                 "exhaustive": dict(safe_stop=False, prune_blocks=False)}
+        for label, kw in forms.items():
+            ctx = f"sharded parity S={n_shards} {label}"
+            before = kb.batches_run
+            reset_launches()
+            t0 = time.perf_counter()
+            got = kb.run_batch(plans, **kw)
+            kern_s = time.perf_counter() - t0
+            launches = read_launches()
+            chunks = kb.batches_run - before
+            check_launches(launches, {"traverse": chunks}, ctx)
+            row = dict(chunks=chunks, launches=launches["traverse"], kernel_s=kern_s,
+                       exits={}, exact=sum(r.exact for r in got))
+            for r in got:
+                for reason in r.shard_exit_reasons:
+                    row["exits"][reason] = row["exits"].get(reason, 0) + 1
+            if label != "exhaustive":
+                pkw = dict(kw, budget_postings=budgets[:n_plain]) if "budget_postings" in kw \
+                    else kw
+                t0 = time.perf_counter()
+                want = pb.run_batch(plans[:n_plain], **pkw)
+                row["plain_s"] = time.perf_counter() - t0
+                for i, (g, w) in enumerate(zip(got, want)):
+                    check(sharded_fields(g) == sharded_fields(w),
+                          f"{ctx} query {i}: cuda {sharded_fields(g)} != torch "
+                          f"{sharded_fields(w)}")
+            if label == "unbudgeted":
+                for i, (g, w) in enumerate(zip(got, whole)):
+                    check(same_topk_up_to_ties(g.doc_ids.tolist(), g.scores.tolist(),
+                                               w[0], w[1]),
+                          f"{ctx} query {i}: merged top-k differs from Engine.traverse "
+                          "beyond ties at the k-th score")
+                row["bitwise_safe"] = sum(g.doc_ids.tolist() == w[0]
+                                          for g, w in zip(got, whole))
+            if label == "exhaustive":
+                for i, (g, (ids, vals)) in enumerate(zip(got, full)):
+                    check((g.doc_ids.tolist(), g.scores.tolist()) == (ids.tolist(),
+                                                                      vals.tolist()),
+                          f"{ctx} query {i}: merged top-k != Engine.traverse")
+                    check(g.exact and g.fidelity_bound == 0, f"{ctx} query {i}: not exact")
+            out[f"S={n_shards} {label}"] = row
+            log(f"{ctx}: {len(plans)} queries at max_batch {BATCH}, cuda == torch on every "
+                f"field for {n_plain if label != 'exhaustive' else 0}, "
+                f"{'== Engine.traverse; ' if label in ('unbudgeted', 'exhaustive') else ''}"
+                f"{chunks} chunks, traverse launches {launches['traverse']}, others 0; "
+                f"shard exits {row['exits']}, exact {row['exact']}; cuda {kern_s:.3f} s"
+                + (f", torch {row['plain_s']:.2f} s" if "plain_s" in row else ""))
+    return out
+
+
 def profile_batches(engine, queries, batch: int = BATCH, n: int = 64) -> dict:
     """Where an unbudgeted micro-batch's time goes, and the device's idle share.
 
@@ -1131,6 +1429,198 @@ def profile_batches(engine, queries, batch: int = BATCH, n: int = 64) -> dict:
     )
 
 
+def _window_profile(run, dispatches) -> dict:
+    """Wall time of ``run()`` without the profiler, then device busy time,
+    host-to-device copies and ``traverse_kernel`` rows of a second, profiled
+    ``run()``; ``dispatches()`` counts the launches so far."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    before = dispatches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = dispatches() - before
+    events = _device_events(prof)
+    check(bool(events), "profiler recorded no device time for the window")
+    kern = [e for e in events if "traverse_kernel" in e.key]
+    check(bool(kern), "profiler recorded no traverse_kernel in the window")
+    busy_ms = sum(_self_device_us(e) for e in events) / 1e3
+    return dict(
+        served=served, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / wall_ms, dispatches=n,
+        htod_copies=sum(e.count for e in events if "HtoD" in e.key),
+        traverse_device_us=sum(_self_device_us(e) for e in kern),
+        traverse_launches=sum(e.count for e in kern),
+        top=[dict(name=e.key[:80], us=_self_device_us(e), count=e.count)
+             for e in sorted(events, key=_self_device_us, reverse=True)[:6]],
+    )
+
+
+def profile_inflight(engine, queries, n_slots: int = BATCH, n: int = 64,
+                     quantum: int = 1) -> dict:
+    """Where an unbudgeted in-flight step's time goes, and the idle share.
+
+    Per step of ``n`` queries at ``n_slots`` slots: upload ms (the step's
+    one ``upload_int32``), dispatch ms (the ``traverse`` launch's return),
+    device ms (the wait for the kernel after it; this run waits before the
+    lookahead planning, so the two do not overlap), plan ms (the lookahead
+    planning) and read ms (the carry's one copy back). Then the window
+    without the profiler (wall) and again with it (device busy,
+    host-to-device copies per step).
+    """
+    import torch
+    from repro_torch.core import range_daat
+    from repro_torch.serving import BatchEngine, BucketSpec, InflightServer, SlaBudgeter
+    from repro_torch.serving import inflight
+
+    bengine = BatchEngine(engine, BucketSpec(max_batch=n_slots))
+    rows, marks = [], {}
+    upload, launch, read = (range_daat.upload_int32, range_daat.traverse_lanes,
+                            inflight.carry_to_host)
+
+    def timed_upload(arrays, device):
+        t0 = time.perf_counter()
+        out = upload(arrays, device)
+        marks["upload"] = (t0, time.perf_counter())
+        return out
+
+    def timed_launch(*a, **kw):
+        t0 = time.perf_counter()
+        out = launch(*a, **kw)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        marks["launch"] = (t0, t1, time.perf_counter())
+        return out
+
+    def timed_read(carry):
+        t0 = time.perf_counter()
+        out = read(carry)
+        t1 = time.perf_counter()
+        (u0, u1), (l0, l1, l2) = marks.pop("upload"), marks.pop("launch")
+        rows.append(dict(upload_ms=(u1 - u0) * 1e3, dispatch_ms=(l1 - l0) * 1e3,
+                         device_ms=(l2 - l1) * 1e3, plan_ms=(t0 - l2) * 1e3,
+                         read_ms=(t1 - t0) * 1e3))
+        return out
+
+    def server():
+        return InflightServer(bengine, SlaBudgeter(sla_ms=float("inf")), n_slots=n_slots,
+                              quantum=quantum)
+
+    range_daat.upload_int32, range_daat.traverse_lanes = timed_upload, timed_launch
+    inflight.carry_to_host = timed_read
+    try:
+        timed = server()
+        timed.replay(queries[:n])
+    finally:
+        range_daat.upload_int32, range_daat.traverse_lanes = upload, launch
+        inflight.carry_to_host = read
+    check(len(rows) == timed.steps_run, f"{len(rows)} timed steps of {timed.steps_run}")
+    servers = []
+
+    def run():
+        servers.append(server())
+        return servers[-1].replay(queries[:n])
+
+    win = _window_profile(run, lambda: sum(x.steps_run for x in servers))
+    served = win.pop("served")
+    # A step uploads its slots once (tables, caps and carry together).
+    check(win["htod_copies"] <= win["dispatches"], f"in-flight window: "
+          f"{win['htod_copies']} host-to-device copies over {win['dispatches']} steps")
+    mean = {key: sum(r[key] for r in rows) / len(rows)
+            for key in ("upload_ms", "dispatch_ms", "device_ms", "plan_ms", "read_ms")}
+    ranges = sum(s.result.ranges_processed for s in served)
+    return dict(slots=n_slots, quantum=quantum, queries=n, steps=len(rows),
+                **{f"mean_{k}": v for k, v in mean.items()}, **win, ranges=ranges,
+                htod_per_step=win["htod_copies"] / max(win["dispatches"], 1),
+                traverse_us_per_step=win["traverse_device_us"] / max(
+                    win["traverse_launches"], 1))
+
+
+def profile_sharded(engine, queries, n_shards: int = SHARDS, batch: int = BATCH,
+                    n: int = 64) -> dict:
+    """Where an unbudgeted sharded micro-batch's time goes, and the idle share.
+
+    Per batch of ``batch`` queries over ``n_shards`` shards: plan ms
+    (``plan_many``), shard-plan ms (``ShardedEngine.shard_plan`` per query),
+    dispatch ms (``sharded_batched_traverse`` up to its return: the one
+    upload, the launch, the merge's device operations queued), device ms
+    (the wait after it) and read ms (the one copy back and the results).
+    Then ``n`` queries through a ``MicroBatchServer`` without the profiler
+    (wall) and again with it (device busy, host-to-device copies).
+    """
+    import torch
+    from repro_torch.serving import (
+        BucketSpec, MicroBatchServer, ShardedBatchEngine, ShardedEngine, ShardedSlaBudgeter)
+    from repro_torch.serving import sharded
+
+    seng = ShardedEngine(engine, n_shards)
+    bengine = ShardedBatchEngine(seng, BucketSpec(max_batch=batch))
+    marks, shard_plan_s = [], [0.0]
+    dispatch, shard_plan = sharded.sharded_batched_traverse, seng.shard_plan
+
+    def timed_dispatch(*a, **kw):
+        t0 = time.perf_counter()
+        out = dispatch(*a, **kw)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        marks.append((t0, t1, time.perf_counter()))
+        return out
+
+    def timed_shard_plan(*a, **kw):
+        t0 = time.perf_counter()
+        out = shard_plan(*a, **kw)
+        shard_plan_s[0] += time.perf_counter() - t0
+        return out
+
+    rows = []
+    sharded.sharded_batched_traverse, seng.shard_plan = timed_dispatch, timed_shard_plan
+    try:
+        for lo in range(0, n, batch):
+            t0 = time.perf_counter()
+            plans = bengine.plan_many(queries[lo:lo + batch])
+            t1 = time.perf_counter()
+            shard_plan_s[0] = 0.0
+            res = bengine.run_batch(plans)
+            t2 = time.perf_counter()
+            check(len(marks) == 1, f"{len(marks)} dispatches for one sharded batch")
+            (d0, d1, d2), = marks
+            marks.clear()
+            rows.append(dict(plan_ms=(t1 - t0) * 1e3, shard_plan_ms=shard_plan_s[0] * 1e3,
+                             dispatch_ms=(d1 - d0) * 1e3, device_ms=(d2 - d1) * 1e3,
+                             read_ms=(t2 - d2) * 1e3,
+                             stage_ms=(d0 - t1) * 1e3 - shard_plan_s[0] * 1e3,
+                             lane_ranges=int(sum(r.shard_ranges.sum() for r in res))))
+    finally:
+        sharded.sharded_batched_traverse = dispatch
+        del seng.shard_plan
+
+    def run():
+        server = MicroBatchServer(bengine, ShardedSlaBudgeter(sla_ms=float("inf"),
+                                                              n_shards=n_shards),
+                                  max_batch=batch)
+        return server.replay(queries[:n], batch_size=batch)
+
+    win = _window_profile(run, lambda: bengine.batches_run)
+    served = win.pop("served")
+    check(win["htod_copies"] <= win["dispatches"], f"sharded window: "
+          f"{win['htod_copies']} host-to-device copies over {win['dispatches']} dispatches")
+    mean = {key: sum(r[key] for r in rows) / len(rows)
+            for key in ("plan_ms", "shard_plan_ms", "stage_ms", "dispatch_ms", "device_ms",
+                        "read_ms")}
+    lane_ranges = int(sum(s.result.shard_ranges.sum() for s in served))
+    return dict(shards=n_shards, batch=batch, queries=n, batches=rows,
+                **{f"mean_{k}": v for k, v in mean.items()}, **win,
+                lane_ranges=lane_ranges,
+                traverse_us_per_lane_range=win["traverse_device_us"] / max(lane_ranges, 1))
+
+
 class StepBytes:
     """Bytes a range step must move, from host copies of the block rows.
 
@@ -1174,22 +1664,28 @@ def step_bytes(dix, state, blk, rest, docs_format: str) -> int:
                                        int(state.vals[-1])) + 2 * (2 * k + 2) * 4 + 4)
 
 
-def traverse_bytes(eng, lanes) -> tuple[int, int, int]:
+def traverse_bytes(eng, lanes, dix=None) -> tuple[int, int, int]:
     """(bytes, ranges scored, the slowest lane's ranges) of one
     ``traverse`` call, from a step-by-step replay of each lane with the
     plain range step: per scored range its step (``StepBytes``), its order
     entry and range start, per decision its bound entry, per lane its
-    carry in and out and its two caps. The state stays on chip."""
+    carry in and out and its two caps. The state stays on chip. ``dix``
+    (default the engine's) may be stacked shards: lane n replays on
+    shard n % S."""
     from repro_torch.kernels.range_scorer import ref
 
+    dix = eng.dix if dix is None else dix
     blk, rest, order, bounds, budget, maxr, carry = lanes
     blk_h, rest_h = blk.cpu().numpy(), rest.cpu().numpy()
     order_h, bounds_h = order.cpu().numpy(), bounds.cpu().numpy()
-    cost = StepBytes(eng.dix, eng.docs_format)
+    rows = ([ref.shard_row(dix, s) for s in range(dix.range_starts.shape[0])]
+            if dix.range_starts.dim() == 2 else [dix])
+    costs = [StepBytes(row, eng.docs_format) for row in rows]
     k, (N, R) = eng.k, order_h.shape
     total = N * (2 * ref.carry_width(k) * 4 + 8)
     scored = slowest = 0
     for n in range(N):
+        row, cost = rows[n % len(rows)], costs[n % len(rows)]
         state = ref.state_views(carry[n, : 2 * k + 2], k)
         i = int(carry[n, 2 * k + 2])
         while i < R:
@@ -1200,8 +1696,8 @@ def traverse_bytes(eng, lanes) -> tuple[int, int, int]:
                 break
             r = int(order_h[n, i])
             total += 4 + cost(blk_h[n, r], rest_h[n, r], th) + 4  # order[i], range start
-            state = ref.range_step_ref(eng.dix, state, blk[n, r], rest[n, r],
-                                       eng.dix.range_starts[r], s_pad=eng.s_pad, k=k,
+            state = ref.range_step_ref(row, state, blk[n, r], rest[n, r],
+                                       row.range_starts[r], s_pad=eng.s_pad, k=k,
                                        docs_format=eng.docs_format)
             i += 1
             scored += 1
@@ -1217,7 +1713,7 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
     from repro_torch.core.range_daat import (
         INT32_MAX, Engine, batched_init_carry, carry_buffer, upload_int32)
     from repro_torch.kernels.range_scorer import kernel, ref
-    from repro_torch.serving import BucketSpec, stack_plans
+    from repro_torch.serving import BucketSpec, ShardedEngine, stack_plans
 
     eng = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
     raw = Engine(index, k=10, device=dev, impact_dtype="int8")
@@ -1315,10 +1811,34 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
         plain_device_us=device_us(plain, None, 2), library_device_us=None,
         bytes=nbytes, ranges=scored, slowest_lane_ranges=slowest,
     )
-    for d in (scatter, unpack, step, trav):
+    # traverse at the sharded window's shape: the same BATCH queries over
+    # SHARDS stacked shards, BATCH * SHARDS lanes in one launch.
+    seng = ShardedEngine(eng, SHARDS)
+    tabs = [np.stack(t) for t in zip(*[seng.shard_plan(p, width) for p in batch])]
+    n_lanes = BATCH * SHARDS
+    slanes = upload_int32(
+        [t.reshape(n_lanes, *t.shape[2:]) for t in tabs]
+        + [[INT32_MAX] * n_lanes, [INT32_MAX] * n_lanes,
+           carry_buffer(batched_init_carry(n_lanes, eng.k))], dev)
+    parity.record_carry(kernel.traverse(seng.dix, *slanes, **kw),
+                        ref.traverse_ref(seng.dix, *slanes, **kw), eng.k,
+                        "sharded timing inputs")
+    nbytes, scored, slowest = traverse_bytes(eng, slanes, seng.dix)
+    wrapper = functools.partial(kernel.traverse, seng.dix, *slanes, **kw)
+    plain = functools.partial(ref.traverse_ref, seng.dix, *slanes, **kw)
+    strav = dict(
+        shape=(f"N={BATCH}x{SHARDS} shards R_max={seng.r_max} B={width} s_pad={s_pad} "
+               f"k={eng.k}, {scored} ranges"),
+        ms=time_ms(wrapper, 100), plain_ms=time_ms(plain, 2, warmup=1), library_ms=None,
+        kernel_device_us=device_us(wrapper, "traverse_kernel", 50),
+        wrapper_device_us=device_us(wrapper, None, 50),
+        plain_device_us=device_us(plain, None, 2), library_device_us=None,
+        bytes=nbytes, ranges=scored, slowest_lane_ranges=slowest,
+    )
+    for d in (scatter, unpack, step, trav, strav):
         d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
     return {"scatter_accumulate": scatter, "unpack_locals": unpack, "range_step": step,
-            "traverse": trav}
+            "traverse": trav, "traverse_sharded": strav}
 
 
 # ----------------------------------------------------------------------- main
@@ -1375,7 +1895,10 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     kernel_phase(dev, parity)
     t1 = time.perf_counter()
     traverse_phase(dev, parity)
-    log(f"kernel phase {t1 - t0:.1f} s, traverse phase {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    stacked_traverse_phase(dev, parity)
+    log(f"kernel phase {t1 - t0:.1f} s, traverse phase {t2 - t1:.1f} s, stacked-shard "
+        f"traverse phase {time.perf_counter() - t2:.1f} s")
     log("kernels: " + ", ".join(
         f"{n} ({parity.cases[n]} cases, {getattr(kernel, n).launches} launches)"
         for n in SCORER_KERNELS) + ": parity ok (bitwise)")
@@ -1387,11 +1910,19 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
                            device_bytes=index.device_bytes("int8", "packed"))
-    record["scale"]["parity"] = four_way_parity(index, queries, "scale", dev)
+    # The anytime loop's parity at scale on 64 queries: the scale phases
+    # follow the slowest host build, so they set the smoke's wall time.
+    record["scale"]["parity"] = four_way_parity(index, queries, "scale", dev,
+                                                n_anytime=SCALE_ANYTIME_QUERIES)
     # The standalone scatter and decode, off the engine's path, on their own.
     blocks_launches = score_blocks_path(index, queries, parity, dev)
     record["scale"]["score_blocks_launches"] = blocks_launches
     record["scale"]["batch_parity"] = batch_parity(index, queries, dev)
+    t0 = time.perf_counter()
+    record["scale"]["inflight_parity"] = inflight_parity(index, queries, dev)
+    t1 = time.perf_counter()
+    record["scale"]["sharded_parity"] = sharded_parity(index, queries, dev)
+    log(f"in-flight parity {t1 - t0:.1f} s, sharded parity {time.perf_counter() - t1:.1f} s")
 
     # The main path: the serving loop over the kernels' engine.
     engine = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
@@ -1429,6 +1960,34 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     record["scale"]["serve_batch"] = bstats
     record["scale"]["batch_path_launches"] = batch_launches
 
+    # This slice's paths: launch/serve.py --mode inflight and --mode sharded.
+    reset_launches()
+    istats = serve.serve_inflight(engine, queries, BATCH, 1)
+    inflight_launches = read_launches()
+    # One traverse per step (probe and window); one range_step per range of
+    # the calibration's anytime runs.
+    check_launches(inflight_launches, {"traverse": istats["steps"],
+                                       "range_step": istats["ranges"]},
+                   "in-flight serving window")
+    log(serve.format_report("inflight", istats))
+    log(f"in-flight serving window launches: {inflight_launches} over {istats['steps']} "
+        f"steps ({istats['window_steps']} in the window) at {BATCH} slots, quantum 1, "
+        f"shapes {istats['shapes']}, final alpha {istats['final_alpha']:.3f}")
+    record["scale"]["serve_inflight"] = istats
+    record["scale"]["inflight_path_launches"] = inflight_launches
+    reset_launches()
+    sstats = serve.serve_batch(engine, queries, BATCH, n_shards=SHARDS)
+    sharded_launches = read_launches()
+    check_launches(sharded_launches, {"traverse": sstats["batches"],
+                                      "range_step": sstats["ranges"]},
+                   "sharded serving window")
+    log(serve.format_report("sharded", sstats))
+    log(f"sharded serving window launches: {sharded_launches} over {sstats['batches']} "
+        f"dispatches at batch {BATCH}, {sstats['shards']} shards (mass {sstats['mass']}), "
+        f"shapes {sstats['shapes']}, final alpha {sstats['final_alpha']:.3f}")
+    record["scale"]["serve_sharded"] = sstats
+    record["scale"]["sharded_path_launches"] = sharded_launches
+
     # Profiler sessions only after the serving window: opened before it,
     # they slowed its host time per range (PERF.md).
     prof = profile_serving(engine, queries)
@@ -1461,12 +2020,45 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     for row in bprof["top"]:
         log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
 
+    iprof = profile_inflight(engine, queries)
+    record["scale"]["profile_inflight"] = iprof
+    log(f"in-flight profile ({iprof['queries']} unbudgeted queries, {iprof['slots']} slots, "
+        f"quantum {iprof['quantum']}, {iprof['steps']} steps, {iprof['ranges']} "
+        f"lane-ranges): per step upload {iprof['mean_upload_ms']:.3f} ms, dispatch "
+        f"{iprof['mean_dispatch_ms']:.3f} ms, device {iprof['mean_device_ms']:.3f} ms, "
+        f"plan {iprof['mean_plan_ms']:.3f} ms, read {iprof['mean_read_ms']:.3f} ms; window "
+        f"wall {iprof['wall_ms']:.1f} ms, device busy {iprof['device_busy_ms']:.3f} ms, "
+        f"idle share {iprof['idle_share']:.4f}, {iprof['htod_copies']} host-to-device "
+        f"copies over {iprof['dispatches']} steps ({iprof['htod_per_step']:.2f} per step); "
+        f"traverse_kernel {iprof['traverse_us_per_step']:.2f} us per step")
+    for row in iprof["top"]:
+        log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
+    sprof = profile_sharded(engine, queries)
+    record["scale"]["profile_sharded"] = sprof
+    log(f"sharded profile ({sprof['queries']} unbudgeted queries, batch {sprof['batch']}, "
+        f"{sprof['shards']} shards, {sprof['lane_ranges']} lane-ranges): per batch plan "
+        f"{sprof['mean_plan_ms']:.3f} ms, shard-plan {sprof['mean_shard_plan_ms']:.3f} ms, "
+        f"staging {sprof['mean_stage_ms']:.3f} ms, dispatch {sprof['mean_dispatch_ms']:.3f}"
+        f" ms, device {sprof['mean_device_ms']:.3f} ms, read {sprof['mean_read_ms']:.3f} "
+        f"ms; window wall {sprof['wall_ms']:.1f} ms, device busy "
+        f"{sprof['device_busy_ms']:.3f} ms, idle share {sprof['idle_share']:.4f}, "
+        f"{sprof['htod_copies']} host-to-device copies over {sprof['dispatches']} "
+        f"dispatches; traverse_kernel {sprof['traverse_device_us']:.1f} us over "
+        f"{sprof['traverse_launches']} launches = "
+        f"{sprof['traverse_us_per_lane_range']:.2f} us per scored lane-range")
+    for row in sprof["batches"]:
+        log("  batch: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                                    f"{k} {v}" for k, v in row.items()))
+    for row in sprof["top"]:
+        log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
+
     timings = kernel_timings(index, queries, parity, dev)
     kernels = []
     # The standalone kernels report their own path's launches (score_blocks);
     # range_step the serving window's, traverse the batch serving window's.
     path_launches = dict(blocks_launches, range_step=launches["range_step"],
-                         traverse=batch_launches["traverse"])
+                         traverse=batch_launches["traverse"]
+                         + inflight_launches["traverse"] + sharded_launches["traverse"])
     replaces = {"scatter_accumulate": f"{TPU_SCORER}:47",
                 "unpack_locals": f"{TPU_SCORER}:107",
                 "range_step": f"{TPU_SCORER}:47 + {TPU_SCORER}:107",
@@ -1477,7 +2069,9 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         per_query = {
             "range_step": f"{launches[kname] / runs:.2f} launches/query on the serving "
                           "window",
-            "traverse": f"{path_launches[kname]} launches on the batch serving window",
+            "traverse": f"{path_launches[kname]} launches on the batch, in-flight and "
+                        f"sharded serving windows ({batch_launches['traverse']}, "
+                        f"{inflight_launches['traverse']}, {sharded_launches['traverse']})",
         }.get(kname, f"{path_launches[kname]} launches on score_blocks, 0 on the main "
                      "path")
         log(f"{kname} [{tm['shape']}]: {tm['ms'] * 1e3:.2f} us/call, plain "
@@ -1503,6 +2097,15 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         f"slowest lane ({tr['slowest_lane_ranges']} ranges) "
         f"{tr['kernel_device_us'] / max(tr['slowest_lane_ranges'], 1):.2f} us; "
         f"against a {tr['bound_ms'] * 1e3:.4f} us byte bound")
+    st = timings["traverse_sharded"]
+    log(f"traverse at the sharded shape [{st['shape']}]: {st['ms'] * 1e3:.2f} us/call, "
+        f"device-only {st['kernel_device_us']:.2f} us for {st['ranges']} lane-ranges = "
+        f"{st['kernel_device_us'] / max(st['ranges'], 1):.2f} us per lane-range over "
+        f"{BATCH * SHARDS} lanes; per step of the slowest lane "
+        f"({st['slowest_lane_ranges']} ranges) "
+        f"{st['kernel_device_us'] / max(st['slowest_lane_ranges'], 1):.2f} us; plain "
+        f"{st['plain_ms'] * 1e3:.0f} us; against a {st['bound_ms'] * 1e3:.4f} us byte bound "
+        f"({st['bytes']} B)")
 
     record["bag"] = bag_phase(dev, parity)
     record["bag"]["timings"] = bag_timings(dev, parity)

@@ -57,12 +57,17 @@ __all__ = [
     "PACK_WIDTHS",
     "ClusteredIndex",
     "INDEX_ARRAYS",
+    "IndexShard",
     "PackedPostings",
+    "balance_range_shards",
     "build_index",
     "device_bytes_report",
     "index_from_arrays",
     "pack_dir_entries",
     "pack_docs",
+    "range_postings_mass",
+    "shard_cuts",
+    "shard_device_index",
     "unpack_docs",
 ]
 
@@ -639,3 +644,191 @@ def index_from_arrays(
         quantizer=Quantizer(bits=int(quant_bits), scale=float(quant_scale)),
         **a,
     )
+
+
+# ------------------------------------------------------------------ sharding
+#
+# The reference's range sharding (its ``core/clustered_index.py``), copied:
+# numpy only, so a shard list built here equals the reference's array for
+# array.
+
+
+@dataclasses.dataclass
+class IndexShard:
+    """A contiguous band of ranges carved out of a ``ClusteredIndex``.
+
+    Everything is remapped to shard-local coordinates (DESIGN.md §4):
+    ``docs`` holds local docids (global - ``doc_base``), ``blk_start``
+    offsets into the shard-local postings array, ``range_starts`` /
+    ``bounds_dense`` cover only this shard's ranges, and ``blk_map`` sends
+    global block ids to shard-local ones (-1 for blocks owned elsewhere) so
+    a globally-planned ``QueryPlan`` can be sliced per shard without
+    replanning.
+    """
+
+    shard_id: int
+    range_lo: int  # global range-id window [range_lo, range_hi)
+    range_hi: int
+    doc_base: int  # global docid of local doc 0
+    n_docs: int
+    postings: int  # postings mass carried by this shard
+
+    docs: np.ndarray  # [nnz_s] int32 LOCAL docids
+    impacts: np.ndarray  # [nnz_s] int32
+    blk_start: np.ndarray  # [NB_s] int64 offsets into the LOCAL postings
+    blk_len: np.ndarray  # [NB_s] int32
+    blk_maxdoc: np.ndarray  # [NB_s] int32 LOCAL docids
+    blk_maximp: np.ndarray  # [NB_s] int32
+    blk_map: np.ndarray  # [NB_global] int32 global block id -> local (-1)
+
+    range_starts: np.ndarray  # [R_s] int32 LOCAL docid space
+    range_sizes: np.ndarray  # [R_s] int32
+    bounds_dense: np.ndarray  # [V, R_s] int32 — U[t, r] for local ranges
+
+    @property
+    def n_ranges(self) -> int:
+        return self.range_hi - self.range_lo
+
+
+def balance_range_shards(mass: np.ndarray, n_shards: int) -> np.ndarray:
+    """Contiguous range partition balancing postings mass.
+
+    Returns ``cuts`` [n_shards + 1] with shard s owning ranges
+    ``[cuts[s], cuts[s+1])``. Greedy prefix-sum cuts: each boundary lands on
+    whichever side of the ideal s/n_shards mass quantile is closer, subject
+    to every shard keeping at least one range. The range structure is the
+    unit of partitioning — a topically-coherent shard boundary, unlike the
+    random document split of the classic partitioned deployment (§7.2).
+    """
+    mass = np.asarray(mass, dtype=np.int64)
+    R = int(mass.shape[0])
+    if not 1 <= n_shards <= R:
+        raise ValueError(f"need 1 <= n_shards={n_shards} <= n_ranges={R}")
+    cum = np.cumsum(mass)
+    total = int(cum[-1])
+    cuts = [0]
+    for s in range(1, n_shards):
+        target = total * s / n_shards
+        j = int(np.searchsorted(cum, target))  # first prefix >= target
+        # Nearest cut: left mass is cum[j-1] cutting before range j,
+        # cum[j] cutting after it — take whichever lands closer to target.
+        left = int(cum[j - 1]) if j > 0 else 0
+        if j < R and abs(int(cum[j]) - target) < abs(left - target):
+            j += 1
+        j = max(j, cuts[-1] + 1)  # every shard keeps >= 1 range
+        j = min(j, R - (n_shards - s))
+        cuts.append(j)
+    cuts.append(R)
+    return np.asarray(cuts, dtype=np.int64)
+
+
+def range_postings_mass(index: ClusteredIndex) -> np.ndarray:
+    """[R] int64 postings mass per global range (the partitioning weight)."""
+    return np.bincount(
+        index.blk_range, weights=index.blk_len, minlength=index.n_ranges
+    ).astype(np.int64)
+
+
+def _validate_cuts(cuts: np.ndarray, n_ranges: int) -> np.ndarray:
+    cuts = np.asarray(cuts, dtype=np.int64)
+    if (
+        cuts.ndim != 1
+        or cuts.shape[0] < 2
+        or cuts[0] != 0
+        or cuts[-1] != n_ranges
+        or np.any(np.diff(cuts) < 1)
+    ):
+        raise ValueError(
+            f"cuts {cuts.tolist()} must rise strictly from 0 to "
+            f"n_ranges={n_ranges} (every shard keeps >= 1 range)"
+        )
+    return cuts
+
+
+def shard_cuts(shards: list["IndexShard"]) -> np.ndarray:
+    """[S + 1] int64 global range cuts recovered from a shard list."""
+    return np.asarray(
+        [sh.range_lo for sh in shards] + [shards[-1].range_hi], np.int64
+    )
+
+
+def shard_device_index(
+    index: ClusteredIndex,
+    n_shards: int | None = None,
+    cuts: np.ndarray | None = None,
+) -> list[IndexShard]:
+    """Partition a built index along range boundaries into device shards.
+
+    Ranges stay whole (blocks never straddle a range boundary, so a range
+    boundary is also a block and postings boundary); contiguous bands of
+    ranges are assigned to shards by :func:`balance_range_shards` so every
+    shard carries a near-equal share of postings — or by explicit ``cuts``
+    ([S + 1], rising from 0 to n_ranges), which is how the control plane's
+    reshard planner places load-rebalanced boundaries (DESIGN.md §9). Each
+    shard's arrays are rewritten to local coordinates — see
+    :class:`IndexShard`. Scores need no recalibration across shards: the
+    quantizer is global, so per-shard integer top-k lists merge exactly
+    (DESIGN.md §4).
+    """
+    R = index.n_ranges
+    mass = range_postings_mass(index)
+    if cuts is None:
+        if n_shards is None:
+            raise ValueError("need n_shards or explicit cuts")
+        cuts = balance_range_shards(mass, n_shards)
+    else:
+        cuts = _validate_cuts(cuts, R)
+        if n_shards is not None and n_shards != cuts.shape[0] - 1:
+            raise ValueError(
+                f"n_shards={n_shards} != len(cuts)-1={cuts.shape[0] - 1}"
+            )
+        n_shards = cuts.shape[0] - 1
+
+    NB = index.n_blocks
+    range_starts = index.range_starts
+    range_sizes = index.arrangement.range_sizes
+    shards: list[IndexShard] = []
+    for s in range(n_shards):
+        lo, hi = int(cuts[s]), int(cuts[s + 1])
+        doc_base = int(range_starts[lo])
+        sel = (index.blk_range >= lo) & (index.blk_range < hi)
+        gids = np.nonzero(sel)[0]
+        lens = index.blk_len[gids].astype(np.int64)
+        starts = index.blk_start[gids]
+        local_start = np.zeros(gids.shape[0], dtype=np.int64)
+        if gids.size:
+            local_start[1:] = np.cumsum(lens)[:-1]
+            tot = int(lens.sum())
+            take = np.repeat(starts - local_start, lens) + np.arange(tot)
+        else:
+            take = np.empty(0, dtype=np.int64)
+
+        blk_map = np.full(NB, -1, dtype=np.int32)
+        blk_map[gids] = np.arange(gids.shape[0], dtype=np.int32)
+
+        n_docs = int(
+            (range_starts[hi] if hi < R else index.n_docs) - doc_base
+        )
+        shards.append(
+            IndexShard(
+                shard_id=s,
+                range_lo=lo,
+                range_hi=hi,
+                doc_base=doc_base,
+                n_docs=n_docs,
+                postings=int(mass[lo:hi].sum()),
+                docs=checked_int32(index.docs[take] - doc_base, "shard docids"),
+                impacts=index.impacts[take].astype(np.int32),
+                blk_start=local_start,
+                blk_len=index.blk_len[gids].astype(np.int32),
+                blk_maxdoc=checked_int32(
+                    index.blk_maxdoc[gids] - doc_base, "shard block maxdocs"
+                ),
+                blk_maximp=index.blk_maximp[gids].astype(np.int32),
+                blk_map=blk_map,
+                range_starts=(range_starts[lo:hi] - doc_base).astype(np.int32),
+                range_sizes=range_sizes[lo:hi].astype(np.int32),
+                bounds_dense=index.bounds_dense[:, lo:hi],
+            )
+        )
+    return shards

@@ -57,6 +57,7 @@ __all__ = [
     "carry_done",
     "carry_from_buffer",
     "carry_result",
+    "carry_to_host",
     "lane_caps",
     "merge_topk",
     "pack_impacts",
@@ -254,6 +255,28 @@ def carry_from_buffer(buf: torch.Tensor, k: int) -> TraverseCarry:
     )
 
 
+def carry_to_host(carry: TraverseCarry) -> TraverseCarry:
+    """A batched carry as writable host (numpy) arrays, read in one copy.
+
+    A carry from ``batched_traverse_resume`` holds views of one
+    [N, 2k+5] buffer, which is read whole; any other carry is laid out
+    first (``carry_buffer``). The cursor and the counters are int32 and
+    the flags bool, as ``batched_init_carry`` makes them.
+    """
+    k = carry.state.vals.shape[1]
+    base = getattr(carry.i, "_base", None)
+    if base is None or base.dim() != 2 or base.shape[1] != 2 * k + 5:
+        base = carry_buffer(carry)
+    host = np.array(_host(base), np.int32)
+    return TraverseCarry(
+        i=host[:, 2 * k + 2],
+        state=TopKState(vals=host[:, :k], ids=host[:, k + 2:2 * k + 2],
+                        postings=host[:, k], blocks=host[:, k + 1]),
+        exit_safe=host[:, 2 * k + 3] != 0,
+        exit_budget=host[:, 2 * k + 4] != 0,
+    )
+
+
 def upload_int32(arrays, device) -> list[torch.Tensor]:
     """Int32 tensors on ``device`` for ``arrays``, the host ones in one copy.
 
@@ -305,7 +328,9 @@ def traverse_lanes(
 
     ``impl="cuda"`` is one launch of the ``traverse`` kernel (no host
     round trip until the caller reads the result); ``impl="torch"`` its
-    plain version, ``kernels.range_scorer.ref.traverse_ref``.
+    plain version, ``kernels.range_scorer.ref.traverse_ref``. ``dix`` may
+    be S range shards stacked row by row (``serving.sharded``): lane n
+    then reads shard n % S.
     """
     kw = dict(s_pad=s_pad, k=k, quantum=quantum, safe_stop=safe_stop,
               prune_blocks=prune_blocks, docs_format=docs_format)

@@ -571,6 +571,17 @@ range_step_kernel(const __grid_constant__ StepArgs a) {
 // the lane's own [s_pad] slice of a [N, s_pad] global scratch, re-zeroed
 // by every step. A dummy lane (budget 0 or maxr 0) stops at its first
 // decision.
+//
+// Stacked shards. The index may be S range shards stacked row by row
+// (every column [S, W], range_starts [S, R]; the reference's
+// sharded_batched_traverse, src/repro/serving/sharded.py:98-156, runs
+// device_traverse under a double vmap over [N, S]). Lane n then reads
+// shard n % S, the reference's [N, S] row-major order: each column's
+// pointer advances by shard times its row stride, range_starts by
+// shard * R, and the gather clamps use the row widths W (n_docs, n_imps,
+// n_words), as the reference's vmapped gathers clamp within one shard's
+// padded row. One launch serves every (query, shard) pair; S = 1 is the
+// unstacked index, every stride 0.
 constexpr int kStateBytes = 2 * (2 * kMaxK + 2) * 4;  // two states at k = kMaxK
 // kernel.py mirrors this number (TRAVERSE_SHARED_ACC_SLOTS).
 constexpr int kMaxTraverseSlots =
@@ -585,7 +596,7 @@ __device__ __forceinline__ int32_t gather_index(int32_t i, int32_t n) {
 
 struct TraverseArgs {
   IndexArgs ix;
-  const int32_t* range_starts;  // [R]
+  const int32_t* range_starts;  // [R], or [S, R] for stacked shards
   const int32_t* blk_tab;       // [N, R, B], -1 padded
   const int32_t* rest_tab;      // [N, R, B]
   const int32_t* order;         // [N, R]
@@ -595,11 +606,39 @@ struct TraverseArgs {
   const int32_t* carry_in;      // [N, 2k+5]
   int32_t* carry_out;           // [N, 2k+5]
   int32_t* acc_global;          // [N, s_pad] scratch for the global placement
+  int64_t docs_stride;          // stacked shards: row strides of docs, impacts,
+  int64_t imps_stride;          // the block columns (blk_*, pack_dir,
+  int64_t blk_stride;           // pack_first) and the packed words, in
+  int64_t words_stride;         // elements (0 when unstacked)
+  int n_shards;                 // S >= 1: lane n reads shard n % S
   int n_ranges;
   int n_blocks;
   int quantum;                  // < 0: run to an exit
   int safe_stop;
 };
+
+// The index as lane n's shard sees it: every column advanced to the
+// shard's row (its widths are already the row widths).
+template <bool kPacked, bool kInt8>
+__device__ __forceinline__ IndexArgs shard_index(const TraverseArgs& t, int64_t shard) {
+  IndexArgs a = t.ix;
+  if (shard == 0) return a;
+  if (kPacked) {
+    a.words += shard * t.words_stride;
+  } else {
+    a.docs += shard * t.docs_stride;
+  }
+  a.impacts = static_cast<const char*>(a.impacts) +
+              shard * t.imps_stride * (kInt8 ? 1 : 4);
+  a.blk_start += shard * t.blk_stride;
+  a.blk_len += shard * t.blk_stride;
+  a.blk_maximp += shard * t.blk_stride;
+  if (kPacked) {
+    a.pack_dir += shard * t.blk_stride;
+    a.pack_first += shard * t.blk_stride;
+  }
+  return a;
+}
 
 template <bool kSharedAcc, bool kPacked, bool kInt8>
 __global__ void __launch_bounds__(kStepThreads)
@@ -609,9 +648,11 @@ traverse_kernel(const __grid_constant__ TraverseArgs t) {
   // The loop's control: decision (0 stop, 1 exit found, 2 score), range,
   // cursor, exit_safe, exit_budget.
   __shared__ int32_t ctl[5];
-  const IndexArgs& a = t.ix;
-  const int k = a.k, width = 2 * k + 2, R = t.n_ranges;
   const int64_t n = blockIdx.x;
+  const int64_t shard = n % t.n_shards;
+  const IndexArgs a = shard_index<kPacked, kInt8>(t, shard);
+  const int32_t* range_starts = t.range_starts + shard * t.n_ranges;
+  const int k = a.k, width = 2 * k + 2, R = t.n_ranges;
   uint64_t* skey = reinterpret_cast<uint64_t*>(smem);
   int32_t* sid = reinterpret_cast<int32_t*>(skey + a.sort_n);
   int32_t* cur = sid + a.sort_n;
@@ -658,7 +699,7 @@ traverse_kernel(const __grid_constant__ TraverseArgs t) {
       const int32_t r = ctl[1];
       const int64_t row = (n * R + r) * t.n_blocks;
       range_step_body<kSharedAcc, kPacked, kInt8>(
-          a, t.blk_tab + row, t.rest_tab + row, t.n_blocks, (uint32_t)t.range_starts[r],
+          a, t.blk_tab + row, t.rest_tab + row, t.n_blocks, (uint32_t)range_starts[r],
           state_at(cur, k), state_at(nxt, k), skey, sid, acc, sh);
       int32_t* tmp = cur;
       cur = nxt;
@@ -821,7 +862,9 @@ int rs_range_step(const void* docs, int64_t n_docs, const void* impacts,
 // N lanes' whole-query loops from their carries. acc_global is null for
 // the shared-memory accumulator (s_pad <= kMaxTraverseSlots) and a
 // [n_lanes, s_pad] int32 scratch buffer otherwise; quantum < 0 runs each
-// lane to an exit.
+// lane to an exit. With n_shards = S > 1 the index columns are S stacked
+// rows (n_docs, n_imps and n_words the row widths, the strides their row
+// strides, range_starts [S, n_ranges]) and lane n reads row n % S.
 int rs_traverse(const void* docs, int64_t n_docs, const void* impacts, int64_t n_imps,
                 int impacts_int8, const void* blk_start, const void* blk_len,
                 const void* blk_maximp, const void* words, int64_t n_words,
@@ -831,15 +874,25 @@ int rs_traverse(const void* docs, int64_t n_docs, const void* impacts, int64_t n
                 const void* maxr, const void* carry_in, void* carry_out,
                 int64_t n_lanes, int64_t n_ranges, int64_t n_blocks, int64_t k,
                 int64_t s_pad, int64_t quantum, int safe_stop, int prune,
-                void* acc_global, void* stream) {
+                void* acc_global, int64_t n_shards, int64_t docs_stride,
+                int64_t imps_stride, int64_t blk_stride, int64_t words_stride,
+                void* stream) {
   TraverseArgs t;
   if (!index_args(&t.ix, docs, n_docs, impacts, n_imps, blk_start, blk_len, blk_maximp,
                   words, n_words, pack_dir, pack_first, packed, k, s_pad, prune) ||
       n_lanes < 1 || n_lanes > 65535 || n_ranges < 1 || n_ranges > INT32_MAX ||
       n_blocks < 0 || n_blocks > INT32_MAX || quantum > INT32_MAX ||
+      n_shards < 1 || n_lanes % n_shards != 0 ||
+      (n_shards > 1 && (docs_stride < 0 || imps_stride < n_imps ||
+                        blk_stride < 1 || words_stride < 0)) ||
       (acc_global == nullptr && s_pad > kMaxTraverseSlots)) {
     return (int)cudaErrorInvalidValue;
   }
+  t.docs_stride = docs_stride;
+  t.imps_stride = imps_stride;
+  t.blk_stride = blk_stride;
+  t.words_stride = words_stride;
+  t.n_shards = (int)n_shards;
   t.range_starts = (const int32_t*)range_starts;
   t.blk_tab = (const int32_t*)blk_tab;
   t.rest_tab = (const int32_t*)rest_tab;

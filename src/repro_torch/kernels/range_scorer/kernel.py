@@ -79,7 +79,8 @@ _LIB = CudaLibrary(
         "rs_traverse": [
             *_INDEX_ARGTYPES,
             PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-            I64, I64, I64, I64, I64, I64, INT, INT, PTR, PTR,
+            I64, I64, I64, I64, I64, I64, INT, INT, PTR,
+            I64, I64, I64, I64, I64, PTR,
         ],
     },
     error_fn="rs_error_string",
@@ -221,17 +222,22 @@ def _check_k(name: str, s_pad: int, k: int) -> None:
         )
 
 
-def _index_tensors(dix, docs_format: str) -> tuple:
-    """(name, tensor, ndim) of the index columns a step reads, dtype-checked."""
+def _index_tensors(dix, docs_format: str, ndim: int = 1) -> tuple:
+    """(name, tensor, ndim) of the index columns a step reads, dtype-checked.
+
+    ``ndim`` is 2 for an index of stacked shards (``traverse``)."""
     if docs_format not in ref.DOCS_FORMATS:
         raise ValueError(f"docs_format {docs_format!r} not in {ref.DOCS_FORMATS}")
     if dix.impacts.dtype not in (torch.int32, torch.int8):
         raise TypeError(f"dix.impacts must be int32 or int8, got {dix.impacts.dtype}")
-    docs = (("dix.pack_words", dix.pack_words, 1), ("dix.pack_dir", dix.pack_dir, 1),
-            ("dix.pack_first", dix.pack_first, 1)) if docs_format == "packed" else (
-        ("dix.docs", dix.docs, 1),)
-    return (("dix.blk_start", dix.blk_start, 1), ("dix.blk_len", dix.blk_len, 1),
-            ("dix.blk_maximp", dix.blk_maximp, 1), *docs)
+    if dix.impacts.dim() != ndim:
+        raise ValueError(f"dix.impacts must have {ndim} dims, got shape "
+                         f"{tuple(dix.impacts.shape)}")
+    docs = (("dix.pack_words", dix.pack_words, ndim), ("dix.pack_dir", dix.pack_dir, ndim),
+            ("dix.pack_first", dix.pack_first, ndim)) if docs_format == "packed" else (
+        ("dix.docs", dix.docs, ndim),)
+    return (("dix.blk_start", dix.blk_start, ndim), ("dix.blk_len", dix.blk_len, ndim),
+            ("dix.blk_maximp", dix.blk_maximp, ndim), *docs)
 
 
 def _check_all(tensors, docs_format: str) -> None:
@@ -250,15 +256,38 @@ def _check_on(device: torch.device, dix, tensors) -> None:
 
 
 def _index_args(dix, packed: bool) -> tuple:
-    """The index arguments both entry points take, in their order."""
+    """The index arguments both entry points take, in their order: a
+    column's length is its row width (the whole column when unstacked)."""
     return (
-        0 if packed else _ptr(dix.docs), 0 if packed else dix.docs.numel(),
-        _ptr(dix.impacts), dix.impacts.numel(), int(dix.impacts.dtype == torch.int8),
+        0 if packed else _ptr(dix.docs), 0 if packed else dix.docs.shape[-1],
+        _ptr(dix.impacts), dix.impacts.shape[-1], int(dix.impacts.dtype == torch.int8),
         _ptr(dix.blk_start), _ptr(dix.blk_len), _ptr(dix.blk_maximp),
-        _ptr(dix.pack_words) if packed else 0, dix.pack_words.numel() if packed else 0,
+        _ptr(dix.pack_words) if packed else 0, dix.pack_words.shape[-1] if packed else 0,
         _ptr(dix.pack_dir) if packed else 0, _ptr(dix.pack_first) if packed else 0,
         int(packed),
     )
+
+
+def _shard_strides(dix, tensors) -> tuple:
+    """(docs, impacts, block columns, packed words) row widths of a stacked
+    index (its rows are contiguous: ``data_ptr`` checks); all 0 unstacked."""
+    if dix.range_starts.dim() == 1:
+        return (0, 0, 0, 0)
+    n_shards = dix.range_starts.shape[0]
+    cols = {name: t for name, t, _ in (*tensors, ("dix.impacts", dix.impacts, 2))
+            if name.startswith("dix.")}
+    for name, t in cols.items():
+        if t.shape[0] != n_shards:
+            raise ValueError(f"{name} has {t.shape[0]} shard rows, dix.range_starts "
+                             f"{n_shards}")
+    blk = {cols[n].shape[1] for n in ("dix.blk_start", "dix.blk_len", "dix.blk_maximp",
+                                       "dix.pack_dir", "dix.pack_first") if n in cols}
+    if len(blk) != 1:
+        raise ValueError(f"the stacked block columns differ in width: {sorted(blk)}")
+    words = cols.get("dix.pack_words")
+    docs = cols.get("dix.docs")
+    return (0 if docs is None else docs.shape[1], dix.impacts.shape[1], blk.pop(),
+            0 if words is None else words.shape[1])
 
 
 def range_step(
@@ -343,28 +372,40 @@ def traverse(
     Returns the carry out, a fresh buffer of the same layout. ``quantum``
     (None: run to an exit) caps each lane's loop iterations. Raises for k
     outside [1, min(s_pad, MAX_K)].
+
+    ``dix`` may be S range shards stacked row by row (every column
+    ``[S, W]``, ``range_starts`` ``[S, R]``): lane n then reads shard
+    n % S, so N = N_queries * S lanes in the reference's [N, S] row-major
+    order run every (query, shard) pair in one launch.
     """
     s_pad, k = int(s_pad), int(k)
     _check_k("traverse", s_pad, k)
     if quantum is not None and not 0 <= int(quantum) <= ref.INT32_MAX:
         raise ValueError(f"quantum must be None or in [0, 2^31), got {quantum}")
+    if not isinstance(dix.range_starts, torch.Tensor):
+        raise TypeError("dix.range_starts must be a torch.Tensor")
+    stacked = dix.range_starts.dim() == 2
+    n_shards = int(dix.range_starts.shape[0]) if stacked else 1
+    ndim = 2 if stacked else 1
     tensors = (
         ("blk_tab", blk_tab, 3), ("rest_tab", rest_tab, 3), ("order", order, 2),
         ("ordered_bounds", ordered_bounds, 2), ("budget", budget, 1), ("maxr", maxr, 1),
-        ("carry", carry, 2), ("dix.range_starts", dix.range_starts, 1),
-        *_index_tensors(dix, docs_format),
+        ("carry", carry, 2), ("dix.range_starts", dix.range_starts, ndim),
+        *_index_tensors(dix, docs_format, ndim),
     )
     _check_all(tensors, docs_format)
     N, R, B = blk_tab.shape
     want = {"rest_tab": (N, R, B), "order": (N, R), "ordered_bounds": (N, R),
             "budget": (N,), "maxr": (N,), "carry": (N, ref.carry_width(k)),
-            "dix.range_starts": (R,)}
+            "dix.range_starts": (n_shards, R) if stacked else (R,)}
     for name, t, _ in tensors:
         if name in want and tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]} "
                              f"(N={N}, R={R}, B={B}, k={k})")
     if R == 0:
         raise ValueError("traverse needs at least one range")
+    if n_shards < 1 or N % n_shards:
+        raise ValueError(f"{N} lanes do not divide into {n_shards} shards")
     kw = dict(s_pad=s_pad, k=k, quantum=None if quantum is None else int(quantum),
               safe_stop=bool(safe_stop), prune_blocks=bool(prune_blocks),
               docs_format=docs_format)
@@ -375,6 +416,7 @@ def traverse(
     if device.type != "cuda":
         raise ValueError(f"traverse runs on cuda or cpu, not {device}")
     _check_on(device, dix, tensors)
+    strides = _shard_strides(dix, tensors)
     out = torch.empty_like(carry)
     if N == 0:
         return out
@@ -386,6 +428,7 @@ def traverse(
         _ptr(ordered_bounds), _ptr(budget), _ptr(maxr), _ptr(carry), _ptr(out),
         N, R, B, k, s_pad, -1 if quantum is None else int(quantum),
         int(kw["safe_stop"]), int(kw["prune_blocks"]), 0 if acc is None else _ptr(acc),
+        n_shards, *strides,
     )
     traverse.launches += 1
     return out

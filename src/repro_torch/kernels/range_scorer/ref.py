@@ -63,6 +63,7 @@ __all__ = [
     "scatter_accumulate_ref",
     "score_blocks_packed_ref",
     "score_blocks_ref",
+    "shard_row",
     "state_views",
     "theta",
     "theta_postings",
@@ -381,6 +382,12 @@ def range_step_ref(
     return state_views(torch.cat([nv, postings[None], blocks[None], ni]), k)
 
 
+def shard_row(dix, shard: int):
+    """Shard ``shard``'s row of an index of stacked shards: the same
+    ``DeviceIndex`` type, every column a view of its row."""
+    return type(dix)._make(None if x is None else x[shard] for x in dix)
+
+
 def _gather_index(i: int, n: int) -> int:
     """A traced gather's index into an axis of n: negative counts from the
     end, then the index clamps to [0, n) (``jnp`` indexing under ``jit``)."""
@@ -419,10 +426,18 @@ def traverse_ref(
     iteration reads
     θ and the postings counter to the host, so this is the tests' and the
     CPU's path, never the card's.
+
+    ``dix`` may be S range shards stacked row by row (every column
+    ``[S, W]``, ``range_starts`` ``[S, R]``): lane n then reads shard
+    n % S (:func:`shard_row`), the reference's double vmap over [N, S].
     """
     N, R = order.shape
+    n_shards = dix.range_starts.shape[0] if dix.range_starts.dim() == 2 else 0
+    if n_shards and N % n_shards:
+        raise ValueError(f"{N} lanes do not divide into {n_shards} shards")
     rows = []
     for n in range(N):
+        lane_dix = shard_row(dix, n % n_shards) if n_shards else dix
         order_h = order[n].tolist()
         bounds_h = ordered_bounds[n].tolist()
         bud, mr = int(budget[n]), int(maxr[n])
@@ -438,7 +453,8 @@ def traverse_ref(
             if not (s_safe or s_budget):
                 r = _gather_index(order_h[_gather_index(i, R)], R)
                 state = range_step_ref(
-                    dix, state, blk_tab[n, r], rest_tab[n, r], dix.range_starts[r],
+                    lane_dix, state, blk_tab[n, r], rest_tab[n, r],
+                    lane_dix.range_starts[r],
                     s_pad=s_pad, k=k, prune_blocks=prune_blocks,
                     docs_format=docs_format,
                 )

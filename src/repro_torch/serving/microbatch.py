@@ -13,8 +13,10 @@ for time). ``SlaBudgeter`` closes the loop:
     sustained compliance relaxes them, the paper's §6.4 control loop
     transplanted from time-space into postings-space.
 
-``MicroBatchServer`` is the request loop: enqueue, cut a batch at
-``max_batch`` (or whatever is pending), serve it through ``BatchEngine``,
+``ShardedSlaBudgeter`` splits the SLA into per-shard budgets for the
+range-sharded engines (``serving.sharded``). ``MicroBatchServer`` is the
+request loop: enqueue, cut a batch at ``max_batch`` (or whatever is
+pending), serve it through a ``BatchEngine`` or ``ShardedBatchEngine``,
 attribute the batch wall time plus queue wait to every member. Every
 budget and every latency equals the reference's under the same clock.
 """
@@ -34,6 +36,7 @@ from repro_torch.serving.batch_engine import INT32_MAX, BatchEngine, BatchResult
 __all__ = [
     "MicroBatchServer",
     "ServedQuery",
+    "ShardedSlaBudgeter",
     "SlaBudgeter",
     "result_exit_reason",
 ]
@@ -78,11 +81,141 @@ class SlaBudgeter:
         if elapsed_ms > 0 and n > 0:
             lane_rate = (total_postings / n) / elapsed_ms
             self.rate = (1 - self.ema) * self.rate + self.ema * max(lane_rate, 1e-6)
+        self._feed_policy(elapsed_ms, latencies_ms)
+
+    def _feed_policy(
+        self, elapsed_ms: float, latencies_ms: Sequence[float] | None
+    ) -> None:
+        """Eq. (7): every end-to-end latency, or the dispatch time alone."""
         if latencies_ms is None:
             self.policy.on_query_end(elapsed_ms, self.sla_ms)
         else:
             for t_ms in latencies_ms:
                 self.policy.on_query_end(float(t_ms), self.sla_ms)
+
+
+@dataclasses.dataclass
+class ShardedSlaBudgeter(SlaBudgeter):
+    """Split a millisecond SLA into per-shard postings budgets.
+
+    Shards traverse concurrently, so each shard gets the *full* time
+    budget converted at its *own* observed throughput: an independent
+    postings/ms/lane EWMA per shard (a slow or overloaded shard
+    self-reports a lower rate and receives a smaller cap). One shared
+    Reactive alpha (Eq. 7) scales all shards from end-to-end SLA feedback:
+    the SLA is on the merged result, not on any single shard.
+
+    Two allocation modes (DESIGN.md §9):
+
+      * ``mode="rate"``: every query in the batch gets the same per-shard
+        caps, shaped only by the throughput EWMAs (the §4 behaviour);
+      * ``mode="boundsum"``: each query's *total* postings budget (the sum
+        of the rate-mode caps) is re-divided across shards proportionally
+        to the per-shard BoundSum mass of that query's terms, obtained via
+        ``shard_mass`` (``ShardedEngine.query_shard_mass``). A shard whose
+        ranges cannot score for the query gets zero budget; the freed
+        postings concentrate where the score mass actually lives, which
+        tightens ``fidelity_bound`` under tight SLAs on skewed indexes.
+
+    ``budgets(n, plans)`` returns [n, n_shards]; feed observations through
+    ``observe_sharded`` (per-shard postings); ``MicroBatchServer`` does so
+    automatically when results carry ``shard_postings``. The float64
+    arithmetic is the reference's, expression for expression, so the
+    int32 budgets are identical.
+    """
+
+    n_shards: int = 1
+    mode: str = "rate"  # "rate" | "boundsum"
+    shard_mass: object = None  # callable QueryPlan -> [n_shards] mass
+    down_mask: object = None  # callable -> [n_shards] bool, True = shard down
+
+    def __post_init__(self):
+        if self.mode not in ("rate", "boundsum"):
+            raise ValueError(f"mode {self.mode!r} not in ('rate', 'boundsum')")
+        if self.mode == "boundsum" and self.shard_mass is None:
+            raise ValueError(
+                "mode='boundsum' needs shard_mass= "
+                "(e.g. ShardedEngine.query_shard_mass)"
+            )
+        self.rates = np.full(self.n_shards, self.rate, dtype=np.float64)
+
+    def _rate_caps(self) -> np.ndarray:
+        cap = np.maximum(
+            float(self.floor), self.rates * self.sla_ms / self.policy.alpha
+        )
+        return np.minimum(cap, float(INT32_MAX))
+
+    def budgets(self, n: int, plans=None) -> np.ndarray:
+        """[n, n_shards] int32 per-(query, shard) postings budgets."""
+        caps = self._rate_caps()
+        out = np.tile(caps.astype(np.int64), (n, 1))
+        unbounded = float(caps.max()) >= float(INT32_MAX)
+        if self.mode == "boundsum" and plans is not None and not unbounded:
+            total = float(caps.sum())
+            for i, plan in enumerate(plans):
+                mass = np.asarray(self.shard_mass(plan), np.float64)
+                if mass.sum() <= 0:
+                    continue  # no scoring shard at all: keep rate shares
+                split = np.ceil(total * mass / mass.sum())
+                # Scoring shards keep the one-block floor; zero-mass shards
+                # provably cannot contribute a document, so they get zero.
+                split = np.where(mass > 0, np.maximum(split, self.floor), 0)
+                out[i] = np.minimum(split, float(INT32_MAX)).astype(np.int64)
+        return np.clip(out, 0, INT32_MAX).astype(np.int32)
+
+    def observe_sharded(
+        self,
+        elapsed_ms: float,
+        shard_postings: np.ndarray,
+        n: int,
+        active_mask: np.ndarray | None = None,
+        latencies_ms: Sequence[float] | None = None,
+    ) -> None:
+        """Per-shard throughput EWMAs + shared Eq. (7) feedback on alpha.
+
+        ``active_mask`` ([n_shards] bool) freezes the EWMA of shards that
+        did no work for a structural reason (health-ledger down, DESIGN.md
+        §9); otherwise an outage would drag the dead shard's rate to ~0
+        and starve it for many rounds after recovery.
+        """
+        if elapsed_ms > 0 and n > 0:
+            lane_rates = np.asarray(shard_postings, np.float64) / n / elapsed_ms
+            new = (1 - self.ema) * self.rates + self.ema * np.maximum(
+                lane_rates, 1e-6
+            )
+            if active_mask is not None:
+                new = np.where(np.asarray(active_mask, bool), new, self.rates)
+            self.rates = new
+        self._feed_policy(elapsed_ms, latencies_ms)
+
+    def observe(
+        self,
+        elapsed_ms: float,
+        total_postings: int,
+        n: int,
+        latencies_ms: Sequence[float] | None = None,
+    ) -> None:
+        """Base-interface feedback: only a total is known, so spread it
+        evenly over the shards that could actually have done the work
+        (the inherited version would update the unused scalar ``rate``
+        and freeze the per-shard caps). ``down_mask``, when set, excludes
+        dead shards from the spread and freezes their EWMAs.
+        """
+        down = (
+            np.asarray(self.down_mask(), bool)
+            if self.down_mask is not None
+            else np.zeros(self.n_shards, bool)
+        )
+        active = ~down
+        n_active = int(active.sum())
+        if n_active == 0:
+            # Whole fleet down: nothing did the work, nothing to learn.
+            self._feed_policy(elapsed_ms, latencies_ms)
+            return
+        per_shard = np.where(active, total_postings / n_active, 0.0)
+        self.observe_sharded(
+            elapsed_ms, per_shard, n, active_mask=active, latencies_ms=latencies_ms
+        )
 
 
 def result_exit_reason(res) -> str:
@@ -110,10 +243,12 @@ class ServedQuery:
     result: BatchResult
     latency_ms: float  # queue wait + batch service time
     batch_size: int
+    quanta: int | None = None  # in-flight path: device quanta the query spanned
 
 
 class MicroBatchServer:
-    """Queue + cut + dispatch loop over a ``BatchEngine``.
+    """Queue + cut + dispatch loop over a ``BatchEngine`` or a
+    ``ShardedBatchEngine``.
 
     ``clock`` (default ``time.perf_counter``) is read once per submitted
     query and twice per batch (around the dispatch), the reference's
@@ -155,14 +290,23 @@ class MicroBatchServer:
         ``batch_ms`` (the dispatch's time) drives the throughput EWMA;
         ``latencies_ms`` (per-query end-to-end, queue wait included) drives
         Eq. (7), so an overloaded queue tightens budgets even when each
-        dispatch comfortably makes the SLA.
+        dispatch comfortably makes the SLA. A sharded budgeter over sharded
+        results learns each shard's rate from its own postings.
         """
-        self.budgeter.observe(
-            batch_ms,
-            sum(r.postings for r in results),
-            len(results),
-            latencies_ms=latencies_ms,
-        )
+        if hasattr(self.budgeter, "observe_sharded") and hasattr(
+            results[0], "shard_postings"
+        ):
+            per_shard = np.sum([r.shard_postings for r in results], axis=0)
+            self.budgeter.observe_sharded(
+                batch_ms, per_shard, len(results), latencies_ms=latencies_ms
+            )
+        else:
+            self.budgeter.observe(
+                batch_ms,
+                sum(r.postings for r in results),
+                len(results),
+                latencies_ms=latencies_ms,
+            )
 
     def drain_once(self) -> list[ServedQuery]:
         """Serve one micro-batch from the head of the queue."""

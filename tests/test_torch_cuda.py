@@ -13,7 +13,9 @@ every host-observable. The fused ``range_step`` kernel is held bitwise
 against ``range_step_ref`` at both accumulator placements (shared memory
 at ``s_pad`` 9,984, a global scratch at 65,536), and the ``traverse``
 kernel (N lanes' whole-query loops) against ``traverse_ref`` on every
-carry field, with ``BatchEngine`` on ``cuda`` equal to ``torch``. The bag
+carry field, also over stacked range shards (lane n reads shard n % S),
+with ``BatchEngine``, ``ShardedBatchEngine`` and ``InflightServer`` on
+``cuda`` equal to ``torch``. The bag
 reduce sums
 floats in another order than its plain version, so it is held within a
 stated tolerance instead.
@@ -32,7 +34,14 @@ from repro_torch.data.synth import make_corpus, make_query_log
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
 from repro_torch.kernels.range_scorer import kernel, ref
-from repro_torch.serving import BatchEngine, BucketSpec
+from repro_torch.serving import (
+    BatchEngine,
+    BucketSpec,
+    InflightServer,
+    ShardedBatchEngine,
+    ShardedEngine,
+    SlaBudgeter,
+)
 from repro_torch.models.embedding import (
     bag_inputs,
     combine_bags,
@@ -398,6 +407,164 @@ def test_cuda_batch_engine_matches_plain(cuda_device, small_index, impact_dtype,
                     one.exit_budget) == (g.doc_ids.tolist(), g.scores.tolist(),
                                          g.ranges_processed, g.postings, g.blocks,
                                          g.exit_safe, g.exit_budget), i
+
+
+def _stack_rows(cols, pad=0):
+    """[S, W] from S 1-D arrays, each row padded to the widest."""
+    w = max(max(len(c) for c in cols), 1)
+    out = np.full((len(cols), w), pad, cols[0].dtype)
+    for i, c in enumerate(cols):
+        out[i, :len(c)] = c
+    return out
+
+
+def _stacked_case(rng, dev, s_pad, impact_dtype, docs_format, k, n_queries, n_shards,
+                  clamp=True):
+    """``traverse`` inputs over S stacked shards of unequal size: shard s
+    has R_max - s ranges (its padded order slots point at an all -1 row
+    with zero bounds), lane q * S + s reads shard s. With ``clamp`` the
+    widest shard's last block is stretched to 128 postings past its row's
+    end and listed first in its range for every lane of that shard, so
+    its gathers reach the clamp at the row's end."""
+    R = n_shards + 2
+    shards = [_traverse_case(rng, "cpu", s_pad, impact_dtype, docs_format, k,
+                             n_queries, n_ranges=R - s) for s in range(n_shards)]
+    names = [n for n in shards[0][0]._fields if getattr(shards[0][0], n) is not None]
+    cols = {n: [getattr(d, n).numpy() for d, _ in shards] for n in names}
+    if clamp:
+        last = len(cols["blk_len"][0]) - 1
+        cols["blk_len"][0] = cols["blk_len"][0].copy()
+        cols["blk_len"][0][last] = BLOCK
+    cols = {n: _stack_rows(c) for n, c in cols.items()}
+    cols["bounds_dense"] = np.zeros((n_shards, 1, 1), np.int32)
+    dix = DeviceIndex(**{n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for n, a in cols.items()})
+    N, nb = n_queries * n_shards, shards[0][1][0].shape[2]
+    blk = np.full((N, R, nb), -1, np.int32)
+    rest = np.zeros((N, R, nb), np.int32)
+    order = np.zeros((N, R), np.int32)
+    bounds = np.zeros((N, R), np.int32)
+    caps = np.zeros((2, N), np.int32)
+    carry = np.zeros((N, ref.carry_width(k)), np.int32)
+    for s, (_, lanes) in enumerate(shards):
+        b, r, o, bd, bud, mr, c = (x.numpy() for x in lanes)
+        rs = R - s
+        lane = np.arange(n_queries) * n_shards + s
+        blk[lane, :rs], rest[lane, :rs] = b, r
+        order[lane, :rs], bounds[lane, :rs] = o, bd
+        order[lane, rs:] = rs if rs < R else 0
+        caps[:, lane] = bud, mr
+        carry[lane] = c
+        if clamp and s == 0:
+            blk[lane, R - 1, 0] = last
+    return dix, [_cuda(a, dev) for a in (blk, rest, order, bounds, caps[0], caps[1],
+                                         carry)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_pad,k", [(9_984, 10), (65_536, 1), (9_984, 1024)])
+def test_traverse_over_stacked_shards_matches_plain(cuda_device, s_pad, k):
+    """Every carry field of every (query, shard) lane: unequal shard rows,
+    padded range slots, the clamp at a row's end; quantum chains over the
+    stacked lanes end where one run ends; one launch per call."""
+    rng = np.random.default_rng(s_pad + k)
+    for ci, (impact_dtype, docs_format) in enumerate(CONFIGS):
+        n_shards = (2, 3, 4, 2)[ci]
+        dix, lanes = _stacked_case(rng, cuda_device, s_pad, impact_dtype, docs_format, k,
+                                   n_queries=3, n_shards=n_shards)
+        kw = dict(s_pad=s_pad, k=k, docs_format=docs_format)
+        ctx = f"{impact_dtype}/{docs_format} S={n_shards}"
+        before = kernel.traverse.launches
+        whole = kernel.traverse(dix, *lanes, **kw)
+        torch.cuda.synchronize()
+        assert kernel.traverse.launches == before + 1
+        _assert_carry_equal(whole, ref.traverse_ref(dix, *lanes, **kw), k, ctx)
+        for quantum in (1, 2, 3):
+            carry = kernel.traverse(dix, *lanes, quantum=quantum, **kw)
+            _assert_carry_equal(carry, ref.traverse_ref(dix, *lanes, quantum=quantum,
+                                                        **kw), k, f"{ctx} q={quantum}")
+            for _ in range(8):
+                carry = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum, **kw)
+            _assert_carry_equal(carry, whole, k, f"{ctx} chained quantum={quantum}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impact_dtype,docs_format", CONFIGS)
+def test_traverse_one_stacked_shard_equals_unstacked(cuda_device, impact_dtype,
+                                                     docs_format):
+    rng = np.random.default_rng(11)
+    dix, lanes = _stacked_case(rng, cuda_device, 9_984, impact_dtype, docs_format, 10,
+                               n_queries=5, n_shards=1, clamp=False)
+    flat = DeviceIndex(*(None if t is None else t[0].contiguous() for t in dix))
+    kw = dict(s_pad=9_984, k=10, docs_format=docs_format)
+    for quantum in (None, 2):
+        _assert_carry_equal(kernel.traverse(dix, *lanes, quantum=quantum, **kw),
+                            kernel.traverse(flat, *lanes, quantum=quantum, **kw), 10,
+                            f"{impact_dtype}/{docs_format} quantum={quantum}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_cuda_sharded_batch_engine_matches_plain(cuda_device, small_index, n_shards):
+    """ShardedBatchEngine on cuda == on torch on every ShardedResult field,
+    one launch a chunk; the merged top-k == Engine.traverse's (safe_stop
+    off: bitwise)."""
+    index, queries = small_index
+    kern = Engine(index, k=10, device=cuda_device, impact_dtype="int8",
+                  docs_format="packed")
+    plain = Engine(index, k=10, device=cuda_device, impl="torch", impact_dtype="int8",
+                   docs_format="packed")
+    kb, pb = (ShardedBatchEngine(ShardedEngine(e, n_shards), BucketSpec(max_batch=4))
+              for e in (kern, plain))
+    plans = kb.plan_many(queries)
+    down = np.zeros(n_shards, bool)
+    down[0] = True
+    for kw in ({}, dict(budget_postings=900), dict(max_ranges=3),
+               dict(down_mask=down), dict(safe_stop=False)):
+        before = (kernel.traverse.launches, kernel.range_step.launches)
+        got = kb.run_batch(plans, **kw)
+        assert kernel.traverse.launches - before[0] == kb.batches_run - pb.batches_run
+        assert kernel.range_step.launches == before[1]
+        want = pb.run_batch(plans, **kw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            for name in w._fields:
+                a, b = getattr(g, name), getattr(w, name)
+                assert (a.tolist() == b.tolist()) if isinstance(b, np.ndarray) else a == b, (
+                    kw, i, name)
+            if kw.get("safe_stop") is False:
+                ids, vals = kern.topk_docs(kern.traverse(plans[i], safe_stop=False).state)
+                assert (g.doc_ids.tolist(), g.scores.tolist()) == (ids.tolist(),
+                                                                   vals.tolist()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantum", [1, 3])
+def test_cuda_inflight_server_matches_plain(cuda_device, small_index, quantum):
+    """InflightServer on cuda == on torch, and each query == Engine.traverse;
+    exactly one traverse launch per step."""
+    index, queries = small_index
+    kern = Engine(index, k=10, device=cuda_device, docs_format="packed")
+    plain = Engine(index, k=10, device=cuda_device, impl="torch", docs_format="packed")
+    runs = []
+    for eng in (kern, plain):
+        srv = InflightServer(BatchEngine(eng), SlaBudgeter(sla_ms=float("inf")),
+                             n_slots=4, quantum=quantum)
+        before = (kernel.traverse.launches, kernel.range_step.launches)
+        served = sorted(srv.replay(queries), key=lambda s: s.rid)
+        runs.append((served, kernel.traverse.launches - before[0],
+                     kernel.range_step.launches - before[1], srv.steps_run))
+    (got, launches, steps_rs, steps), (want, plain_launches, _, plain_steps) = runs
+    assert launches == steps == plain_steps and plain_launches == 0 and steps_rs == 0
+    for g, w in zip(got, want):
+        assert (g.rid, g.quanta) == (w.rid, w.quanta)
+        assert g.result.doc_ids.tolist() == w.result.doc_ids.tolist()
+        assert g.result.scores.tolist() == w.result.scores.tolist()
+        assert g.result[2:] == w.result[2:]
+        one = kern.traverse(kern.plan(queries[g.rid]))
+        ids, vals = kern.topk_docs(one.state)
+        assert (ids.tolist(), vals.tolist(), one.ranges_processed, one.exit_safe) == (
+            g.result.doc_ids.tolist(), g.result.scores.tolist(),
+            g.result.ranges_processed, g.result.exit_safe)
 
 
 # The bag reduce sums L terms in ascending order; the plain version's einsum

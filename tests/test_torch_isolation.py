@@ -37,7 +37,8 @@ def test_port_modules_import_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) >= 15, names\n"
         "serving = {'repro_torch.serving.bucketing', 'repro_torch.serving.batch_engine',\n"
-        "           'repro_torch.serving.microbatch'}\n"
+        "           'repro_torch.serving.microbatch', 'repro_torch.serving.inflight',\n"
+        "           'repro_torch.serving.sharded'}\n"
         "assert serving <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -94,6 +95,34 @@ def test_serve_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(serve, "make_query_log", lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--queries", "4"])
+
+
+@pytest.mark.parametrize("mode", ["inflight", "sharded"])
+def test_serve_cli_new_modes_default_to_the_card(monkeypatch, mode):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(serve, "build_preset", lambda *a, **k: (None, _tiny_index()))
+    monkeypatch.setattr(serve, "make_query_log", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mode", mode, "--queries", "4"])
+
+
+def test_sharded_and_inflight_run_on_the_engine_device(monkeypatch):
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serving import (
+        BatchEngine, InflightServer, ShardedEngine, SlaBudgeter)
+
+    eng = Engine(_tiny_index(), k=3, device="cpu")
+    se = ShardedEngine(eng, 2)
+    assert {t.device.type for t in se.dix if t is not None} == {"cpu"}
+    assert se.doc_base.device.type == "cpu" and se.impl == "torch"
+    srv = InflightServer(BatchEngine(eng), SlaBudgeter(sla_ms=float("inf")), n_slots=2)
+    served = srv.replay([np.array([0, 1, 2], np.int32), np.array([3, 4], np.int32)])
+    assert [s.rid for s in sorted(served, key=lambda s: s.rid)] == [0, 1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedEngine(Engine(_tiny_index(), k=3), 2)
 
 
 def test_table_from_numpy_defaults_to_the_card(monkeypatch):
