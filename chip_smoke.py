@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the whole smoke
+    python3 chip_smoke.py --phases   # the range step's phase timer alone
 
 Drives the port (``src/repro_torch``) through its main path on the card and
 fails (non-zero exit, no result line) on any fault:
 
   1. builds the kernel libraries from ``csrc/range_scorer.cu`` and
      ``csrc/embedding_bag.cu`` with ``nvcc`` for ``sm_90a``, both at once,
-     and prints each build's time;
+     and prints each build's time and, per kernel, its variants'
+     registers, shared memory and spills (``-Xptxas -v``; every variant's
+     line goes to the JSON record);
   2. kernel phase — each range-scorer kernel against its plain PyTorch
      version on the card, bitwise: the standalone scatter and decode over
      the CPU tests' cases and main-path shapes, the fused range step
      (``range_step``) at both accumulator placements (shared memory at
-     ``s_pad`` 9,984, a global scratch at 65,536), k 1, 10 and 1,024,
-     θ = 0 and θ > 0, four configurations, pruning on and off; then the
+     ``s_pad`` 9,984, a global scratch at 65,536), k 1, 10, 1,000, 1,025
+     and 2,048 and k = ``s_pad`` at ``s_pad`` 256 (the top-k scratch then
+     in global memory), ties at the k-th score, θ = 0 and θ > 0, four
+     configurations, pruning on and off, and k = 0 and k > ``s_pad``
+     refused; then the
      device-side loop (``traverse``) against ``traverse_ref`` on every
-     carry field of every lane: both placements, k 1/10/1,024, N 1/5/32
+     carry field of every lane: both placements, the same k, N 1/5/32
      lanes with dummy and parked lanes and tie-heavy mid-flight states,
      four configurations, quantum None/1/2/3 with every chained run equal
      to the uninterrupted one; and ``traverse`` over stacked range shards
@@ -40,7 +46,9 @@ fails (non-zero exit, no result line) on any fault:
      docid formats, against its plain version); batch parity
      (``BatchEngine`` on cuda == on torch == ``Engine.traverse`` per
      query, 200 queries at ``max_batch`` 32, unbudgeted, budgeted and
-     range-capped, one ``traverse`` per chunk); the serving loop of
+     range-capped, one ``traverse`` per chunk); ``Engine(k=2048)`` on cuda
+     equal to ``impl="torch"`` on every ``observe_query`` field for 16
+     queries, unbudgeted and budgeted; the serving loop of
      ``launch/serve.py`` (Reactive policy, SLA = 25% of the exhaustive
      P99: one ``range_step`` per range of the anytime loop, one
      ``traverse`` per warm-up traversal); the batch serving window of
@@ -64,7 +72,12 @@ fails (non-zero exit, no result line) on any fault:
      per batch, device idle share), a profiled in-flight window (upload,
      dispatch, device, plan and read ms per step, host-to-device copies
      per step, idle share), a profiled sharded window (plan, shard-plan,
-     dispatch, device and read ms per batch, idle share), and each
+     dispatch, device and read ms per batch, idle share), the phase
+     timer (the kernels' timed variant: thread 0's ``clock64`` at each
+     phase boundary of the range step, ``range_step`` warm and with L2
+     flushed, ``traverse`` at 16 and 16 x 4 lanes, cycles turned into µs at
+     the SM clock ``nvidia-smi`` reads beside it, and the step's
+     dependency floor), and each
      kernel's time at main-path shapes beside its bound, its plain
      version and, for the scatter, ``Tensor.index_add_`` (CUDA events
      around many calls, launch gaps included, and device-only time from
@@ -125,6 +138,11 @@ BAG_PAD_SHARE = 5  # the last L // 5 ids of every bag are padding (-1)
 # bfloat16 rounds once at the end on both sides (the JAX test's tolerance).
 BAG_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 CONFIGS = [(dt, fmt) for dt in ("int32", "int8") for fmt in ("int32", "packed")]
+STEP_KS = (1, 10, 1000, 1025, 2048)  # the range kernels' parity grid of k
+WIDE_K = 2048  # the engine run at a k above the port's former limit of 1,024
+# Dependent global rounds on a step's critical path: block ids, their
+# directory rows, their postings.
+DEP_ROUNDS = 3
 N_QUERIES = 200
 SCALE_ANYTIME_QUERIES = 64  # the anytime loop's parity at scale (all N_QUERIES at preset)
 QUERY_SEED = 42
@@ -422,22 +440,24 @@ def traverse_case(rng, dev, s_pad, impact_dtype, docs_format, k, n_lanes, ties=F
 
 def traverse_phase(dev, parity: Parity) -> None:
     """``traverse`` against ``traverse_ref``, bitwise, on every carry field:
-    both accumulator placements, k 1/10/1024, N 1/5/32 with dummy and
+    both accumulator placements, k 1/10/1000/1025/2048 and k = s_pad at
+    s_pad 256, N 1/5/32 with dummy and
     parked lanes, four configurations, plain and tie-heavy impacts,
     quantum None/1/2/3 with each chained run equal to the uninterrupted one."""
     import numpy as np
     from repro_torch.kernels.range_scorer import kernel, ref
 
-    for s_pad in (9_984, 65_536):
-        for ki, k in enumerate((1, 10, kernel.MAX_K)):
+    for s_pad, ks in ((9_984, STEP_KS), (65_536, STEP_KS), (256, (256,))):
+        for ki, k in enumerate(ks):
             rng = np.random.default_rng(s_pad + 7 * k)
             for ci, (dt, fmt) in enumerate(CONFIGS):
                 n_lanes = (1, 5, 32)[(ci + ki) % 3]
                 ties = (ci + ki) % 2 == 1
                 dix, lanes = traverse_case(rng, dev, s_pad, dt, fmt, k, n_lanes, ties)
                 kw = dict(s_pad=s_pad, k=k, docs_format=fmt)
-                ctx = (f"s_pad={s_pad} ({kernel.acc_placement(s_pad, 'traverse')}) k={k} "
-                       f"{dt}/{fmt} N={n_lanes} ties={ties}")
+                ctx = (f"s_pad={s_pad} ({kernel.acc_placement(s_pad, 'traverse', k)} acc, "
+                       f"{kernel.top_placement(k, 'traverse')} top-k) k={k} {dt}/{fmt} "
+                       f"N={n_lanes} ties={ties}")
                 whole = kernel.traverse(dix, *lanes, **kw)
                 parity.record_carry(whole, ref.traverse_ref(dix, *lanes, **kw), k, ctx)
                 for quantum in (1, 2, 3):
@@ -518,7 +538,7 @@ def stacked_traverse_phase(dev, parity: Parity) -> None:
     from repro_torch.core.range_daat import DeviceIndex
     from repro_torch.kernels.range_scorer import kernel, ref
 
-    for s_pad, k in ((9_984, 10), (65_536, 1), (9_984, kernel.MAX_K)):
+    for s_pad, k in ((9_984, 10), (65_536, 1), (9_984, 1024)):
         rng = np.random.default_rng(s_pad + k + 1)
         for ci, (dt, fmt) in enumerate(CONFIGS):
             n_shards = (2, 3, 4, 2)[ci]
@@ -598,28 +618,33 @@ def kernel_phase(dev, parity: Parity) -> None:
                               ref.unpack_locals_ref(*args),
                               f"seed={seed} B={n_sel} r0={r0}")
 
-    # The fused range step: both accumulator placements, the k limit.
-    for s_pad in (9_984, 65_536):
-        for k in (1, 10, kernel.MAX_K):
+    # The fused range step: both accumulator placements, any k up to s_pad
+    # (the top-k scratch in shared memory up to 2,048 and, at k = s_pad, in
+    # global memory), ties at the k-th score (a third of the impacts are
+    # 9), an empty state (θ = 0) and a full one.
+    for s_pad, ks in ((9_984, STEP_KS), (65_536, STEP_KS), (256, (256,))):
+        for k in ks:
             rng = np.random.default_rng(s_pad + k)
             for dt, fmt in CONFIGS:
                 for theta in (0, 300):
-                    dix, state, blk, rest, rs = step_case(rng, dev, s_pad, dt, fmt, k,
-                                                          theta)
+                    dix, state, blk, rest, rs = step_case(
+                        rng, dev, s_pad, dt, fmt, k, theta,
+                        n_blocks=8 if s_pad == 256 else 256)
                     for prune in (True, False):
                         kw = dict(s_pad=s_pad, k=k, prune_blocks=prune, docs_format=fmt)
                         parity.record_state(
                             kernel.range_step(dix, state, blk, rest, rs, **kw),
                             ref.range_step_ref(dix, state, blk, rest, rs, **kw),
-                            f"s_pad={s_pad} ({kernel.acc_placement(s_pad)}) k={k} "
-                            f"{dt}/{fmt} theta={theta} prune={prune}")
-    try:
-        kernel.range_step(dix, ref.init_state(kernel.MAX_K + 1, dev), blk, rest, rs,
-                          s_pad=65_536, k=kernel.MAX_K + 1)
-    except ValueError:
-        pass
-    else:
-        raise SmokeError(f"range_step took k = {kernel.MAX_K + 1}, above its limit")
+                            f"s_pad={s_pad} ({kernel.acc_placement(s_pad, k=k)} acc, "
+                            f"{kernel.top_placement(k)} top-k) k={k} {dt}/{fmt} "
+                            f"theta={theta} prune={prune}")
+    for k in (0, 65_537):
+        try:
+            kernel.range_step(dix, ref.init_state(max(k, 1), dev), blk, rest, rs,
+                              s_pad=65_536, k=k)
+        except ValueError:
+            continue
+        raise SmokeError(f"range_step took k = {k} at s_pad 65,536")
 
 
 # ----------------------------------------------------------------- bag phase
@@ -937,6 +962,42 @@ def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = Non
             f"{anytime['ranges']}, nothing else; kernels {anytime['kernels_s']:.2f} s, "
             f"plain {anytime['plain_s']:.2f} s")
         del kern, plain
+    return out
+
+
+def wide_k_parity(index, queries, dev, n: int = 16) -> dict:
+    """``Engine(impl="cuda", k=WIDE_K)`` == ``impl="torch"`` on every
+    ``observe_query`` field for ``n`` queries, unbudgeted and budgeted, one
+    ``traverse`` launch per query."""
+    import numpy as np
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.range_scorer import kernel
+
+    kern = Engine(index, k=WIDE_K, device=dev, impact_dtype="int8", docs_format="packed")
+    plain = Engine(index, k=WIDE_K, device=dev, impl="torch", impact_dtype="int8",
+                   docs_format="packed")
+    plans = [kern.plan(q) for q in queries[:n]]
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    reset_launches()
+    got = [observe(kern, p) for p in plans]
+    launches = read_launches()
+    check_launches(launches, {"traverse": len(plans)}, f"k={WIDE_K} engine")
+    for i, (p, g) in enumerate(zip(plans, got)):
+        w = observe(plain, p)
+        check(g == w, f"k={WIDE_K} query {i}: kernels {g[2:]} != plain {w[2:]}")
+        b = int(rng.integers(1, max(w[2], 1) + 1))
+        gb, wb = observe(kern, p, b), observe(plain, p, b)
+        check(gb == wb, f"k={WIDE_K} query {i} budget {b}: kernels {gb[2:]} != "
+              f"plain {wb[2:]}")
+    placements = (f"traverse: {kernel.acc_placement(kern.s_pad, 'traverse', WIDE_K)} "
+                  f"accumulator, {kernel.top_placement(WIDE_K, 'traverse')} top-k scratch")
+    out = dict(queries=len(plans), ranges=sum(g[4] for g in got), launches=launches,
+               s_pad=kern.s_pad, acc=placements, seconds=time.perf_counter() - t0)
+    log(f"k={WIDE_K} engine (int8/packed, {out['acc']}): {len(plans)} queries equal to "
+        f"impl='torch' on every observe_query field, unbudgeted and budgeted; "
+        f"{out['ranges']} ranges, traverse launches {launches['traverse']}; "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -1705,26 +1766,58 @@ def traverse_bytes(eng, lanes, dix=None) -> tuple[int, int, int]:
     return total, scored, slowest
 
 
-def kernel_timings(index, queries, parity: Parity, dev) -> dict:
-    """Each kernel at a main-path shape: the widest first range of the log
-    for the range kernels, a micro-batch of the log for ``traverse``."""
+class TimingInputs:
+    """The main-path shapes the kernel timings and the phase timer share: the
+    widest first range of the log for the range kernels (int8/packed, from
+    an empty state), an unbudgeted micro-batch of the log's first BATCH
+    queries for ``traverse``, and the same queries over SHARDS stacked
+    shards (BATCH * SHARDS lanes)."""
+
+    def __init__(self, index, queries, dev):
+        import numpy as np
+        from repro_torch.core.range_daat import (
+            INT32_MAX, Engine, batched_init_carry, carry_buffer, upload_int32)
+        from repro_torch.serving import BucketSpec, ShardedEngine, stack_plans
+
+        self.eng = eng = Engine(index, k=10, device=dev, impact_dtype="int8",
+                                docs_format="packed")
+        self.plans = plans = [eng.plan(q) for q in queries]
+        self.plan = plan = max(
+            plans, key=lambda p: int((p.blk_tab[int(p.order_host[0])] >= 0).sum()))
+        self.r = r = int(plan.order_host[0])
+        self.blk = plan.blk_tab[r]
+        self.rs = eng.dix.range_starts[r]
+        self.state = eng.init_state()
+        self.step_args = (eng.dix, self.state, self.blk, plan.rest_tab[r], self.rs)
+        self.kw = dict(s_pad=eng.s_pad, k=eng.k, docs_format="packed")
+        spec = BucketSpec()
+        batch = plans[:BATCH]
+        self.width = width = max(spec.width_bucket(p.blk_tab_host.shape[1]) for p in batch)
+        bp = stack_plans(batch, width, BATCH)
+        bud, mr, carry = upload_int32(([INT32_MAX] * BATCH, [INT32_MAX] * BATCH,
+                                       carry_buffer(batched_init_carry(BATCH, eng.k))), dev)
+        self.lanes = (bp.blk_tab, bp.rest_tab, bp.order, bp.ordered_bounds, bud, mr, carry)
+        self.seng = seng = ShardedEngine(eng, SHARDS)
+        tabs = [np.stack(t) for t in zip(*[seng.shard_plan(p, width) for p in batch])]
+        n_lanes = BATCH * SHARDS
+        self.slanes = upload_int32(
+            [t.reshape(n_lanes, *t.shape[2:]) for t in tabs]
+            + [[INT32_MAX] * n_lanes, [INT32_MAX] * n_lanes,
+               carry_buffer(batched_init_carry(n_lanes, eng.k))], dev)
+
+
+def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs) -> dict:
+    """Each kernel at a main-path shape (``TimingInputs``)."""
     import numpy as np
     import torch
-    from repro_torch.core.range_daat import (
-        INT32_MAX, Engine, batched_init_carry, carry_buffer, upload_int32)
+    from repro_torch.core.range_daat import Engine
     from repro_torch.kernels.range_scorer import kernel, ref
-    from repro_torch.serving import BucketSpec, ShardedEngine, stack_plans
 
-    eng = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    eng, plan, r, blk, rs = ti.eng, ti.plan, ti.r, ti.blk, ti.rs
     raw = Engine(index, k=10, device=dev, impact_dtype="int8")
-    plans = [eng.plan(q) for q in queries]
-    plan = max(plans, key=lambda p: int((p.blk_tab[int(p.order_host[0])] >= 0).sum()))
-    r = int(plan.order_host[0])
-    blk = plan.blk_tab[r]
     safe = blk.clamp(min=0)
     starts, lens = eng.dix.blk_start[safe], eng.dix.blk_len[safe]
     keep = blk >= 0  # the first range is scored before θ can prune
-    rs = eng.dix.range_starts[r]
     B, s_pad = int(blk.shape[0]), eng.s_pad
 
     # scatter_accumulate on the gathered (local id, value) lanes.
@@ -1773,9 +1866,7 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
         bytes=int(words[valid].sum()) * 4 + B * 17 + B * 128 * 4,
     )
     # range_step: the whole first range, from an empty state (int8/packed).
-    state = eng.init_state()
-    step_args = (eng.dix, state, blk, plan.rest_tab[r], rs)
-    kw = dict(s_pad=s_pad, k=eng.k, docs_format="packed")
+    state, step_args, kw = ti.state, ti.step_args, ti.kw
     parity.record_state(kernel.range_step(*step_args, **kw),
                         ref.range_step_ref(*step_args, **kw), "timing inputs")
     wrapper = functools.partial(kernel.range_step, *step_args, **kw)
@@ -1790,13 +1881,7 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
     )
     # traverse: one unbudgeted micro-batch of the batch serving window's
     # size (the log's first BATCH queries, stacked at their widest bucket).
-    spec = BucketSpec()
-    batch = plans[:BATCH]
-    width = max(spec.width_bucket(p.blk_tab_host.shape[1]) for p in batch)
-    bp = stack_plans(batch, width, BATCH)
-    bud, mr, carry = upload_int32(([INT32_MAX] * BATCH, [INT32_MAX] * BATCH,
-                                   carry_buffer(batched_init_carry(BATCH, eng.k))), dev)
-    lanes = (bp.blk_tab, bp.rest_tab, bp.order, bp.ordered_bounds, bud, mr, carry)
+    lanes, width = ti.lanes, ti.width
     parity.record_carry(kernel.traverse(eng.dix, *lanes, **kw),
                         ref.traverse_ref(eng.dix, *lanes, **kw), eng.k, "timing inputs")
     nbytes, scored, slowest = traverse_bytes(eng, lanes)
@@ -1813,13 +1898,7 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
     )
     # traverse at the sharded window's shape: the same BATCH queries over
     # SHARDS stacked shards, BATCH * SHARDS lanes in one launch.
-    seng = ShardedEngine(eng, SHARDS)
-    tabs = [np.stack(t) for t in zip(*[seng.shard_plan(p, width) for p in batch])]
-    n_lanes = BATCH * SHARDS
-    slanes = upload_int32(
-        [t.reshape(n_lanes, *t.shape[2:]) for t in tabs]
-        + [[INT32_MAX] * n_lanes, [INT32_MAX] * n_lanes,
-           carry_buffer(batched_init_carry(n_lanes, eng.k))], dev)
+    seng, slanes = ti.seng, ti.slanes
     parity.record_carry(kernel.traverse(seng.dix, *slanes, **kw),
                         ref.traverse_ref(seng.dix, *slanes, **kw), eng.k,
                         "sharded timing inputs")
@@ -1839,6 +1918,144 @@ def kernel_timings(index, queries, parity: Parity, dev) -> dict:
         d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
     return {"scatter_accumulate": scatter, "unpack_locals": unpack, "range_step": step,
             "traverse": trav, "traverse_sharded": strav}
+
+
+def sm_clock_mhz(fn, seconds: float = 1.5) -> dict:
+    """The SM clock ``nvidia-smi`` reads (every 100 ms) while ``fn`` runs on
+    the card in a loop: the median sample, in MHz, and the card's maximum."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append(tuple(float(x) for x in line.split(",")[:2]))
+        except ValueError:
+            continue
+    check(bool(samples), "nvidia-smi read no SM clock beside the phase timer")
+    sm = sorted(x for x, _ in samples)
+    return dict(sm_mhz=sm[len(sm) // 2], max_mhz=samples[0][1], samples=len(sm))
+
+
+def phase_table(clk, steps: float, mhz: float) -> dict:
+    """Cycles and microseconds per step of each phase, from summed clocks."""
+    from repro_torch.kernels.range_scorer import kernel
+
+    cyc = {name: float(clk[i]) / max(steps, 1) for i, name in enumerate(kernel.PHASES)}
+    cyc["total"] = sum(cyc.values())
+    return dict(steps=steps, cycles=cyc, us={n: c / mhz for n, c in cyc.items()})
+
+
+def phase_timings(ti: TimingInputs, parity: Parity, dev) -> dict:
+    """The range step's phases timed by thread 0's ``clock64`` (the kernels'
+    timed variant), at ``TimingInputs``' shapes: ``range_step`` warm (the
+    same launch repeated) and cold (the 50 MB L2 flushed before each launch),
+    ``traverse`` at BATCH lanes and at BATCH x SHARDS lanes, per step of the
+    slowest lane and per step over every lane. Cycles become microseconds at
+    the SM clock ``nvidia-smi`` reads while the timed kernel runs."""
+    import torch
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    eng, kw = ti.eng, ti.kw
+    new, _ = kernel.range_step_phases(*ti.step_args, **kw)
+    parity.record_state(new, ref.range_step_ref(*ti.step_args, **kw), "timed variant")
+    clock = sm_clock_mhz(lambda: kernel.range_step_phases(*ti.step_args, **kw))
+    mhz = clock["sm_mhz"]
+    out = dict(clock=clock)
+    n = 50
+    total = torch.zeros(len(kernel.PHASES) + 1, dtype=torch.int64, device=dev)
+    for _ in range(n):
+        total += kernel.range_step_phases(*ti.step_args, **kw)[1]
+    out["range_step warm"] = phase_table(total.cpu().tolist(), n, mhz)
+    flush = torch.empty(32 * 2**20, dtype=torch.int32, device=dev)  # 128 MiB
+    total.zero_()
+    for _ in range(20):
+        flush.fill_(1)
+        total += kernel.range_step_phases(*ti.step_args, **kw)[1]
+    out["range_step cold"] = phase_table(total.cpu().tolist(), 20, mhz)
+    for label, dix, lanes in (("traverse", eng.dix, ti.lanes),
+                              ("traverse sharded", ti.seng.dix, ti.slanes)):
+        carry, clk = kernel.traverse_phases(dix, *lanes, **kw)
+        parity.record_carry(carry, ref.traverse_ref(dix, *lanes, **kw), eng.k,
+                            f"{label} timed variant")
+        total = torch.zeros_like(clk)
+        for _ in range(10):
+            total += kernel.traverse_phases(dix, *lanes, **kw)[1]
+        rows = (total // 10).cpu().tolist()
+        slow = max(rows, key=lambda row: (row[-1], sum(row[:-1])))
+        out[f"{label} slowest lane"] = phase_table(slow[:-1], slow[-1], mhz)
+        every = [sum(col) for col in zip(*rows)]
+        out[f"{label} every lane"] = phase_table(every[:-1], every[-1], mhz)
+    for label, row in out.items():
+        if label == "clock":
+            continue
+        log(f"phase timer {label} ({row['steps']:.0f} steps, {mhz:.0f} MHz): per step "
+            + ", ".join(f"{n} {row['cycles'][n]:.0f} cyc / {row['us'][n]:.3f} us"
+                        for n in (*kernel.PHASES, "total")))
+    # The dependency floor: the step's dependent global rounds times one cold
+    # load, read off the cold range_step's zero and directory phases: the
+    # block ids, then their rows (two rounds), with the zero pass beside
+    # them. Both kernels wait on three rounds (ids, rows, postings).
+    cold = (out["range_step cold"]["cycles"]["zero"]
+            + out["range_step cold"]["cycles"]["directory"]) / 2
+    out["cold_load_cycles"] = cold
+    out["dependency_floor_us"] = DEP_ROUNDS * cold / mhz
+    log(f"phase timer: one cold load ~{cold:.0f} cycles ({cold / mhz:.3f} us); "
+        f"dependency floor per step: {DEP_ROUNDS} rounds = "
+        f"{out['dependency_floor_us']:.3f} us")
+    return out
+
+
+def ptxas_summary(lines: list[str]) -> list[str]:
+    """``ptxas_lines`` folded to one line per kernel: its variants, their
+    register range, shared memory and the most bytes any of them spills."""
+    import re
+
+    kernels: dict = {}
+    for line in lines:
+        name, _, rest = line.partition("<")
+        k = kernels.setdefault(name, {"variants": set(), "regs": [], "spill": 0, "smem": set()})
+        k["variants"].add(rest.split(">")[0])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            k["regs"].append(int(m.group(1)))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            k["smem"].add(int(m.group(1)))
+        for b in re.findall(r"(\d+) bytes spill", line):
+            k["spill"] = max(k["spill"], int(b))
+    return [f"{name}: {len(k['variants'])} variants, {min(k['regs'], default=0)}-"
+            f"{max(k['regs'], default=0)} registers, {sorted(k['smem'])} bytes static smem, "
+            f"at most {k['spill']} bytes spilled" for name, k in kernels.items()]
+
+
+def ptxas_lines(build_log: str) -> list[str]:
+    """``-Xptxas -v``'s registers, shared memory and spills per kernel, one
+    line each, the template flags shown as <...>."""
+    import re
+
+    lines, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", mangled)
+            flags = "".join(re.findall(r"Lb([01])E", mangled))
+            name = f"{base.group(1) if base else mangled}<{','.join(flags)}>"
+        elif name and ("spill" in line or "Used" in line):
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 # ----------------------------------------------------------------------- main
@@ -1885,10 +2102,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             _, build_s, build_log = fut.result()
             log(f"nvcc build {src} (sm_90a, {' '.join(libs[src].NVCC_FLAGS)}): "
                 f"{build_s:.2f} s")
-            for line in build_log.splitlines():
-                if "Used" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+            lines = ptxas_lines(build_log)
+            for line in ptxas_summary(lines):
+                log(f"  ptxas: {line}")
             record["nvcc_s"][src] = build_s
+            record.setdefault("ptxas", {})[src] = lines
 
     parity = Parity()
     t0 = time.perf_counter()
@@ -1918,6 +2136,7 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     blocks_launches = score_blocks_path(index, queries, parity, dev)
     record["scale"]["score_blocks_launches"] = blocks_launches
     record["scale"]["batch_parity"] = batch_parity(index, queries, dev)
+    record["scale"]["wide_k_parity"] = wide_k_parity(index, queries, dev)
     t0 = time.perf_counter()
     record["scale"]["inflight_parity"] = inflight_parity(index, queries, dev)
     t1 = time.perf_counter()
@@ -2052,7 +2271,9 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     for row in sprof["top"]:
         log(f"  {row['us']:10.1f} us  x{row['count']:<6d} {row['name']}")
 
-    timings = kernel_timings(index, queries, parity, dev)
+    ti = TimingInputs(index, queries, dev)
+    record["phases"] = phase_timings(ti, parity, dev)
+    timings = kernel_timings(index, queries, parity, dev, ti)
     kernels = []
     # The standalone kernels report their own path's launches (score_blocks);
     # range_step the serving window's, traverse the batch serving window's.
@@ -2086,17 +2307,21 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": "bytes", "library_ms": tm["library_ms"],
         })
-    log("range_step: latency, not its byte bound, limits it (the launch floor, "
-        "then the CTA's barrier-separated phases in turn): "
+    floor = record["phases"]["dependency_floor_us"]  # a step's, either kernel
+    log("range_step: latency, not its byte bound, limits it (the launch, then "
+        "dependent global rounds and barriers; phase table above): "
         f"{timings['range_step']['kernel_device_us']:.2f} us device-only against a "
-        f"{timings['range_step']['bound_ms'] * 1e6:.1f} ns byte bound")
+        f"{timings['range_step']['bound_ms'] * 1e6:.1f} ns byte bound and a "
+        f"{floor:.3f} us dependency floor")
     tr = timings["traverse"]
     log(f"traverse: {tr['kernel_device_us']:.2f} us device-only for {tr['ranges']} "
         f"lane-ranges = {tr['kernel_device_us'] / max(tr['ranges'], 1):.2f} us per "
         f"lane-range (throughput over {BATCH} lanes at once); per step of the "
         f"slowest lane ({tr['slowest_lane_ranges']} ranges) "
         f"{tr['kernel_device_us'] / max(tr['slowest_lane_ranges'], 1):.2f} us; "
-        f"against a {tr['bound_ms'] * 1e3:.4f} us byte bound")
+        f"against a {tr['bound_ms'] * 1e3:.4f} us byte bound and a "
+        f"{floor * tr['slowest_lane_ranges']:.3f} us dependency floor "
+        f"({floor:.3f} us a step)")
     st = timings["traverse_sharded"]
     log(f"traverse at the sharded shape [{st['shape']}]: {st['ms'] * 1e3:.2f} us/call, "
         f"device-only {st['kernel_device_us']:.2f} us for {st['ranges']} lane-ranges = "
@@ -2130,6 +2355,47 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def run_phases(pool, dev=None, scale: dict = SCALE) -> None:
+    """``--phases``: the range-scorer build with its ptxas report, then the
+    phase timer and the two range kernels' device-only times at the scale
+    cell's ``TimingInputs`` (numbers also in ``chiprun_out/chip_smoke_phases.json``)."""
+    import torch
+    from repro_torch.kernels.range_scorer import kernel
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    job = pool.apply_async(build_corpus_index, (str(SRC), scale, N_QUERIES))
+    dev = torch.device("cuda", 0) if dev is None else dev
+    _, build_s, build_log = kernel.build()
+    log(f"nvcc build range_scorer.cu: {build_s:.2f} s")
+    for line in ptxas_summary(ptxas_lines(build_log)):
+        log(f"  ptxas: {line}")
+    index, queries, _ = receive_index(job, "scale")
+    ti = TimingInputs(index, queries, dev)
+    parity = Parity()
+    record = dict(card=smi, ptxas=ptxas_lines(build_log),
+                  phases=phase_timings(ti, parity, dev))
+    kw = ti.kw
+    record["range_step_device_us"] = device_us(
+        functools.partial(kernel.range_step, *ti.step_args, **kw), "range_step_kernel")
+    for label, dix, lanes in (("traverse", ti.eng.dix, ti.lanes),
+                              ("traverse_sharded", ti.seng.dix, ti.slanes)):
+        record[f"{label}_device_us"] = device_us(
+            functools.partial(kernel.traverse, dix, *lanes, **kw), "traverse_kernel", 50)
+    log("device-only: " + ", ".join(f"{k} {v:.2f}" for k, v in record.items()
+                                     if k.endswith("_device_us")))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_phases.json").write_text(json.dumps(record, indent=1,
+                                                               default=str))
+    log(f"phases wall time {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main() -> int:
     try:
         import torch
@@ -2148,7 +2414,7 @@ def main() -> int:
     ctx = multiprocessing.get_context("spawn")
     pool = ctx.Pool(2)
     try:
-        run(pool)
+        (run_phases if "--phases" in sys.argv[1:] else run)(pool)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -567,8 +567,12 @@ class Engine:
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``impl=None``
     is ``"cuda"`` (the fused range-step kernel) on a CUDA device and
     ``"torch"`` (its plain version) on the CPU; ``impl="cuda"`` on the CPU
-    raises, and so does ``impl="cuda"`` with k above the kernel's limit
-    (``kernels.range_scorer.kernel.MAX_K``).
+    raises. Both take any k the reference takes (1 <= k <= ``s_pad``).
+
+    The positional order is the reference's. ``interpret`` names Pallas's
+    interpret mode, which has no counterpart here: it is accepted and
+    ignored. ``obs`` takes only None until the telemetry is ported
+    (ROADMAP A2).
     """
 
     def __init__(
@@ -578,10 +582,17 @@ class Engine:
         ordering: str = "boundsum",
         bounds: str = "range",
         impl: str | None = None,
+        interpret: bool = True,
         impact_dtype: str = "int32",
         docs_format: str = "int32",
+        obs=None,
         device=None,
     ):
+        if obs is not None:
+            raise NotImplementedError(
+                "obs= (the reference's telemetry hooks) is not ported yet, ROADMAP A2; "
+                "pass obs=None"
+            )
         self.device = resolve_device(device)
         if impl is None:
             impl = "cuda" if self.device.type == "cuda" else "torch"
@@ -591,11 +602,6 @@ class Engine:
             raise ValueError(
                 f"impl='cuda' launches CUDA kernels and needs a CUDA device, "
                 f"got device={str(self.device)!r}; use impl='torch' on the CPU"
-            )
-        if impl == "cuda" and not 1 <= k <= scorer_kernel.MAX_K:
-            raise ValueError(
-                f"impl='cuda' takes 1 <= k <= {scorer_kernel.MAX_K} (the range_step "
-                f"kernel's limit), got k={k}; use impl='torch' for a larger k"
             )
         self.index = index
         self.k = k

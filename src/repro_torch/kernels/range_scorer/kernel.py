@@ -40,29 +40,49 @@ from repro_torch.kernels._nvcc import data_ptr as _ptr
 from repro_torch.kernels.range_scorer import ref
 
 __all__ = [
-    "MAX_K",
+    "CAND_CAP",
     "NVCC_FLAGS",
-    "SHARED_ACC_SLOTS",
-    "TRAVERSE_SHARED_ACC_SLOTS",
+    "TOP_SHARED_MAX",
+    "TOUCHED_CAP",
     "acc_placement",
     "build",
     "find_nvcc",
+    "PHASES",
     "range_step",
+    "range_step_phases",
     "scatter_accumulate",
+    "shared_acc_slots",
+    "top_bytes",
+    "top_placement",
     "traverse",
+    "traverse_phases",
     "unpack_locals",
 ]
 
 SOURCE = Path(__file__).parent / "csrc" / "range_scorer.cu"
 BLOCK = ref.BLOCK
-# The range_step kernel's limits (kMaxK and kMaxSharedSlots in the source):
-# its top-k takes 1 <= k <= min(s_pad, MAX_K), and its accumulator lies in
-# shared memory up to SHARED_ACC_SLOTS slots, in a global scratch above.
-MAX_K = 1024
-SHARED_ACC_SLOTS = 51_712
-# The traverse kernel's limit (kMaxTraverseSlots): two states of k = MAX_K
-# share the budget with the accumulator.
-TRAVERSE_SHARED_ACC_SLOTS = 47_612
+# The placements of range_step and traverse (the source's kCandCap,
+# kTouchedCap, kTopSharedMax, kSmemOptIn and kStaticReserve, and its cap_c,
+# top_bytes and shared_acc_slots): both take any 1 <= k <= s_pad. The top-k
+# scratch (sorted candidate keys, a sorted copy of the state and, in
+# traverse, the two states) lies in shared memory up to TOP_SHARED_MAX
+# bytes, else in a global scratch; the accumulator (s_pad slots, a
+# CAND_CAP survivor list and a TOUCHED_CAP list of touched slots) lies in
+# shared memory when it fits beside it, else in a global scratch.
+CAND_CAP = 2048
+TOUCHED_CAP = 8192
+TOP_SHARED_MAX = 98_304
+SMEM_OPT_IN = 232_448
+STATIC_RESERVE = 20_480
+KERNELS = ("range_step", "traverse")
+
+# The phase timer's columns (enum Phase in the source): cycles of thread 0's
+# clock64 per phase of the range step, summed over a lane's steps, then the
+# number of steps. Only range_step_phases and traverse_phases launch the
+# timed variant, and only at int8 impacts, packed docids and the shared
+# accumulator.
+PHASES = ("decide", "zero", "directory", "scatter", "select", "candidates", "merge",
+          "write")
 
 # docs, impacts (and whether int8), block rows, packed stream and directory.
 _INDEX_ARGTYPES = (PTR, I64, PTR, I64, INT, PTR, PTR, PTR, PTR, I64, PTR, PTR, INT)
@@ -74,13 +94,13 @@ _LIB = CudaLibrary(
         "rs_unpack_locals": [PTR, I64, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR],
         "rs_range_step": [
             *_INDEX_ARGTYPES,
-            PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR, I64, I64, INT, PTR, PTR, PTR,
+            PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR, I64, I64, INT, PTR, PTR, PTR, PTR, PTR,
         ],
         "rs_traverse": [
             *_INDEX_ARGTYPES,
             PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-            I64, I64, I64, I64, I64, I64, INT, INT, PTR,
-            I64, I64, I64, I64, I64, PTR,
+            I64, I64, I64, I64, I64, I64, INT, INT, PTR, PTR,
+            I64, I64, I64, I64, I64, PTR, PTR,
         ],
     },
     error_fn="rs_error_string",
@@ -201,25 +221,53 @@ def unpack_locals(
 unpack_locals.launches = 0
 
 
-def acc_placement(s_pad: int, kernel: str = "range_step") -> str:
-    """Where ``kernel`` keeps its accumulator: ``"shared"`` or ``"global"``.
+def _is_traverse(kernel: str) -> bool:
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+    return kernel == "traverse"
 
-    ``range_step`` takes a shared-memory accumulator up to
-    ``SHARED_ACC_SLOTS`` slots, ``traverse`` (which also keeps two states
-    in shared memory) up to ``TRAVERSE_SHARED_ACC_SLOTS``.
-    """
-    limits = {"range_step": SHARED_ACC_SLOTS, "traverse": TRAVERSE_SHARED_ACC_SLOTS}
-    if kernel not in limits:
-        raise ValueError(f"kernel {kernel!r} not in {tuple(limits)}")
-    return "shared" if int(s_pad) <= limits[kernel] else "global"
+
+def top_bytes(k: int, kernel: str = "range_step") -> int:
+    """Bytes of ``kernel``'s top-k scratch at k (per lane for ``traverse``):
+    next_pow2(max(k, 32)) candidate keys, a sorted state copy and, in
+    ``traverse``, the two states."""
+    traverse = _is_traverse(kernel)
+    k = int(k)
+    cap = max(32, 1 << (k - 1).bit_length())
+    return 8 * cap + 8 * k + (8 * (2 * k + 2) if traverse else 0)
+
+
+def top_placement(k: int, kernel: str = "range_step") -> str:
+    """Where ``kernel`` keeps its top-k scratch: ``"shared"`` or ``"global"``."""
+    return "shared" if top_bytes(k, kernel) <= TOP_SHARED_MAX else "global"
+
+
+def shared_acc_slots(k: int, kernel: str = "range_step") -> int:
+    """The largest ``s_pad`` whose accumulator ``kernel`` keeps in shared
+    memory at k: what the opt-in limit leaves beside the static memory, the
+    top-k scratch (when it is shared) and the two slot lists."""
+    top = top_bytes(k, kernel) if top_placement(k, kernel) == "shared" else 0
+    return (SMEM_OPT_IN - STATIC_RESERVE - top) // 4 - CAND_CAP - TOUCHED_CAP
+
+
+def acc_placement(s_pad: int, kernel: str = "range_step", k: int = 10) -> str:
+    """Where ``kernel`` keeps its accumulator at k: ``"shared"`` or ``"global"``."""
+    return "shared" if int(s_pad) <= shared_acc_slots(k, kernel) else "global"
+
+
+def _scratch(kernel: str, s_pad: int, k: int, shape: tuple, device) -> tuple:
+    """(accumulator, top-k) global scratch of ``kernel``, None where shared;
+    ``shape`` is () for ``range_step``, (N,) for ``traverse``'s lanes."""
+    acc = None if acc_placement(s_pad, kernel, k) == "shared" else torch.empty(
+        (*shape, s_pad + CAND_CAP + TOUCHED_CAP), dtype=torch.int32, device=device)
+    top = None if top_placement(k, kernel) == "shared" else torch.empty(
+        (*shape, top_bytes(k, kernel) // 8), dtype=torch.int64, device=device)
+    return acc, top
 
 
 def _check_k(name: str, s_pad: int, k: int) -> None:
-    if not 1 <= k <= min(s_pad, MAX_K):
-        raise ValueError(
-            f"{name} takes 1 <= k <= min(s_pad, {MAX_K}) = {min(s_pad, MAX_K)}, "
-            f"got k={k}: its top-k keeps 2k candidates in shared memory"
-        )
+    if not 1 <= k <= s_pad:
+        raise ValueError(f"{name} takes 1 <= k <= s_pad = {s_pad}, got k={k}")
 
 
 def _index_tensors(dix, docs_format: str, ndim: int = 1) -> tuple:
@@ -290,6 +338,47 @@ def _shard_strides(dix, tensors) -> tuple:
             0 if words is None else words.shape[1])
 
 
+def _timed_on_card(name: str, device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name} times the kernel and runs on the card only, not {device}")
+
+
+def _range_step(dix, state, blk_ids, rest, range_start, s_pad, k, prune_blocks,
+                docs_format, timing) -> tuple[ref.TopKState, bool]:
+    """``range_step``'s checks and launch: (new state, whether it launched)."""
+    s_pad, k = int(s_pad), int(k)
+    _check_k("range_step", s_pad, k)
+    tensors = (
+        ("blk_ids", blk_ids, 1), ("rest", rest, 1), ("range_start", range_start, 0),
+        ("state.vals", state.vals, 1), ("state.ids", state.ids, 1),
+        ("state.postings", state.postings, 0), ("state.blocks", state.blocks, 0),
+        *_index_tensors(dix, docs_format),
+    )
+    _check_all(tensors, docs_format)
+    if rest.shape != blk_ids.shape:
+        raise ValueError(f"rest {tuple(rest.shape)} and blk_ids {tuple(blk_ids.shape)} differ")
+    if state.vals.shape[0] != k or state.ids.shape[0] != k:
+        raise ValueError(f"state holds {state.vals.shape[0]} slots, k is {k}")
+    device = blk_ids.device
+    if device.type == "cpu":
+        return ref.range_step_ref(dix, state, blk_ids, rest, range_start, s_pad=s_pad,
+                                  k=k, prune_blocks=prune_blocks,
+                                  docs_format=docs_format), False
+    if device.type != "cuda":
+        raise ValueError(f"range_step runs on cuda or cpu, not {device}")
+    _check_on(device, dix, tensors)
+    out = torch.empty(2 * k + 2, dtype=torch.int32, device=device)
+    acc, top = _scratch("range_step", s_pad, k, (), device)
+    _launch(
+        "rs_range_step", device, *_index_args(dix, docs_format == "packed"),
+        _ptr(blk_ids), _ptr(rest), blk_ids.numel(), _ptr(range_start),
+        _ptr(state.vals), _ptr(state.ids), _ptr(state.postings), _ptr(state.blocks),
+        k, s_pad, int(bool(prune_blocks)), 0 if acc is None else _ptr(acc),
+        0 if top is None else _ptr(top), _ptr(out), 0 if timing is None else _ptr(timing),
+    )
+    return ref.state_views(out, k), True
+
+
 def range_step(
     dix,
     state: ref.TopKState,
@@ -308,42 +397,32 @@ def range_step(
     ``rest`` are int32 [B] (-1 padded ids), ``range_start`` is 0-d int32,
     and the state's fields are int32 (``vals``/``ids`` [k], counters 0-d).
     The new state is a fresh buffer laid out as ``ref.state_views``.
-    Raises for k outside [1, min(s_pad, MAX_K)].
+    Raises for k outside [1, s_pad].
     """
-    s_pad, k = int(s_pad), int(k)
-    _check_k("range_step", s_pad, k)
-    tensors = (
-        ("blk_ids", blk_ids, 1), ("rest", rest, 1), ("range_start", range_start, 0),
-        ("state.vals", state.vals, 1), ("state.ids", state.ids, 1),
-        ("state.postings", state.postings, 0), ("state.blocks", state.blocks, 0),
-        *_index_tensors(dix, docs_format),
-    )
-    _check_all(tensors, docs_format)
-    if rest.shape != blk_ids.shape:
-        raise ValueError(f"rest {tuple(rest.shape)} and blk_ids {tuple(blk_ids.shape)} differ")
-    if state.vals.shape[0] != k or state.ids.shape[0] != k:
-        raise ValueError(f"state holds {state.vals.shape[0]} slots, k is {k}")
-    device = blk_ids.device
-    if device.type == "cpu":
-        return ref.range_step_ref(dix, state, blk_ids, rest, range_start, s_pad=s_pad,
-                                  k=k, prune_blocks=prune_blocks, docs_format=docs_format)
-    if device.type != "cuda":
-        raise ValueError(f"range_step runs on cuda or cpu, not {device}")
-    _check_on(device, dix, tensors)
-    out = torch.empty(2 * k + 2, dtype=torch.int32, device=device)
-    acc = None if acc_placement(s_pad) == "shared" else torch.empty(
-        s_pad, dtype=torch.int32, device=device)
-    _launch(
-        "rs_range_step", device, *_index_args(dix, docs_format == "packed"),
-        _ptr(blk_ids), _ptr(rest), blk_ids.numel(), _ptr(range_start),
-        _ptr(state.vals), _ptr(state.ids), _ptr(state.postings), _ptr(state.blocks),
-        k, s_pad, int(bool(prune_blocks)), 0 if acc is None else _ptr(acc), _ptr(out),
-    )
-    range_step.launches += 1
-    return ref.state_views(out, k)
+    new, launched = _range_step(dix, state, blk_ids, rest, range_start, s_pad, k,
+                                prune_blocks, docs_format, None)
+    if launched:
+        range_step.launches += 1
+    return new
 
 
 range_step.launches = 0
+
+
+def range_step_phases(dix, state, blk_ids, rest, range_start, *, s_pad: int, k: int,
+                      prune_blocks: bool = True,
+                      docs_format: str = "packed") -> tuple[ref.TopKState, torch.Tensor]:
+    """``range_step``'s timed variant on the card: (new state, int64 clocks).
+
+    The clocks are ``PHASES``' cycles and the step count, ``[len(PHASES) + 1]``.
+    Int8 impacts, packed docids and the shared accumulator only; the launch
+    is not counted in ``range_step.launches``.
+    """
+    _timed_on_card("range_step_phases", blk_ids.device)
+    timing = torch.zeros(len(PHASES) + 1, dtype=torch.int64, device=blk_ids.device)
+    new, _ = _range_step(dix, state, blk_ids, rest, range_start, s_pad, k, prune_blocks,
+                         docs_format, timing)
+    return new, timing
 
 
 def traverse(
@@ -371,13 +450,47 @@ def traverse(
     exit_safe | exit_budget`` per lane); ``dix.range_starts`` has R entries.
     Returns the carry out, a fresh buffer of the same layout. ``quantum``
     (None: run to an exit) caps each lane's loop iterations. Raises for k
-    outside [1, min(s_pad, MAX_K)].
+    outside [1, s_pad].
 
     ``dix`` may be S range shards stacked row by row (every column
     ``[S, W]``, ``range_starts`` ``[S, R]``): lane n then reads shard
     n % S, so N = N_queries * S lanes in the reference's [N, S] row-major
     order run every (query, shard) pair in one launch.
     """
+    out, launched = _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr,
+                              carry, s_pad, k, quantum, safe_stop, prune_blocks,
+                              docs_format, None)
+    if launched:
+        traverse.launches += 1
+    return out
+
+
+traverse.launches = 0
+
+
+def traverse_phases(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry, *,
+                    s_pad: int, k: int, quantum: int | None = None, safe_stop: bool = True,
+                    prune_blocks: bool = True,
+                    docs_format: str = "packed") -> tuple[torch.Tensor, torch.Tensor]:
+    """``traverse``'s timed variant on the card: (carry out, int64 clocks).
+
+    The clocks are ``[N, len(PHASES) + 1]``: per lane, ``PHASES``' cycles
+    summed over its steps, then its scored steps. Int8 impacts, packed
+    docids and the shared accumulator only; not counted in
+    ``traverse.launches``.
+    """
+    _timed_on_card("traverse_phases", carry.device)
+    timing = torch.zeros((blk_tab.shape[0], len(PHASES) + 1), dtype=torch.int64,
+                         device=carry.device)
+    out, _ = _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry,
+                       s_pad, k, quantum, safe_stop, prune_blocks, docs_format, timing)
+    return out, timing
+
+
+def _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry, s_pad,
+              k, quantum, safe_stop, prune_blocks, docs_format,
+              timing) -> tuple[torch.Tensor, bool]:
+    """``traverse``'s checks and launch: (carry out, whether it launched)."""
     s_pad, k = int(s_pad), int(k)
     _check_k("traverse", s_pad, k)
     if quantum is not None and not 0 <= int(quantum) <= ref.INT32_MAX:
@@ -412,26 +525,22 @@ def traverse(
     device = carry.device
     if device.type == "cpu":
         return ref.traverse_ref(dix, blk_tab, rest_tab, order, ordered_bounds, budget,
-                                maxr, carry, **kw)
+                                maxr, carry, **kw), False
     if device.type != "cuda":
         raise ValueError(f"traverse runs on cuda or cpu, not {device}")
     _check_on(device, dix, tensors)
     strides = _shard_strides(dix, tensors)
     out = torch.empty_like(carry)
     if N == 0:
-        return out
-    acc = None if acc_placement(s_pad, "traverse") == "shared" else torch.empty(
-        (N, s_pad), dtype=torch.int32, device=device)
+        return out, False
+    acc, top = _scratch("traverse", s_pad, k, (N,), device)
     _launch(
         "rs_traverse", device, *_index_args(dix, docs_format == "packed"),
         _ptr(dix.range_starts), _ptr(blk_tab), _ptr(rest_tab), _ptr(order),
         _ptr(ordered_bounds), _ptr(budget), _ptr(maxr), _ptr(carry), _ptr(out),
         N, R, B, k, s_pad, -1 if quantum is None else int(quantum),
         int(kw["safe_stop"]), int(kw["prune_blocks"]), 0 if acc is None else _ptr(acc),
-        n_shards, *strides,
+        0 if top is None else _ptr(top), n_shards, *strides,
+        0 if timing is None else _ptr(timing),
     )
-    traverse.launches += 1
-    return out
-
-
-traverse.launches = 0
+    return out, True

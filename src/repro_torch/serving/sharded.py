@@ -245,6 +245,9 @@ class ShardedEngine:
     False run every shard on that one device; True (one shard per card)
     raises ``NotImplementedError`` until the mesh path is ported.
     ``shards`` is a preloaded shard list to use instead of re-partitioning.
+    The positional order is the reference's: ``mesh_axis`` names the mesh
+    axis of the unported mesh path and is ignored; ``obs`` takes only None
+    until the telemetry is ported (ROADMAP A2).
     """
 
     def __init__(
@@ -252,8 +255,15 @@ class ShardedEngine:
         engine: Engine,
         n_shards: int,
         use_mesh: bool | None = None,
+        mesh_axis: str = "shard",
         shards: list[IndexShard] | None = None,
+        obs=None,
     ):
+        if obs is not None:
+            raise NotImplementedError(
+                "obs= (the reference's telemetry hooks) is not ported yet, ROADMAP A2; "
+                "pass obs=None"
+            )
         if use_mesh:
             raise NotImplementedError(
                 "use_mesh=True (one shard per card: make_mesh_dispatch and "

@@ -420,7 +420,7 @@ def test_traverse_wrapper_checks(port_idx, ragged):
     peng = range_daat.Engine(port_idx, k=10, device="cpu")
     args = _lanes(peng, [peng.plan(ragged[1])], 32, 2, [INT32_MAX, 0], [INT32_MAX, 0])
     kw = dict(s_pad=peng.s_pad, k=peng.k)
-    with pytest.raises(ValueError, match="min\\(s_pad, 1024\\)"):
+    with pytest.raises(ValueError, match="1 <= k <= s_pad"):
         kernel.traverse(*args, s_pad=peng.s_pad, k=0)
     with pytest.raises(ValueError, match="quantum"):
         kernel.traverse(*args, quantum=-1, **kw)
@@ -436,9 +436,10 @@ def test_traverse_wrapper_checks(port_idx, ragged):
         kernel.traverse(*args, docs_format="packed", **kw)
     with pytest.raises(ValueError, match="kernel"):
         kernel.acc_placement(9_984, "scatter")
-    assert [kernel.acc_placement(s, "traverse") for s in (9_984, 47_612, 47_616)] == [
+    assert [kernel.acc_placement(s, "traverse") for s in (9_984, 42_624, 42_625)] == [
         "shared", "shared", "global"]
-    assert kernel.acc_placement(51_712) == "shared"
+    assert kernel.acc_placement(42_668) == "shared"
+    assert kernel.acc_placement(9_984, "traverse", k=2048) == "shared"
 
 
 # --------------------------------------------------------------- request loop

@@ -213,16 +213,100 @@ def test_range_step_matches_plain(cuda_device, s_pad, k):
 
 @pytest.mark.cuda
 def test_range_step_raises_above_its_k_limit(cuda_device):
+    """The limit is the reference's, s_pad: range_step and traverse equal
+    their plain versions at k = 1,025 and 2,048 (both accumulator
+    placements), and k = 0 or k > s_pad raise."""
+    for s_pad in (9_984, 65_536):
+        for k in (1025, 2048):
+            rng = np.random.default_rng(s_pad + k)
+            for theta in (0, 300):
+                dix, state, blk, rest, rs = _step_case(rng, cuda_device, s_pad, "int8",
+                                                       "packed", k, theta)
+                kw = dict(s_pad=s_pad, k=k, docs_format="packed")
+                got = kernel.range_step(dix, state, blk, rest, rs, **kw)
+                want = ref.range_step_ref(dix, state, blk, rest, rs, **kw)
+                for name, g, w in zip(ref.TopKState._fields, got, want):
+                    assert torch.equal(g, w), f"s_pad={s_pad} k={k} theta={theta}: {name}"
+            dix, lanes = _traverse_case(rng, cuda_device, s_pad, "int32", "int32", k, 3)
+            kw = dict(s_pad=s_pad, k=k)
+            _assert_carry_equal(kernel.traverse(dix, *lanes, **kw),
+                                ref.traverse_ref(dix, *lanes, **kw), k,
+                                f"traverse s_pad={s_pad} k={k}")
     rng = np.random.default_rng(0)
-    dix, _, blk, rest, rs = _step_case(rng, cuda_device, 9_984, "int32", "int32", 10, 0)
-    state = ref.init_state(kernel.MAX_K + 1, cuda_device)
-    with pytest.raises(ValueError, match=f"min\\(s_pad, {kernel.MAX_K}\\)"):
-        kernel.range_step(dix, state, blk, rest, rs, s_pad=9_984, k=kernel.MAX_K + 1)
-    with pytest.raises(ValueError, match="impl='cuda' takes"):
-        Engine(build_index(make_corpus(n_docs=300, n_terms=400, n_topics=2,
-                                       mean_doc_len=30, seed=0), n_ranges=2,
-                           strategy="clustered", bits=8),
-               k=kernel.MAX_K + 1, device=cuda_device)
+    dix, _, blk, rest, rs = _step_case(rng, cuda_device, 256, "int32", "int32", 10, 0,
+                                       n_blocks=8)
+    for k in (0, 257):
+        with pytest.raises(ValueError, match="1 <= k <= s_pad"):
+            kernel.range_step(dix, ref.init_state(max(k, 1), cuda_device), blk, rest, rs,
+                              s_pad=256, k=k)
+
+
+def _with_state(state_args, vals, ids):
+    """``_step_case``'s tuple with its state replaced by (vals, ids)."""
+    dix, state, blk, rest, rs = state_args
+    k = len(vals)
+    buf = np.concatenate([np.asarray(vals), [12_345, 67], np.asarray(ids)])
+    return dix, ref.state_views(_cuda(buf, rs.device, np.int32), k), blk, rest, rs
+
+
+SELECTION_CASES = ["state tied at theta", "no slot above theta", "every slot survives",
+                   "k above the nonzero slots", "global top-k scratch"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SELECTION_CASES)
+def test_range_step_selection_cases(cuda_device, case):
+    """The filter, radix select and merge against the plain version at the
+    selection's edges, in all four configurations, pruning on and off."""
+    for ci, (impact_dtype, docs_format) in enumerate(CONFIGS):
+        rng = np.random.default_rng(100 + ci)
+        s_pad, n_blocks, ks = 9_984, 256, (10, 100)
+        if case == "k above the nonzero slots":
+            n_blocks, ks = 6, (1000, 9_984)  # at most 3 * 128 nonzero slots
+        elif case == "every slot survives":
+            ks = (1, 10, 32, 33, 1000, 9_984)
+        elif case == "global top-k scratch":
+            ks = (8192,)
+            assert kernel.top_placement(8192) == "global"
+        for k in ks:
+            args = _step_case(rng, cuda_device, s_pad, impact_dtype, docs_format, k, 0,
+                              n_blocks=n_blocks)
+            ids = rng.choice(np.arange(20_000, 20_000 + 4 * k), size=k, replace=False)
+            if case == "state tied at theta":
+                # Sums of 9s are common: every state entry ties them at 18.
+                args = _with_state(args, np.full(k, 18), np.sort(ids))
+            elif case == "no slot above theta":
+                args = _with_state(args, np.full(k, 1_000_000), np.sort(ids))
+            elif case == "global top-k scratch":
+                vals = np.sort(rng.choice([0, 18, 27, 300], size=k))[::-1]
+                args = _with_state(args, vals, np.where(vals > 0, np.sort(ids), -1))
+            for prune in (True, False):
+                kw = dict(s_pad=s_pad, k=k, prune_blocks=prune, docs_format=docs_format)
+                got = kernel.range_step(*args, **kw)
+                want = ref.range_step_ref(*args, **kw)
+                ctx = f"{case} {impact_dtype}/{docs_format} k={k} prune={prune}"
+                for name, g, w in zip(ref.TopKState._fields, got, want):
+                    assert torch.equal(g, w), f"{ctx}: {name}"
+
+
+@pytest.mark.cuda
+def test_traverse_global_top_scratch_and_quantum_chain(cuda_device):
+    """traverse with its states and sort scratch in global memory (k = 4,096),
+    and chained quanta ending where one run ends, against the plain version."""
+    assert kernel.top_placement(4096, "traverse") == "global"
+    for s_pad, k in ((9_984, 4096), (65_536, 4096), (9_984, 33)):
+        rng = np.random.default_rng(s_pad + k)
+        dix, lanes = _traverse_case(rng, cuda_device, s_pad, "int8", "packed", k, 5,
+                                    ties=True)
+        kw = dict(s_pad=s_pad, k=k, docs_format="packed")
+        whole = kernel.traverse(dix, *lanes, **kw)
+        _assert_carry_equal(whole, ref.traverse_ref(dix, *lanes, **kw), k,
+                            f"s_pad={s_pad} k={k}")
+        for quantum in (1, 2):
+            carry = lanes[-1]
+            for _ in range(8):
+                carry = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum, **kw)
+            _assert_carry_equal(carry, whole, k, f"s_pad={s_pad} k={k} chained {quantum}")
 
 
 @pytest.mark.cuda
@@ -365,8 +449,11 @@ def test_traverse_matches_plain(cuda_device, s_pad, k):
 
 @pytest.mark.cuda
 def test_traverse_accumulator_limit_both_sides(cuda_device):
-    """The last shared-memory s_pad and the first global one."""
-    for s_pad in (47_488, 47_616):
+    """The last shared-memory s_pad and the first global one, at k = 10."""
+    last = kernel.shared_acc_slots(10, "traverse") // BLOCK * BLOCK
+    assert [kernel.acc_placement(s, "traverse") for s in (last, last + BLOCK)] == [
+        "shared", "global"]
+    for s_pad in (last, last + BLOCK):
         rng = np.random.default_rng(s_pad)
         dix, lanes = _traverse_case(rng, cuda_device, s_pad, "int8", "packed", 10, 3)
         kw = dict(s_pad=s_pad, k=10, docs_format="packed")

@@ -246,12 +246,49 @@ def test_score_range_step_cuda_reaches_only_range_step(port_idx, queries, monkey
         assert torch.equal(a, b)
 
 
-def test_range_step_wrapper_checks_k_and_inputs(port_idx):
+@pytest.fixture(scope="module")
+def wide_pair(random_index):
+    """The reference's and the port's engine over one 2,500-doc range
+    (s_pad 2,560), where k may exceed 1,024: (JAX index, port index)."""
+    return random_index, _port_index(random_index)
+
+
+def _port_index(index):
+    arrays = {n: getattr(index, n) for n in INDEX_ARRAYS
+              if n not in ("doc_order", "range_ends")}
+    arrays["doc_order"] = index.arrangement.doc_order
+    arrays["range_ends"] = index.arrangement.range_ends
+    return index_from_arrays(
+        arrays, n_docs=index.n_docs, n_terms=index.n_terms,
+        strategy=index.arrangement.strategy, quant_bits=index.quantizer.bits,
+        quant_scale=index.quantizer.scale,
+    )
+
+
+def test_range_step_wrapper_checks_k_and_inputs(port_idx, wide_pair, queries):
+    """Any 1 <= k <= s_pad: the wrapper at k = 1,025 and k = s_pad equals the
+    reference's score_range_step over two ranges; k = 0 and k > s_pad raise."""
+    jindex, tindex = wide_pair
+    for k in (1025, None):
+        jeng = jax_daat.Engine(jindex, k=10, impl="xla")
+        port = range_daat.Engine(tindex, k=10, device="cpu")
+        k = port.s_pad if k is None else k
+        kw = dict(s_pad=port.s_pad, k=k)
+        js, ts = jax_daat.init_state(k), ref.init_state(k)
+        for qi, q in enumerate(queries[:2]):
+            jplan, tplan = jeng.plan(q), port.plan(q)
+            r = int(jplan.order_host[0])
+            js = jax_daat.score_range_step(
+                jeng.dix, js, jplan.blk_tab[r], jplan.rest_tab[r],
+                jeng.dix.range_starts[r], impl="xla", **kw)
+            ts = kernel.range_step(port.dix, ts, tplan.blk_tab[r], tplan.rest_tab[r],
+                                   port.dix.range_starts[r], **kw)
+            _assert_state_equal(js, ts, f"k={k} step {qi}")
     port = range_daat.Engine(port_idx, k=10, device="cpu")
     blk = torch.zeros(4, dtype=torch.int32)
     rs = torch.tensor(0, dtype=torch.int32)
-    for k, s_pad in ((0, 256), (1025, 4096), (300, 256)):
-        with pytest.raises(ValueError, match="1 <= k <= min"):
+    for k, s_pad in ((0, 256), (300, 256), (257, 256)):
+        with pytest.raises(ValueError, match="1 <= k <= s_pad"):
             kernel.range_step(port.dix, ref.init_state(max(k, 1)), blk, blk, rs,
                               s_pad=s_pad, k=k)
     with pytest.raises(TypeError, match="blk_ids"):
@@ -267,34 +304,68 @@ def test_range_step_wrapper_checks_k_and_inputs(port_idx):
                           docs_format="raw")
 
 
-def test_engine_cuda_impl_states_the_k_limit(port_idx, monkeypatch):
-    """Engine(impl="cuda") refuses k above the kernel's limit before any upload."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match=f"1 <= k <= {kernel.MAX_K}"):
-        range_daat.Engine(port_idx, k=kernel.MAX_K + 1, device="cuda")
-    # The plain path keeps no such limit.
-    eng = range_daat.Engine(port_idx, k=kernel.MAX_K + 1, device="cpu")
-    assert eng.impl == "torch"
+def test_engine_cuda_impl_states_the_k_limit(wide_pair, queries):
+    """The k limit is the reference's, s_pad: Engine(k=1500) equals the
+    reference on every observe_query field, and k above s_pad raises at the
+    kernel's wrapper, as lax.top_k raises in the reference."""
+    from differential import assert_results_equal, observe_query
+
+    jindex, tindex = wide_pair
+    ref_eng = jax_daat.Engine(jindex, k=1500, impl="xla")
+    port = range_daat.Engine(tindex, k=1500, device="cpu")
+    assert port.s_pad >= 1500
+    for i, q in enumerate(queries[:4]):
+        for budget in (None, 900):
+            assert_results_equal(
+                observe_query(ref_eng, ref_eng.plan(q), budget),
+                observe_query(port, port.plan(q), budget),
+                context=f"query {i} budget {budget}: reference vs port at k=1500",
+            )
+    big = port.s_pad + 1
+    with pytest.raises(Exception):
+        eng = jax_daat.Engine(jindex, k=big, impl="xla")
+        eng.traverse(eng.plan(queries[0]))
+    eng = range_daat.Engine(tindex, k=big, device="cpu")
+    with pytest.raises(RuntimeError):
+        eng.traverse(eng.plan(queries[0]))
+    with pytest.raises(ValueError, match="1 <= k <= s_pad"):
+        kernel.traverse(eng.dix, *[None] * 7, s_pad=eng.s_pad, k=big)
 
 
 def test_kernel_limits_mirror_the_source():
-    """MAX_K and SHARED_ACC_SLOTS are the .cu's kMaxK and kMaxSharedSlots."""
+    """kernel.py's placement constants are the .cu's; the limits follow k."""
     src = Path(kernel.SOURCE).read_text()
     const = {m.group(1): m.group(2) for m in
              re.finditer(r"constexpr int (k\w+) = ([^;]+);", src)}
     env = {}
-    for name in ("kMaxK", "kMaxSortN", "kSortBytes", "kSmemOptIn", "kStaticReserve",
-                 "kMaxSharedSlots"):
+    for name in ("kCandCap", "kTouchedCap", "kTopSharedMax", "kSmemOptIn",
+                 "kStaticReserve"):
         expr = re.sub(r"//.*", "", const[name]).strip()
         env[name] = int(eval(expr.replace("/", "//"), {}, env))
-    assert env["kMaxK"] == kernel.MAX_K
-    assert env["kMaxSharedSlots"] == kernel.SHARED_ACC_SLOTS
+    assert env["kCandCap"] == kernel.CAND_CAP
+    assert env["kTouchedCap"] == kernel.TOUCHED_CAP
+    assert env["kTopSharedMax"] == kernel.TOP_SHARED_MAX
+    assert env["kSmemOptIn"] == kernel.SMEM_OPT_IN == 232_448
+    assert env["kStaticReserve"] == kernel.STATIC_RESERVE
+    # cap_c(k) = next_pow2(max(k, 32)) keys, the state copy, traverse's states.
+    assert kernel.top_bytes(10) == 8 * 32 + 8 * 10
+    assert kernel.top_bytes(1025, "traverse") == 8 * 2048 + 8 * 1025 + 8 * 2052
+    assert kernel.top_placement(2048, "traverse") == "shared"
+    assert kernel.top_placement(4096, "traverse") == "global"
+    assert kernel.top_placement(4096) == "shared"
+    assert kernel.top_placement(8192) == "global"
+    for k, name in ((10, "range_step"), (10, "traverse"), (2048, "range_step"),
+                    (5000, "traverse")):
+        slots = kernel.shared_acc_slots(k, name)
+        top = kernel.top_bytes(k, name) if kernel.top_placement(k, name) == "shared" else 0
+        lists = kernel.CAND_CAP + kernel.TOUCHED_CAP
+        assert 4 * (slots + lists) + top + kernel.STATIC_RESERVE <= 232_448
+        assert kernel.acc_placement(slots, name, k) == "shared"
+        assert kernel.acc_placement(slots + 1, name, k) == "global"
     assert kernel.acc_placement(9_984) == "shared"
-    assert kernel.acc_placement(kernel.SHARED_ACC_SLOTS) == "shared"
     assert kernel.acc_placement(65_536) == "global"
-    # The largest shared accumulator and the top-k scratch fit the opt-in limit.
-    assert (4 * env["kMaxSharedSlots"] + env["kSortBytes"] + env["kStaticReserve"]
-            <= env["kSmemOptIn"] == 232_448)
+    with pytest.raises(ValueError, match="kernel"):
+        kernel.top_bytes(10, "scatter")
 
 
 def test_state_layout_reads_theta_and_postings_in_one_view():
