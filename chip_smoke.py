@@ -38,8 +38,21 @@ fails (non-zero exit, no result line) on any fault:
      scatter or decode launch; then the anytime loop (``Engine.step``)
      on every query, run to its end and under ``Fixed`` caps, kernel
      engine equal to plain and to the whole-query traversal, with one
-     ``range_step`` launch per range and nothing else;
-  4. scale phase — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
+     ``range_step`` launch per range and nothing else; the telemetry
+     parity: the four serving modes (host, batch, in-flight, sharded) on
+     64 queries with an ``Instrumentation`` (trace sample 1.0, profiler
+     on) and with ``NOOP``, every served field equal, the exit reasons the
+     counters hold equal to the results', no recompile, and the
+     synchronizing CUDA operations per dispatch with ``obs`` off and on
+     (``torch.cuda.set_sync_debug_mode("warn")``); the delta chain at the
+     preset's size (built in a worker: a ``clustered`` base artifact, one
+     ``append_index`` of 2,400 documents, its ``compact``, and a fresh
+     build of ``concat_corpora``): chain head (``load_chain``), compaction
+     and fresh build served on the card equal on every ``observe_query``
+     field for 64 queries, unbudgeted and budgeted;
+  4. scale phase (its index through ``build_index_cached`` under
+     ``.cache/``, hit or miss printed, a hit checked with
+     ``validate_artifact``) — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
      the same parity (the anytime loop on the first 64 queries); the
      standalone kernels' own path
      (``ops.score_blocks(impl="cuda")`` on each query's first range, both
@@ -66,7 +79,21 @@ fails (non-zero exit, no result line) on any fault:
      one ``traverse`` per chunk); the serving windows of ``--mode
      inflight`` (16 slots, quantum 1) and ``--mode sharded`` (S = 4,
      batch 16); each window with the launch counters reset just before
-     and read just after; then a profiled serving window that splits a
+     and read just after; the batch and in-flight windows again with an
+     enabled ``obs`` (q/s and P99 beside the ``obs``-off windows, the
+     obs profiler's plan/dispatch/device/transfer split beside the smoke's
+     own split of the profiled windows below); the artifact phase
+     (``save_index`` int8/packed and ``save_shards`` S = 4 with their
+     bytes on disk against ``device_bytes_report``, ``load_index`` eager
+     and mmap, the ``DeviceIndex`` upload, the cold start from
+     ``Engine.from_artifact`` to the first answer; ``Engine.from_artifact``,
+     an engine over the mmap load, ``BatchEngine.from_artifact`` and
+     ``ShardedEngine.from_artifact(shards_path=...)`` equal to the
+     in-memory engines for 64 queries, unbudgeted and budgeted, with one
+     ``range_step`` per range of the anytime loop and one ``traverse`` per
+     query or chunk; stale and unverifiable shard artifacts refused;
+     ``repack`` int32 -> packed keeping fingerprint and results); then a
+     profiled serving window that splits a
      query's time between the device and the host (plan time per query
      apart), a profiled batch window (plan, dispatch, device and read ms
      per batch, device idle share), a profiled in-flight window (upload,
@@ -171,10 +198,20 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------- host build
 
 
-def build_corpus_index(src: str, cfg: dict, n_queries: int) -> dict:
-    """Worker: corpus, index and query log, returned as numpy arrays."""
+def build_corpus_index(src: str, cfg: dict, n_queries: int,
+                       cache_dir: str | None = None) -> dict:
+    """Worker: corpus, index and query log, returned as numpy arrays.
+
+    With ``cache_dir`` the index goes through ``build_index_cached`` (an
+    artifact under ``cache_dir``): ``cache`` then says whether the entry was
+    there (a hit, checked with ``validate_artifact``) or built and saved.
+    """
+    import os
+
     sys.path.insert(0, src)
-    from repro_torch.core.clustered_index import INDEX_ARRAYS, build_index
+    from repro_torch import index_io
+    from repro_torch.core.clustered_index import (
+        INDEX_ARRAYS, build_index, build_index_cached)
     from repro_torch.data.synth import make_corpus, make_query_log
 
     t0 = time.perf_counter()
@@ -182,8 +219,20 @@ def build_corpus_index(src: str, cfg: dict, n_queries: int) -> dict:
                          n_topics=cfg["n_topics"], mean_doc_len=cfg["mean_doc_len"],
                          seed=0)
     t1 = time.perf_counter()
-    index = build_index(corpus, n_ranges=cfg["n_ranges"], strategy=cfg["strategy"],
-                        bits=8, seed=0)
+    build = dict(n_ranges=cfg["n_ranges"], strategy=cfg["strategy"], bits=8, seed=0)
+    cache = None
+    if cache_dir is None:
+        index = build_index(corpus, **build)
+    else:
+        before = set(os.listdir(cache_dir)) if os.path.isdir(cache_dir) else set()
+        index = build_index_cached(corpus, cache_dir=cache_dir, **build)
+        entries = [e for e in os.listdir(cache_dir) if e.startswith("index_")]
+        hit = bool(before & set(entries))
+        t_hit = time.perf_counter()
+        problems = [index_io.validate_artifact(os.path.join(cache_dir, e))
+                    for e in sorted(before & set(entries))] if hit else []
+        cache = dict(hit=hit, entries=sorted(entries), seconds=t_hit - t1,
+                     validate_s=time.perf_counter() - t_hit, problems=problems)
     t2 = time.perf_counter()
     terms = make_query_log(corpus, n_queries=n_queries, seed=QUERY_SEED).terms
     arrays = {n: getattr(index, n) for n in INDEX_ARRAYS
@@ -197,6 +246,7 @@ def build_corpus_index(src: str, cfg: dict, n_queries: int) -> dict:
                   quant_bits=index.quantizer.bits, quant_scale=index.quantizer.scale),
         terms=terms,
         fingerprint=index.fingerprint(),
+        cache=cache,
         corpus_s=t1 - t0,
         index_s=t2 - t1,
         query_s=time.perf_counter() - t2,
@@ -211,12 +261,23 @@ def receive_index(job, label: str):
     index = index_from_arrays(out["arrays"], **out["meta"])
     check(index.fingerprint() == out["fingerprint"], f"{label}: fingerprint changed in transfer")
     queries = [out["terms"][i] for i in range(out["terms"].shape[0])]
+    cache = out["cache"]
+    if cache is not None:
+        # A hit must be a valid artifact: validate_artifact checked every
+        # checksum and the fingerprint in the worker.
+        check(all(p == [] for p in cache["problems"]),
+              f"{label}: cached index artifact invalid: {cache['problems']}")
+        log(f"{label}: build_index_cached {'HIT' if cache['hit'] else 'MISS'} in "
+            f"{cache['seconds']:.1f} s under .cache/ ({cache['entries']})"
+            + (f", validate_artifact ok in {cache['validate_s']:.1f} s" if cache["hit"]
+               else ": no entry from an earlier run, built and saved"))
     log(f"{label}: host build corpus {out['corpus_s']:.1f} s, index "
         f"{out['index_s']:.1f} s (numpy, worker process); waited "
         f"{time.perf_counter() - t0:.1f} s; {index.n_docs} docs, {index.nnz} "
         f"postings, {index.n_blocks} blocks, {index.n_ranges} ranges, "
         f"max range {index.max_range_size} docs")
-    return index, queries, {k: out[k] for k in ("corpus_s", "index_s", "query_s")}
+    return index, queries, {k: out[k] for k in ("corpus_s", "index_s", "query_s",
+                                                 "cache")}
 
 
 # -------------------------------------------------------------- kernel phase
@@ -2061,6 +2122,496 @@ def ptxas_lines(build_log: str) -> list[str]:
 # ----------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------------ artifact phase
+
+
+ARTIFACT_DIR = ROOT / ".cache" / "chip_smoke_artifacts"  # git-ignored; removed after
+CHAIN_DIR = ROOT / ".cache" / "chip_smoke_chain"
+CHAIN_QUERIES = 64
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def build_chain(src: str, cfg: dict, out_dir: str) -> dict:
+    """Worker: a delta chain at ``cfg``'s size and what it must equal.
+
+    A base index (``clustered``, int8 impacts, packed docids) saved as an
+    artifact, one ``append_index`` of a delta corpus of a tenth of its
+    documents, the chain's ``compact``, and a fresh build of
+    ``concat_corpora`` at the chain's arrangement, shared quantizer and
+    frozen statistics, saved too. Returns the paths, fingerprints, times
+    and a query log over the concatenated corpus.
+    """
+    import os
+
+    sys.path.insert(0, src)
+    from repro_torch import index_io
+    from repro_torch.core.clustered_index import build_index
+    from repro_torch.data.synth import concat_corpora, make_corpus, make_query_log
+
+    shape = dict(n_terms=cfg["n_terms"], n_topics=cfg["n_topics"],
+                 mean_doc_len=cfg["mean_doc_len"])
+    base_c = make_corpus(n_docs=cfg["n_docs"], seed=0, **shape)
+    delta_c = make_corpus(n_docs=cfg["n_docs"] // 10, seed=1, **shape)
+    t0 = time.perf_counter()
+    base = build_index(base_c, n_ranges=cfg["n_ranges"], strategy="clustered", bits=8,
+                       seed=0)
+    paths = {n: os.path.join(out_dir, n) for n in ("base", "head", "compact", "fresh")}
+    t1 = time.perf_counter()
+    index_io.save_index(base, paths["base"], impact_dtype="int8", docs_format="packed",
+                        overwrite=True)
+    t2 = time.perf_counter()
+    ext = index_io.append_index(paths["base"], delta_c, paths["head"], n_ranges=2, seed=1,
+                                overwrite=True)
+    t3 = time.perf_counter()
+    index_io.compact(paths["head"], paths["compact"], overwrite=True)
+    t4 = time.perf_counter()
+    cat = concat_corpora(base_c, delta_c)
+    fresh = build_index(cat, arrangement=ext.arrangement, quantizer=base.quantizer,
+                        stats=base.stats, params=base.bm25)
+    index_io.save_index(fresh, paths["fresh"], impact_dtype="int8", overwrite=True)
+    return dict(
+        paths=paths, base_docs=base.n_docs, delta_docs=delta_c.n_docs,
+        fingerprints=dict(extended=ext.fingerprint(), fresh=fresh.fingerprint()),
+        delta_bytes=_dir_bytes(paths["head"]), base_bytes=_dir_bytes(paths["base"]),
+        build_s=t1 - t0, save_s=t2 - t1, append_s=t3 - t2, compact_s=t4 - t3,
+        terms=make_query_log(cat, n_queries=CHAIN_QUERIES, seed=QUERY_SEED).terms,
+    )
+
+
+def chain_phase(job, dev) -> dict:
+    """The chain head (``load_chain``), its compaction and the fresh build
+    of the concatenated corpus, each served on the card from its artifact:
+    equal fingerprints, and every ``observe_query`` field equal for every
+    query, unbudgeted and budgeted (one ``traverse`` launch per query)."""
+    import numpy as np
+    from repro_torch import index_io
+    from repro_torch.core.range_daat import Engine
+
+    import shutil
+
+    out = job.get()
+    paths = out["paths"]
+    check(out["fingerprints"]["extended"] == out["fingerprints"]["fresh"],
+          "chain: extended index != fresh build of the concatenated corpus")
+    t0 = time.perf_counter()
+    head = index_io.load_chain(paths["head"])
+    load_chain_s = time.perf_counter() - t0
+    check(index_io.validate_artifact(paths["head"]) == [], "chain: head invalid")
+    engines = {name: Engine(idx, k=10, device=dev, impact_dtype="int8",
+                            docs_format="packed")
+               for name, idx in (("chain", head),
+                                 ("compact", index_io.load_index(paths["compact"])),
+                                 ("fresh", index_io.load_index(paths["fresh"])))}
+    fps = {n: e.index.fingerprint() for n, e in engines.items()}
+    check(len(set(fps.values())) == 1, f"chain: fingerprints differ {fps}")
+    queries = [out["terms"][i] for i in range(out["terms"].shape[0])]
+    rng = np.random.default_rng(17)
+    reset_launches()
+    n_new, n_budget = 0, 0
+    base_docs = out["base_docs"]
+    for i, q in enumerate(queries):
+        got = {n: observe(e, e.plan(q)) for n, e in engines.items()}
+        check(got["chain"] == got["compact"] == got["fresh"],
+              f"chain query {i}: chain/compact/fresh differ {got}")
+        b = int(rng.integers(1, max(got["chain"][2], 1) + 1))
+        gotb = {n: observe(e, e.plan(q), b) for n, e in engines.items()}
+        check(gotb["chain"] == gotb["compact"] == gotb["fresh"],
+              f"chain query {i} budget {b}: chain/compact/fresh differ {gotb}")
+        n_new += sum(d >= base_docs for d in got["chain"][0])
+        n_budget += gotb["chain"][6]
+    launches = read_launches()
+    check_launches(launches, {"traverse": 6 * len(queries)}, "chain phase")
+    res = dict(base_docs=base_docs, delta_docs=out["delta_docs"],
+               fingerprint=fps["chain"], load_chain_s=load_chain_s,
+               launches=launches, new_docs_served=n_new, budget_exits=n_budget,
+               **{k: out[k] for k in ("build_s", "save_s", "append_s", "compact_s",
+                                      "base_bytes", "delta_bytes")})
+    log(f"chain: base {base_docs} docs + append {out['delta_docs']} docs (delta "
+        f"artifact {out['delta_bytes']} B beside the base's {out['base_bytes']} B; save "
+        f"{out['save_s']:.2f} s, append {out['append_s']:.2f} s, compact "
+        f"{out['compact_s']:.2f} s in a worker); load_chain {load_chain_s:.2f} s; "
+        f"chain == compact == fresh build of concat_corpora on the card: fingerprint "
+        f"{fps['chain']}, {len(queries)} queries on every observe_query field, "
+        f"unbudgeted and budgeted ({n_budget} budget exits, {n_new} appended docs "
+        f"served); traverse launches {launches['traverse']}, others 0")
+    shutil.rmtree(CHAIN_DIR, ignore_errors=True)
+    return res
+
+
+def artifact_phase(index, queries, engine, dev, n: int = 64) -> dict:
+    """The scale index through ``index_io`` and back onto the card.
+
+    ``save_index`` (int8, packed) and ``save_shards`` (S = ``SHARDS``, with
+    the source fingerprint); ``Engine.from_artifact`` (eager load) and an
+    engine over ``load_index(mmap=True)``, ``BatchEngine.from_artifact`` and
+    ``ShardedEngine.from_artifact(shards_path=...)`` on the card, each equal
+    to the in-memory ``engine`` for ``n`` queries, unbudgeted and budgeted:
+    ``observe_query`` fields and the anytime loop (one ``range_step`` per
+    range), ``BatchResult`` (one ``traverse`` per chunk), ``ShardedResult``
+    (one ``traverse`` per chunk). Stale and unverifiable shard artifacts are
+    refused; ``repack`` int32 -> packed keeps the fingerprint and the
+    results. Times: save, load with and without mmap (fingerprint check
+    included), the ``DeviceIndex`` upload, and the cold start from the
+    ``from_artifact`` call to the first answered query.
+    """
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import index_io
+    from repro_torch.core.clustered_index import build_index, shard_device_index
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.data.synth import make_corpus
+    from repro_torch.serving import (
+        BatchEngine, BucketSpec, ShardedBatchEngine, ShardedEngine)
+
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    ARTIFACT_DIR.mkdir(parents=True)
+    art, shards_art = str(ARTIFACT_DIR / "scale"), str(ARTIFACT_DIR / "scale.shards")
+    qs = queries[:n]
+    out = {}
+    t0 = time.perf_counter()
+    index_io.save_index(index, art, impact_dtype="int8", docs_format="packed")
+    out["save_s"] = time.perf_counter() - t0
+    shards = shard_device_index(index, SHARDS)
+    t0 = time.perf_counter()
+    index_io.save_shards(shards, str(shards_art), impact_dtype="int8",
+                         quantizer=index.quantizer, source_fingerprint=index.fingerprint())
+    out["save_shards_s"] = time.perf_counter() - t0
+    out["artifact_bytes"] = _dir_bytes(art)
+    out["shards_bytes"] = _dir_bytes(shards_art)
+    out["device_bytes"] = index.device_bytes("int8", "packed")["total"]
+    for mmap in (False, True):
+        t0 = time.perf_counter()
+        loaded = index_io.load_index(art, mmap=mmap)
+        out[f"load_s_mmap_{mmap}"] = time.perf_counter() - t0
+        check(loaded.fingerprint() == index.fingerprint(), f"load mmap={mmap}: fingerprint")
+    # The engine packs the docids again on the host (the load decoded them),
+    # then copies the DeviceIndex up.
+    t0 = time.perf_counter()
+    loaded.packed_postings()
+    out["pack_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mm_eng = Engine(loaded, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    torch.cuda.synchronize()
+    out["upload_s"] = time.perf_counter() - t0
+    del loaded
+    log(f"artifact: save_index int8/packed {out['save_s']:.2f} s, {out['artifact_bytes']} "
+        f"B on disk against a {out['device_bytes']} B device index "
+        f"(device_bytes_report); save_shards S={SHARDS} {out['save_shards_s']:.2f} s, "
+        f"{out['shards_bytes']} B; load_index (fingerprint checked) "
+        f"{out['load_s_mmap_False']:.2f} s eager, {out['load_s_mmap_True']:.2f} s mmap; "
+        f"the engine's host re-pack of the docids {out['pack_s']:.2f} s, then the "
+        f"DeviceIndex upload {out['upload_s']:.3f} s")
+
+    # Cold start: from the from_artifact call to the first answered query.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine.from_artifact(art, k=10, device=dev)
+    first = observe(eng, eng.plan(qs[0]))
+    out["cold_start_s"] = time.perf_counter() - t0
+    check((eng.impact_dtype, eng.docs_format) == ("int8", "packed"),
+          f"from_artifact: {eng.impact_dtype}/{eng.docs_format}")
+    check(first == observe(engine, engine.plan(qs[0])), "cold start: first answer differs")
+    log(f"artifact: cold start (Engine.from_artifact to the first answered query) "
+        f"{out['cold_start_s']:.2f} s")
+
+    rng = np.random.default_rng(19)
+    plans = [engine.plan(q) for q in qs]
+    whole = [observe(engine, p) for p in plans]
+    budgets = [int(rng.integers(1, max(w[2], 1) + 1)) for w in whole]
+    for label, e in (("from_artifact", eng), ("mmap", mm_eng)):
+        reset_launches()
+        got = [observe(e, p) for p in plans]
+        gotb = [observe(e, p, b) for p, b in zip(plans, budgets)]
+        check_launches(read_launches(), {"traverse": 2 * len(plans)}, f"artifact {label}")
+        for i, (p, b) in enumerate(zip(plans, budgets)):
+            check(got[i] == whole[i], f"artifact {label} query {i}: {got[i]} != "
+                  f"in-memory {whole[i]}")
+            want = observe(engine, p, b)
+            check(gotb[i] == want, f"artifact {label} query {i} budget {b}: {gotb[i]} "
+                  f"!= in-memory {want}")
+    caps = [int(rng.integers(0, w[4] + 1)) for w in whole]
+    got_whole = [observe(eng, p) for p in plans]
+    out["anytime"] = anytime_parity(eng, engine, plans, got_whole, caps, "artifact")
+    del mm_eng
+
+    bspec = BucketSpec(max_batch=BATCH)
+    beng = BatchEngine.from_artifact(art, bspec, k=10, device=dev)
+    ref_b = BatchEngine(engine, bspec)
+    for label, bud in (("unbudgeted", None), ("budgeted", budgets)):
+        before = beng.batches_run
+        reset_launches()
+        got = beng.run_batch(plans, budget_postings=bud)
+        check_launches(read_launches(), {"traverse": beng.batches_run - before},
+                       f"artifact batch {label}")
+        want = ref_b.run_batch(plans, budget_postings=bud)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(batch_result_fields(g) == batch_result_fields(w),
+                  f"artifact batch {label} query {i}: {batch_result_fields(g)} != "
+                  f"{batch_result_fields(w)}")
+    out["batch_chunks"] = beng.batches_run
+    del beng
+
+    seng = ShardedEngine.from_artifact(art, SHARDS, shards_path=shards_art, k=10,
+                                       device=dev)
+    sb = ShardedBatchEngine(seng, bspec)
+    ref_s = ShardedBatchEngine(ShardedEngine(engine, SHARDS, shards=shards), bspec)
+    for label, bud in (("unbudgeted", None), ("budgeted", budgets)):
+        before = sb.batches_run
+        reset_launches()
+        got = sb.run_batch(plans, budget_postings=bud)
+        check_launches(read_launches(), {"traverse": sb.batches_run - before},
+                       f"artifact sharded {label}")
+        want = ref_s.run_batch(plans, budget_postings=bud)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(sharded_fields(g) == sharded_fields(w),
+                  f"artifact sharded {label} query {i}: {sharded_fields(g)} != "
+                  f"{sharded_fields(w)}")
+    out["sharded_chunks"] = sb.batches_run
+    del seng, sb, ref_s
+
+    # A shard set from another index, and one with no source fingerprint.
+    other = build_index(make_corpus(n_docs=2000, n_terms=3000, n_topics=4, seed=9),
+                        n_ranges=4, strategy="clustered")
+    refused = []
+    for name, fp in (("stale", other.fingerprint()), ("unverifiable", None)):
+        path = str(ARTIFACT_DIR / name)
+        index_io.save_shards(shard_device_index(other, 2), path, quantizer=other.quantizer,
+                             source_fingerprint=fp)
+        try:
+            ShardedEngine.from_artifact(art, 2, shards_path=path, device=dev)
+        except index_io.ArtifactError as e:
+            refused.append(str(e))
+        else:
+            check(False, f"artifact: a {name} shard artifact was served")
+    out["refused"] = refused
+
+    # repack int32 -> packed keeps the fingerprint and the results.
+    art32, packed = str(ARTIFACT_DIR / "scale32"), str(ARTIFACT_DIR / "scale32.packed")
+    index_io.save_index(index, art32, impact_dtype="int8", docs_format="int32")
+    t0 = time.perf_counter()
+    index_io.repack(art32, packed)
+    out["repack_s"] = time.perf_counter() - t0
+    m = index_io.read_manifest(packed)
+    check(m["docs_format"] == "packed" and m["fingerprint"] == index.fingerprint(),
+          f"repack: {m['docs_format']} {m['fingerprint']}")
+    shutil.rmtree(art32)
+    rp = Engine.from_artifact(packed, k=10, device=dev)
+    for i, p in enumerate(plans):
+        check(observe(rp, p) == whole[i], f"repacked artifact query {i} differs")
+    del rp
+    log(f"artifact: {len(plans)} queries, unbudgeted and budgeted: Engine.from_artifact "
+        f"and the mmap engine == in-memory on every observe_query field (one traverse "
+        f"per query); anytime loop == in-memory, run out and Fixed-capped, range_step "
+        f"launches {out['anytime']['launches']} = ranges {out['anytime']['ranges']}; "
+        f"BatchEngine.from_artifact == BatchEngine ({out['batch_chunks']} chunks, one "
+        f"traverse each); ShardedEngine.from_artifact(shards_path) == ShardedEngine on "
+        f"every ShardedResult field ({out['sharded_chunks']} chunks, one traverse each); "
+        f"stale and unverifiable shard artifacts refused; repack int32 -> packed "
+        f"{out['repack_s']:.2f} s, fingerprint and results kept")
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    return out
+
+
+# ----------------------------------------------------------- telemetry phase
+
+
+TELEMETRY_MODES = ("host", "batch", "inflight", "sharded")
+
+
+def count_syncs(fn):
+    """``fn()`` and the synchronizing CUDA operations it ran, counted with
+    ``torch.cuda.set_sync_debug_mode("warn")`` (a blocking copy either way
+    counts, like ``synchronize()``), by the Python line that ran each."""
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    return result, sites
+
+
+def serve_mode(mode: str, engine, queries, obs, cap):
+    """One mode of serving ``queries`` on ``engine`` under ``obs``, with an
+    infinite SLA (or a fixed postings ``cap``) so budgets never read the
+    clock: (the results, exit reasons, dispatches). The host mode's
+    results are ``TraverseResult``s, read after (``served_rows``)."""
+    import numpy as np
+    from repro_torch.core.range_daat import INT32_MAX, exit_reason
+    from repro_torch.obs import NOOP
+    from repro_torch.serving import (
+        BatchEngine, BucketSpec, InflightServer, MicroBatchServer, ShardedBatchEngine,
+        ShardedEngine, ShardedSlaBudgeter, SlaBudgeter, result_exit_reason)
+
+    spec = BucketSpec(max_batch=BATCH)
+    if mode == "host":
+        engine.obs = obs
+        try:
+            res = [engine.traverse(engine.plan(q), INT32_MAX if cap is None else cap)
+                   for q in queries]
+        finally:
+            engine.obs = NOOP
+        return res, [exit_reason(r.exit_safe, r.exit_budget) for r in res], len(res)
+    if mode == "sharded":
+        beng = ShardedBatchEngine(ShardedEngine(engine, SHARDS, obs=obs), spec)
+        bud = ShardedSlaBudgeter(sla_ms=float("inf"), n_shards=SHARDS, obs=obs)
+    else:
+        beng = BatchEngine(engine, spec, obs=obs)
+        bud = SlaBudgeter(sla_ms=float("inf"), obs=obs)
+    if cap is not None:
+        shape = (SHARDS,) if mode == "sharded" else ()
+        bud.budgets = lambda n, plans=None: np.full((n,) + shape, cap, np.int32)
+    if mode == "inflight":
+        srv = InflightServer(beng, bud, n_slots=BATCH, quantum=1, obs=obs)
+        served = srv.replay(queries)
+        dispatches = srv.steps_run
+    else:
+        srv = MicroBatchServer(beng, bud, max_batch=BATCH, obs=obs)
+        served = srv.replay(queries, batch_size=BATCH)
+        dispatches = beng.batches_run
+    served = sorted(served, key=lambda s: s.rid)
+    return served, [result_exit_reason(s.result) for s in served], dispatches
+
+
+def served_rows(mode: str, engine, results) -> list:
+    """``serve_mode``'s results as plain values: every field, query order."""
+    if mode == "host":
+        rows = []
+        for r in results:
+            ids, vals = engine.topk_docs(r.state)
+            rows.append((ids.tolist(), vals.tolist(), int(r.state.postings),
+                         int(r.state.blocks), r.ranges_processed, r.exit_safe,
+                         r.exit_budget))
+        return rows
+    fields = sharded_fields if mode == "sharded" else batch_result_fields
+    return [(s.rid, s.quanta, fields(s.result)) for s in results]
+
+
+def telemetry_parity(index, queries, dev, n: int = 64) -> dict:
+    """Each serving mode with an ``Instrumentation`` (trace sample 1.0,
+    profiler on) and with ``NOOP``: every served field equal, the exit
+    reasons of the counters equal to the results', no recompile, and the
+    synchronizing operations per dispatch with ``obs`` off and on."""
+    from collections import Counter
+
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.obs import NOOP, Instrumentation
+
+    engine = Engine(index, k=10, device=dev, impact_dtype="int8", docs_format="packed")
+    qs = queries[:n]
+    out = {}
+    for mode in TELEMETRY_MODES:
+        counter, labels = {"host": ("engine_queries", {}),
+                           "batch": ("served_queries", {"server": "micro"}),
+                           "inflight": ("served_queries", {"server": "inflight"}),
+                           "sharded": ("served_queries", {"server": "micro"})}[mode]
+        for cap in (None, 2000):
+            obs = Instrumentation.make(sample_rate=1.0, profile=True)
+            (off, _, disp_off), sites_off = count_syncs(
+                lambda: serve_mode(mode, engine, qs, NOOP, cap))
+            reset_launches()
+            (on, reasons, disp_on), sites_on = count_syncs(
+                lambda: serve_mode(mode, engine, qs, obs, cap))
+            launches = read_launches()
+            ctx = f"telemetry {mode} cap={cap}"
+            check(served_rows(mode, engine, on) == served_rows(mode, engine, off),
+                  f"{ctx}: instrumented serving differs from NOOP")
+            check_launches(launches, {"traverse": disp_on}, ctx)
+            got = Counter()
+            metric = obs.metrics.counter(counter)
+            for key in metric.labelsets():
+                d = dict(key)
+                if all(d.get(k) == w for k, w in labels.items()):
+                    got[d["reason"]] += int(metric.value(**d))
+            check(got == Counter(reasons), f"{ctx}: counted exits {dict(got)} != "
+                  f"served {dict(Counter(reasons))}")
+            recompiles = obs.profiler.recompiles()
+            check(recompiles == 0, f"{ctx}: {recompiles} recompiles")
+            prof = obs.profiler.snapshot()
+            syncs_off, syncs_on = sum(sites_off.values()), sum(sites_on.values())
+            extra = sites_on - sites_off
+            out[f"{mode} cap={cap}"] = dict(
+                queries=len(qs), dispatches=disp_on, exits=dict(got),
+                syncs_off=syncs_off, syncs_on=syncs_on,
+                syncs_per_dispatch_off=syncs_off / disp_off,
+                syncs_per_dispatch_on=syncs_on / disp_on,
+                sync_sites_off=dict(sites_off), extra_sync_sites_on=dict(extra),
+                recompiles=recompiles, profiler=prof)
+            log(f"{ctx}: {len(qs)} queries, obs on == NOOP on every served field; "
+                f"exits {dict(got)} counted == served; recompiles 0 "
+                f"({sum(s['compiles'] for s in prof.values())} compiles); syncs per "
+                f"dispatch off {syncs_off / disp_off:.2f}, on {syncs_on / disp_on:.2f} "
+                f"({disp_on} dispatches); obs off sites {dict(sites_off)}; "
+                + ("no extra sync with obs on" if not extra else
+                   f"extra with obs on: {dict(extra)}"))
+    return out
+
+
+def obs_windows(engine, queries, rounds: int = 3) -> dict:
+    """The batch and in-flight serving windows with ``obs`` off and on in
+    turns (off, on, on, off, ...; ``2 * rounds`` windows a mode; on: trace
+    sample 1.0, profiler on): q/s, P99, the host time ``obs`` adds per query
+    (median 1/q/s on minus off), and the profiler's split per dispatch of
+    the last enabled window (its ``plan`` is the batch's host staging, the
+    in-flight's planning overlapped with the kernel; ``device`` the
+    launch's CUDA events)."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.obs import NOOP, Instrumentation
+
+    out = {}
+    for mode in ("batch", "inflight"):
+        runs = {"off": [], "on": []}
+        for r in range(2 * rounds):
+            enabled = (r % 4) in (1, 2)
+            obs = Instrumentation.make(sample_rate=1.0, profile=True) if enabled else NOOP
+            reset_launches()
+            if mode == "batch":
+                st = serve.serve_batch(engine, queries, BATCH, obs=obs)
+                want = {"traverse": st["batches"], "range_step": st["ranges"]}
+            else:
+                st = serve.serve_inflight(engine, queries, BATCH, 1, obs=obs)
+                want = {"traverse": st["steps"], "range_step": st["ranges"]}
+            check_launches(read_launches(), want, f"{mode} window, obs {enabled}")
+            runs["on" if enabled else "off"].append(st)
+            if enabled:
+                site = "batch_engine" if mode == "batch" else "inflight"
+                snap = obs.profiler.snapshot()[site]
+                check(snap["recompiles"] == 0, f"obs-on {mode} window: recompiles")
+                served = obs.metrics.counter("served_queries").total()
+                check(served == len(queries),
+                      f"obs-on {mode} window: {served} served counted")
+                last = dict(snap=snap, traces=obs.tracer.finished,
+                            slo_state={k: v["state"] for k, v in st["slo"].items()})
+        snap = last["snap"]
+        med = {k: float(np.median([1e3 / s["qps"] for s in v])) for k, v in runs.items()}
+        out[mode] = dict(
+            qps={k: [s["qps"] for s in v] for k, v in runs.items()},
+            p99_ms={k: [s["p99_ms"] for s in v] for k, v in runs.items()},
+            miss_pct={k: [s["miss_pct"] for s in v] for k, v in runs.items()},
+            ms_per_query=med, added_ms_per_query=med["on"] - med["off"],
+            dispatches=snap["dispatches"], compiles=snap["compiles"],
+            split={k: snap[k] / snap["dispatches"]
+                   for k in ("plan_ms", "dispatch_ms", "device_ms", "transfer_ms")},
+            traces=last["traces"], slo_state=last["slo_state"])
+    return out
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2087,9 +2638,13 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
               "cuda": torch.version.cuda}
 
     # Host builds in worker processes, overlapping the card's phases.
+    # The scale index goes through build_index_cached under .cache/: a hit
+    # needs the entry from an earlier run in this checkout.
     jobs = {
-        label: pool.apply_async(build_corpus_index, (str(SRC), cfg, N_QUERIES))
-        for label, cfg in (("preset", preset), ("scale", scale))
+        "preset": pool.apply_async(build_corpus_index, (str(SRC), preset, N_QUERIES)),
+        "scale": pool.apply_async(build_corpus_index, (str(SRC), scale, N_QUERIES,
+                                                       str(ROOT / ".cache"))),
+        "chain": pool.apply_async(build_chain, (str(SRC), preset, str(CHAIN_DIR))),
     }
 
     dev = torch.device("cuda", 0) if dev is None else dev
@@ -2123,7 +2678,13 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
 
     index, queries, builds = receive_index(jobs["preset"], "preset")
     record["preset"] = dict(build=builds, parity=four_way_parity(index, queries, "preset", dev))
+    t0 = time.perf_counter()
+    record["preset"]["telemetry"] = telemetry_parity(index, queries, dev)
+    log(f"telemetry parity {time.perf_counter() - t0:.1f} s")
     del index
+    t0 = time.perf_counter()
+    record["chain"] = chain_phase(jobs["chain"], dev)
+    log(f"chain phase {time.perf_counter() - t0:.1f} s")
 
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
@@ -2207,6 +2768,27 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     record["scale"]["serve_sharded"] = sstats
     record["scale"]["sharded_path_launches"] = sharded_launches
 
+    # The batch and in-flight windows again, instrumented, before any
+    # profiler session; then the artifact phase.
+    t0 = time.perf_counter()
+    owin = obs_windows(engine, queries)
+    record["scale"]["obs_windows"] = owin
+    log(f"obs-on windows {time.perf_counter() - t0:.1f} s")
+    for mode in ("batch", "inflight"):
+        w = owin[mode]
+        log(f"obs off/on in turns, {mode} window: q/s off {w['qps']['off']}, on "
+            f"{w['qps']['on']}; P99 ms off {w['p99_ms']['off']}, on {w['p99_ms']['on']}; "
+            f"median ms per query off {w['ms_per_query']['off']:.4f}, on "
+            f"{w['ms_per_query']['on']:.4f}: obs adds {w['added_ms_per_query']:.4f} ms a "
+            f"query; last enabled window {w['traces']} traces, {w['dispatches']} "
+            f"profiled dispatches, {w['compiles']} compiles, 0 recompiles, SLO states "
+            f"{w['slo_state']}")
+    t0 = time.perf_counter()
+    art = record["scale"]["artifact"] = artifact_phase(index, queries, engine, dev)
+    log(f"artifact phase {time.perf_counter() - t0:.1f} s; cold start from the artifact "
+        f"{art['cold_start_s']:.2f} s against this run's host build of the same index "
+        f"{builds['corpus_s'] + builds['index_s']:.1f} s (corpus and index)")
+
     # Profiler sessions only after the serving window: opened before it,
     # they slowed its host time per range (PERF.md).
     prof = profile_serving(engine, queries)
@@ -2241,6 +2823,17 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
 
     iprof = profile_inflight(engine, queries)
     record["scale"]["profile_inflight"] = iprof
+    # The obs profiler's own split beside the smoke's (monkeypatched) one.
+    for mode, mine in (("batch", {k: bprof[f"mean_{k}_ms"] for k in
+                                  ("plan", "dispatch", "device", "read")}),
+                       ("inflight", {k: iprof[f"mean_{k}_ms"] for k in
+                                     ("upload", "dispatch", "device", "plan", "read")})):
+        split = owin[mode]["split"]
+        log(f"obs profiler split per {'batch' if mode == 'batch' else 'step'} ({mode}, "
+            f"obs on): " + ", ".join(f"{k.removesuffix('_ms')} {v:.3f} ms"
+                                     for k, v in split.items())
+            + "; the smoke's split: " + ", ".join(f"{k} {v:.3f} ms"
+                                                  for k, v in mine.items()))
     log(f"in-flight profile ({iprof['queries']} unbudgeted queries, {iprof['slots']} slots, "
         f"quantum {iprof['quantum']}, {iprof['steps']} steps, {iprof['ranges']} "
         f"lane-ranges): per step upload {iprof['mean_upload_ms']:.3f} ms, dispatch "
@@ -2412,7 +3005,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     ctx = multiprocessing.get_context("spawn")
-    pool = ctx.Pool(2)
+    pool = ctx.Pool(3)
     try:
         (run_phases if "--phases" in sys.argv[1:] else run)(pool)
     except SmokeError as e:

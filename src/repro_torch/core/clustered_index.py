@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 
 import numpy as np
 
@@ -57,14 +58,20 @@ __all__ = [
     "PACK_WIDTHS",
     "ClusteredIndex",
     "INDEX_ARRAYS",
+    "IndexDelta",
     "IndexShard",
     "PackedPostings",
+    "apply_delta",
     "balance_range_shards",
     "build_index",
+    "build_index_cached",
     "device_bytes_report",
+    "extend_index",
+    "extended_arrangement",
     "index_from_arrays",
     "pack_dir_entries",
     "pack_docs",
+    "plan_delta",
     "range_postings_mass",
     "shard_cuts",
     "shard_device_index",
@@ -601,6 +608,287 @@ def build_index(
     )
 
 
+# --------------------------------------------------------------------------
+# Incremental extension: delta planning and exact tail-append (DESIGN.md §10)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexDelta:
+    """A tail-append against a parent ``ClusteredIndex``.
+
+    Everything is *delta-local*: ``docs`` are new docids in [0, n_docs),
+    ``doc_order``/``range_ends`` describe the delta's own arrangement, and
+    the global picture only materializes in :func:`apply_delta` (delta docs
+    land at the parent's docid tail, delta ranges after the parent's).
+    Impacts are already quantized at the parent's shared scale, scored
+    against the parent's *frozen* collection statistics, so applying the
+    delta never touches a parent array value. ``parent_fingerprint`` pins
+    the exact index this delta was planned against.
+    """
+
+    n_docs: int
+    n_terms: int
+    parent_fingerprint: str
+    ptr: np.ndarray  # [V+1] int64 — delta postings CSR by term
+    docs: np.ndarray  # [nnz_d] int32 delta-local new docids, ascending per term
+    impacts: np.ndarray  # [nnz_d] int32 at the parent's quantizer scale
+    doc_order: np.ndarray  # [n_docs] int64 delta-local permutation
+    range_ends: np.ndarray  # [R_d] int64 delta-local, last == n_docs
+
+    @property
+    def nnz(self) -> int:
+        return int(self.docs.shape[0])
+
+    @property
+    def n_ranges(self) -> int:
+        return int(self.range_ends.shape[0])
+
+
+def extended_arrangement(
+    base: Arrangement, doc_order: np.ndarray, range_ends: np.ndarray
+) -> Arrangement:
+    """Append a delta-local arrangement at the docid tail of ``base``.
+
+    The single definition both sides of the §10 invariant use: the applied
+    delta *and* the verifying from-scratch build share this arrangement.
+    """
+    n = int(base.range_ends[-1])
+    return Arrangement(
+        doc_order=np.concatenate(
+            [base.doc_order, np.asarray(doc_order, np.int64) + n]
+        ),
+        range_ends=np.concatenate(
+            [base.range_ends, np.asarray(range_ends, np.int64) + n]
+        ),
+        strategy=base.strategy,
+    )
+
+
+def plan_delta(
+    index: ClusteredIndex,
+    corpus_delta: Corpus,
+    n_ranges: int = 1,
+    strategy: str = "clustered",
+    seed: int = 0,
+    arrangement: Arrangement | None = None,
+) -> IndexDelta:
+    """Score and arrange a delta corpus against a built index.
+
+    The delta gets its own (small) arrangement — clustering/BP run only on
+    the appended documents — and its postings are scored with the parent's
+    frozen stats and quantizer, which is what makes the append exact: no
+    existing impact, bound, or block can change.
+    """
+    if corpus_delta.n_terms != index.n_terms:
+        raise ValueError(
+            f"delta corpus has {corpus_delta.n_terms} terms, index has "
+            f"{index.n_terms} — extension shares one vocabulary"
+        )
+    if corpus_delta.n_docs <= 0:
+        raise ValueError("delta corpus is empty")
+    if index.stats is None:
+        raise ValueError(
+            "index carries no frozen collection stats (loaded from a "
+            "pre-incremental artifact?) — rebuild from the corpus to extend"
+        )
+    if arrangement is None:
+        arrangement = arrange(
+            corpus_delta, n_ranges=n_ranges, strategy=strategy, seed=seed
+        )
+    post = invert(corpus_delta, arrangement.doc_order, index.bm25, stats=index.stats)
+    return IndexDelta(
+        n_docs=int(corpus_delta.n_docs),
+        n_terms=int(index.n_terms),
+        parent_fingerprint=index.fingerprint(),
+        ptr=post.ptr,
+        docs=post.docs,
+        impacts=index.quantizer.quantize(post.scores),
+        doc_order=np.asarray(arrangement.doc_order, np.int64),
+        range_ends=np.asarray(arrangement.range_ends, np.int64),
+    )
+
+
+def apply_delta(index: ClusteredIndex, delta: IndexDelta) -> ClusteredIndex:
+    """Materialize ``index`` + ``delta`` into one extended ``ClusteredIndex``.
+
+    Bitwise-exact merge: the result is array-for-array identical to
+    ``build_index`` on the concatenated corpus at the extended arrangement
+    with the parent's quantizer and frozen stats (pinned by tier-1 tests).
+    Postings stay CSR-by-term — each term's delta postings (all at larger
+    docids) slot in behind its base postings — and blocks/(term, range)
+    rows re-interleave per term without recomputing any base value.
+    """
+    if delta.parent_fingerprint != index.fingerprint():
+        raise ValueError(
+            f"delta was planned against index {delta.parent_fingerprint}, "
+            f"this index has fingerprint {index.fingerprint()}"
+        )
+    if delta.n_terms != index.n_terms:
+        raise ValueError(
+            f"delta vocabulary {delta.n_terms} != index {index.n_terms}"
+        )
+    V = index.n_terms
+    base_n = index.n_docs
+    R_base = index.n_ranges
+    arrangement = extended_arrangement(
+        index.arrangement, delta.doc_order, delta.range_ends
+    )
+
+    # Postings: per-term concat (base run, then delta run at larger docids).
+    base_counts = np.diff(index.ptr)
+    d_counts = np.diff(delta.ptr)
+    new_ptr = index.ptr + delta.ptr
+    docs = np.empty(index.nnz + delta.nnz, np.int32)
+    impacts = np.empty(index.nnz + delta.nnz, np.int32)
+    dest_base = np.arange(index.nnz, dtype=np.int64) + np.repeat(
+        delta.ptr[:-1], base_counts
+    )
+    dest_delta = np.arange(delta.nnz, dtype=np.int64) + np.repeat(
+        index.ptr[1:], d_counts
+    )
+    docs[dest_base] = index.docs
+    docs[dest_delta] = delta.docs.astype(np.int64) + base_n
+    impacts[dest_base] = index.impacts
+    impacts[dest_delta] = delta.impacts
+
+    # Delta blocks at global coordinates (docids lifted to the tail; the
+    # extended range_ends sends them straight to global range ids >= R_base).
+    (
+        d_start,
+        d_len,
+        d_maxdoc,
+        d_maximp,
+        d_term,
+        d_range,
+        d_tr_rows,
+    ) = _build_blocks(
+        delta.ptr,
+        delta.docs.astype(np.int64) + base_n,
+        V,
+        delta.impacts,
+        arrangement.range_ends,
+    )
+    # Block starts move: base blocks shift by their term's delta postings
+    # prefix; delta blocks land after their term's base postings.
+    b_start_g = index.blk_start + delta.ptr[:-1][index.blk_term]
+    d_start_g = d_start + index.ptr[1:][d_term] if d_term.size else d_start
+
+    # Fresh-build block order is (term, docid run): sort the union by
+    # (term, new start) — within a term every base block starts before
+    # every delta block, so runs stay contiguous.
+    all_start = np.concatenate([b_start_g, d_start_g])
+    all_term = np.concatenate([index.blk_term, d_term])
+    order = np.lexsort((all_start, all_term))
+    newpos = np.empty(order.shape[0], np.int64)
+    newpos[order] = np.arange(order.shape[0])
+
+    # (term, range) directory: same per-term interleave, with block-id
+    # windows remapped through the merged block order.
+    d_tr_term = np.asarray([r[0] for r in d_tr_rows], np.int32)
+    d_tr_range = np.asarray([r[1] for r in d_tr_rows], np.int32)
+    d_tr_b0 = np.asarray([r[2] for r in d_tr_rows], np.int64)
+    d_tr_b1 = np.asarray([r[3] for r in d_tr_rows], np.int64)
+    d_tr_bound = np.asarray([r[4] for r in d_tr_rows], np.int32)
+    d_tr_counts = (
+        np.bincount(d_tr_term, minlength=V) if d_tr_rows else np.zeros(V, np.int64)
+    )
+    d_tr_ptr = np.zeros(V + 1, dtype=np.int64)
+    d_tr_ptr[1:] = np.cumsum(d_tr_counts)
+
+    NB_base = index.n_blocks
+    NTR_b = int(index.tr_range.shape[0])
+    NTR_d = int(d_tr_term.shape[0])
+    base_tr_counts = np.diff(index.tr_ptr)
+    dest_tr_b = np.arange(NTR_b, dtype=np.int64) + np.repeat(
+        d_tr_ptr[:-1], base_tr_counts
+    )
+    dest_tr_d = np.arange(NTR_d, dtype=np.int64) + np.repeat(
+        index.tr_ptr[1:], d_tr_counts
+    )
+
+    def interleave(base_vals, d_vals, dtype):
+        out = np.empty(NTR_b + NTR_d, dtype)
+        out[dest_tr_b] = base_vals
+        out[dest_tr_d] = d_vals
+        return out
+
+    tr_blk_start = interleave(
+        newpos[index.tr_blk_start],
+        newpos[NB_base + d_tr_b0] if NTR_d else d_tr_b0,
+        np.int64,
+    )
+    tr_blk_end = interleave(
+        newpos[index.tr_blk_end - 1] + 1,
+        newpos[NB_base + d_tr_b1 - 1] + 1 if NTR_d else d_tr_b1,
+        np.int64,
+    )
+
+    # Refreshed BoundSum tail: new columns for the delta's ranges only.
+    R_d = delta.n_ranges
+    d_bounds = np.zeros((V, R_d), dtype=np.int32)
+    if d_tr_rows:
+        d_bounds[d_tr_term, d_tr_range - R_base] = d_tr_bound
+    bounds_dense = np.hstack([np.asarray(index.bounds_dense), d_bounds])
+    term_bound = checked_int32(
+        np.maximum(np.asarray(index.term_bound), d_bounds.max(axis=1)),
+        "term bounds",
+    )
+
+    return ClusteredIndex(
+        n_docs=base_n + delta.n_docs,
+        n_terms=V,
+        arrangement=arrangement,
+        quantizer=index.quantizer,
+        ptr=new_ptr,
+        docs=docs,
+        impacts=impacts,
+        blk_start=all_start[order],
+        blk_len=np.concatenate([index.blk_len, d_len])[order],
+        blk_maxdoc=np.concatenate([index.blk_maxdoc, d_maxdoc])[order],
+        blk_maximp=np.concatenate([index.blk_maximp, d_maximp])[order],
+        blk_term=all_term[order],
+        blk_range=np.concatenate([index.blk_range, d_range])[order],
+        tr_ptr=index.tr_ptr + d_tr_ptr,
+        tr_range=interleave(index.tr_range, d_tr_range, np.int32),
+        tr_blk_start=tr_blk_start,
+        tr_blk_end=tr_blk_end,
+        tr_bound=interleave(index.tr_bound, d_tr_bound, np.int32),
+        term_bound=term_bound,
+        bounds_dense=bounds_dense,
+        stats=index.stats,
+        bm25=index.bm25,
+    )
+
+
+def extend_index(
+    index: ClusteredIndex,
+    corpus_delta: Corpus,
+    n_ranges: int = 1,
+    strategy: str = "clustered",
+    seed: int = 0,
+    arrangement: Arrangement | None = None,
+) -> ClusteredIndex:
+    """Append a delta corpus at the docid tail of a built index.
+
+    The cheap-update property the document-ordered layout buys (paper §1):
+    only the delta is clustered, inverted, scored, and blocked; base arrays
+    are re-interleaved, never recomputed. Equivalent to
+    ``apply_delta(index, plan_delta(index, corpus_delta, ...))``.
+    """
+    return apply_delta(
+        index,
+        plan_delta(
+            index,
+            corpus_delta,
+            n_ranges=n_ranges,
+            strategy=strategy,
+            seed=seed,
+            arrangement=arrangement,
+        ),
+    )
+
+
 # Arrays that make up a built index, under the reference artifact's names
 # (the arrangement's two arrays flattened in).
 INDEX_ARRAYS = (
@@ -832,3 +1120,37 @@ def shard_device_index(
             )
         )
     return shards
+
+
+def build_index_cached(
+    corpus: Corpus,
+    cache_dir: str = ".cache",
+    **kwargs,
+) -> ClusteredIndex:
+    """Disk-cached index build (BP + k-means are the slow offline steps).
+
+    Cached as a versioned ``repro_torch.index_io`` artifact directory
+    (DESIGN.md §8) under the reference's sha1 cache key, so the two
+    packages share cache entries: a corrupt entry raises, while an entry
+    from an older format version is treated as a miss and rebuilt.
+    """
+    from repro_torch import index_io  # local: index_io sits above core
+
+    key = hashlib.sha1(
+        (corpus.fingerprint() + repr(sorted(kwargs.items()))).encode()
+    ).hexdigest()[:16]
+    path = os.path.join(cache_dir, f"index_{key}")
+    if os.path.isdir(path):
+        try:
+            return index_io.load_index(path)
+        except index_io.VersionMismatchError:
+            pass  # older format — self-heal: rebuild and overwrite below
+    idx = build_index(corpus, **kwargs)
+    os.makedirs(cache_dir, exist_ok=True)
+    index_io.save_index(
+        idx,
+        path,
+        build_params={k: repr(v) for k, v in sorted(kwargs.items())},
+        overwrite=True,
+    )
+    return idx

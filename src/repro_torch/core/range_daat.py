@@ -43,6 +43,7 @@ from repro_torch.kernels.range_scorer.ref import TopKState, init_state, merge_to
 __all__ = [
     "DOCS_FORMATS",
     "DeviceIndex",
+    "DeviceTimer",
     "IMPACT_BIAS",
     "IMPACT_DTYPES",
     "IMPLS",
@@ -93,6 +94,37 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+class DeviceTimer:
+    """The device time of the work queued between ``start`` and ``stop``.
+
+    On a CUDA device, two CUDA events recorded on the current stream
+    (``kernel.traverse`` records them right around its launch); ``ms()`` reads
+    them and is called only after the caller's own read of the results has
+    waited for the stream, so timing adds no synchronisation. On the CPU
+    the plain versions run inside the call, and ``ms()`` is None: not
+    measured.
+    """
+
+    def __init__(self, device: torch.device):
+        self._events = None
+        if device.type == "cuda":
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+
+    def start(self) -> None:
+        if self._events is not None:
+            self._events[0].record()
+
+    def stop(self) -> None:
+        if self._events is not None:
+            self._events[1].record()
+
+    def ms(self) -> float | None:
+        if self._events is None:
+            return None
+        return float(self._events[0].elapsed_time(self._events[1]))
 
 
 def pack_impacts(impacts: np.ndarray, impact_dtype: str) -> np.ndarray:
@@ -323,6 +355,7 @@ def traverse_lanes(
     prune_blocks: bool = True,
     impl: str = "torch",
     docs_format: str = "int32",
+    timer: DeviceTimer | None = None,
 ) -> torch.Tensor:
     """N lanes' loops from a carry buffer; the [N, 2k+5] carry out.
 
@@ -330,13 +363,14 @@ def traverse_lanes(
     round trip until the caller reads the result); ``impl="torch"`` its
     plain version, ``kernels.range_scorer.ref.traverse_ref``. ``dix`` may
     be S range shards stacked row by row (``serving.sharded``): lane n
-    then reads shard n % S.
+    then reads shard n % S. A ``timer`` (the profiler's) times the
+    kernel's launch on the card.
     """
     kw = dict(s_pad=s_pad, k=k, quantum=quantum, safe_stop=safe_stop,
               prune_blocks=prune_blocks, docs_format=docs_format)
     args = (dix, blk_tabs, rest_tabs, orders, ordered_bounds, budgets, max_ranges, carry)
     if impl == "cuda":
-        return scorer_kernel.traverse(*args, **kw)
+        return scorer_kernel.traverse(*args, **kw, timer=timer)
     if impl == "torch":
         return scorer_ref.traverse_ref(*args, **kw)
     raise ValueError(f"impl {impl!r} not in {IMPLS}")
@@ -363,8 +397,21 @@ def device_traverse(
     The tables may be host arrays or tensors on the index's device. Under
     ``impl="cuda"``: one upload (the host tables, the carry, the budget
     and the cap together), one ``traverse`` launch and one read of the
-    cursor and flags; the state stays on the device.
+    carry row; the state stays on the device.
     """
+    return _device_traverse(
+        dix, blk_tab, rest_tab, order, ordered_bounds, s_pad=s_pad, k=k,
+        budget_postings=budget_postings, max_ranges=max_ranges, safe_stop=safe_stop,
+        prune_blocks=prune_blocks, impl=impl, docs_format=docs_format,
+    )[0]
+
+
+def _device_traverse(
+    dix, blk_tab, rest_tab, order, ordered_bounds, *, s_pad, k, budget_postings,
+    max_ranges, safe_stop, prune_blocks, impl, docs_format,
+) -> tuple[TraverseResult, list[int]]:
+    """``device_traverse`` and the host copy of the [2k+5] carry row, read
+    in the one copy that also gives the cursor and the flags."""
     lanes = upload_int32(
         (blk_tab[None], rest_tab[None], order[None], ordered_bounds[None],
          lane_caps(budget_postings), lane_caps(max_ranges),
@@ -375,10 +422,11 @@ def device_traverse(
         dix, *lanes, s_pad=s_pad, k=k, safe_stop=safe_stop, prune_blocks=prune_blocks,
         impl=impl, docs_format=docs_format,
     )[0]
-    i, s_safe, s_budget = out[2 * k + 2:].tolist()
+    row = out.tolist()
+    i, s_safe, s_budget = row[2 * k + 2:]
     return TraverseResult(state=scorer_ref.state_views(out[: 2 * k + 2], k),
                           ranges_processed=i, exit_safe=bool(s_safe),
-                          exit_budget=bool(s_budget))
+                          exit_budget=bool(s_budget)), row
 
 
 def batched_traverse(
@@ -435,6 +483,7 @@ def batched_traverse_resume(
     prune_blocks: bool = True,
     impl: str = "torch",
     docs_format: str = "int32",
+    timer: DeviceTimer | None = None,
 ) -> TraverseCarry:
     """Advance every lane at most ``quantum`` ranges from its carry.
 
@@ -450,7 +499,7 @@ def batched_traverse_resume(
     )
     out = traverse_lanes(
         dix, *lanes, s_pad=s_pad, k=k, quantum=quantum, safe_stop=safe_stop,
-        prune_blocks=prune_blocks, impl=impl, docs_format=docs_format,
+        prune_blocks=prune_blocks, impl=impl, docs_format=docs_format, timer=timer,
     )
     return carry_from_buffer(out, k)
 
@@ -571,8 +620,9 @@ class Engine:
 
     The positional order is the reference's. ``interpret`` names Pallas's
     interpret mode, which has no counterpart here: it is accepted and
-    ignored. ``obs`` takes only None until the telemetry is ported
-    (ROADMAP A2).
+    ignored. ``obs`` is a ``repro_torch.obs`` instrumentation handle (None:
+    ``NOOP``); ``traverse`` counts exit reasons and postings through it,
+    from the carry row it reads anyway.
     """
 
     def __init__(
@@ -588,11 +638,9 @@ class Engine:
         obs=None,
         device=None,
     ):
-        if obs is not None:
-            raise NotImplementedError(
-                "obs= (the reference's telemetry hooks) is not ported yet, ROADMAP A2; "
-                "pass obs=None"
-            )
+        from repro_torch.obs import NOOP  # local: obs is import-cycle-free by design
+
+        self.obs = obs if obs is not None else NOOP
         self.device = resolve_device(device)
         if impl is None:
             impl = "cuda" if self.device.type == "cuda" else "torch"
@@ -653,6 +701,23 @@ class Engine:
             range_sizes=up(index.arrangement.range_sizes, np.int32),
             **pack_dev,
         )
+
+    @classmethod
+    def from_artifact(cls, path: str, **kwargs) -> "Engine":
+        """Load a saved index artifact (``repro_torch.index_io``) into an engine.
+
+        ``impact_dtype`` and ``docs_format`` default to how the artifact
+        was saved, so an int8/packed artifact serves int8/packed on the
+        device unless overridden; ``device`` (default: the card) and the
+        other keywords pass through to ``Engine``.
+        """
+        from repro_torch import index_io  # local: index_io sits above core
+
+        index = index_io.load_index(path)
+        manifest = index_io.read_manifest(path)
+        kwargs.setdefault("impact_dtype", manifest["impact_dtype"])
+        kwargs.setdefault("docs_format", manifest.get("docs_format", "int32"))
+        return cls(index, **kwargs)
 
     # ------------------------------------------------------------- planning
     def plan(self, q_terms: np.ndarray) -> QueryPlan:
@@ -732,7 +797,7 @@ class Engine:
     ) -> TraverseResult:
         """Whole-query traversal to an exit condition (one ``traverse``
         launch under ``impl="cuda"``)."""
-        return device_traverse(
+        res, row = _device_traverse(
             self.dix,
             plan.blk_tab_host,
             plan.rest_tab_host,
@@ -747,6 +812,15 @@ class Engine:
             impl=self.impl,
             docs_format=self.docs_format,
         )
+        if self.obs.enabled:
+            # The reference reads the flags and postings from the device
+            # here; the port reads the host row the traversal already read.
+            self.obs.count(
+                "engine_queries",
+                reason=exit_reason(res.exit_safe, res.exit_budget),
+            )
+            self.obs.observe("engine_postings", row[self.k])
+        return res
 
     # ----------------------------------------------------------------- util
     def topk_docs(self, state: TopKState):

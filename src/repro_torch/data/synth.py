@@ -23,6 +23,7 @@ import hashlib
 import numpy as np
 
 __all__ = [
+    "concat_corpora",
     "Corpus",
     "QueryLog",
     "make_corpus",
@@ -83,6 +84,31 @@ class QueryLog:
     @property
     def max_len(self) -> int:
         return int(self.terms.shape[1])
+
+
+def concat_corpora(base: Corpus, delta: Corpus) -> Corpus:
+    """Concatenate two corpora over one vocabulary (delta docs at the tail).
+
+    The old-docid space of the result is ``base`` followed by ``delta``
+    shifted by ``base.n_docs`` — the corpus a from-scratch build sees when
+    verifying an incremental extension (DESIGN.md §10).
+    """
+    if base.n_terms != delta.n_terms:
+        raise ValueError(
+            f"corpora share one vocabulary: base has {base.n_terms} terms, "
+            f"delta {delta.n_terms}"
+        )
+    return Corpus(
+        n_docs=base.n_docs + delta.n_docs,
+        n_terms=base.n_terms,
+        doc_ptr=np.concatenate([base.doc_ptr, delta.doc_ptr[1:] + base.nnz]),
+        doc_terms=np.concatenate([base.doc_terms, delta.doc_terms]),
+        doc_tfs=np.concatenate([base.doc_tfs, delta.doc_tfs]),
+        doc_topic=np.concatenate(
+            [base.doc_topic, delta.doc_topic + base.n_topics]
+        ).astype(np.int32),
+        n_topics=base.n_topics + delta.n_topics,
+    )
 
 
 def _topic_term_dists(

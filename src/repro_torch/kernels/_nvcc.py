@@ -102,6 +102,12 @@ class CudaLibrary:
             os.replace(tmp, lib)
             return lib, seconds, proc.stdout + proc.stderr
 
+    def programs(self) -> int:
+        """Libraries this process has loaded for the source: 0 or 1. The
+        launchers expose it as ``_cache_size()``, the compile count that
+        ``repro_torch.obs.profiler`` reads."""
+        return int(self._cdll is not None)
+
     def _load(self) -> ctypes.CDLL:
         if self._cdll is not None:
             return self._cdll

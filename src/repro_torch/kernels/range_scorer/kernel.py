@@ -26,7 +26,10 @@ checkout, keyed by a hash of the source and flags, and loaded with
 Each wrapper takes tensors on one device. On a CPU tensor it returns its
 kernel's plain version from ``ref.py``; on a CUDA tensor it launches the
 kernel on the current stream or raises — nothing falls back. Each wrapper
-counts its launches in a plain integer attribute, ``<wrapper>.launches``.
+counts its launches in a plain integer attribute, ``<wrapper>.launches``;
+``range_step`` and ``traverse`` also expose ``_cache_size()``, the number of
+libraries this process has loaded for them (0 or 1), which the profiler of
+``repro_torch.obs`` reads as its compile count.
 """
 
 from __future__ import annotations
@@ -407,6 +410,7 @@ def range_step(
 
 
 range_step.launches = 0
+range_step._cache_size = _LIB.programs
 
 
 def range_step_phases(dix, state, blk_ids, rest, range_start, *, s_pad: int, k: int,
@@ -441,6 +445,7 @@ def traverse(
     safe_stop: bool = True,
     prune_blocks: bool = True,
     docs_format: str = "int32",
+    timer=None,
 ) -> torch.Tensor:
     """N lanes' whole-query loops in one launch; see ``ref.traverse_ref``.
 
@@ -456,16 +461,20 @@ def traverse(
     ``[S, W]``, ``range_starts`` ``[S, R]``): lane n then reads shard
     n % S, so N = N_queries * S lanes in the reference's [N, S] row-major
     order run every (query, shard) pair in one launch.
+
+    A ``timer`` (``core.range_daat.DeviceTimer``, the profiler's) records
+    its two events on the stream right around the launch.
     """
     out, launched = _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr,
                               carry, s_pad, k, quantum, safe_stop, prune_blocks,
-                              docs_format, None)
+                              docs_format, None, timer)
     if launched:
         traverse.launches += 1
     return out
 
 
 traverse.launches = 0
+traverse._cache_size = _LIB.programs
 
 
 def traverse_phases(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry, *,
@@ -489,7 +498,7 @@ def traverse_phases(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr,
 
 def _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry, s_pad,
               k, quantum, safe_stop, prune_blocks, docs_format,
-              timing) -> tuple[torch.Tensor, bool]:
+              timing, timer=None) -> tuple[torch.Tensor, bool]:
     """``traverse``'s checks and launch: (carry out, whether it launched)."""
     s_pad, k = int(s_pad), int(k)
     _check_k("traverse", s_pad, k)
@@ -534,8 +543,8 @@ def _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry
     if N == 0:
         return out, False
     acc, top = _scratch("traverse", s_pad, k, (N,), device)
-    _launch(
-        "rs_traverse", device, *_index_args(dix, docs_format == "packed"),
+    args = (
+        *_index_args(dix, docs_format == "packed"),
         _ptr(dix.range_starts), _ptr(blk_tab), _ptr(rest_tab), _ptr(order),
         _ptr(ordered_bounds), _ptr(budget), _ptr(maxr), _ptr(carry), _ptr(out),
         N, R, B, k, s_pad, -1 if quantum is None else int(quantum),
@@ -543,4 +552,9 @@ def _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry
         0 if top is None else _ptr(top), n_shards, *strides,
         0 if timing is None else _ptr(timing),
     )
+    if timer is not None:
+        timer.start()
+    _launch("rs_traverse", device, *args)
+    if timer is not None:
+        timer.stop()
     return out, True

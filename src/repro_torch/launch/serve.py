@@ -3,7 +3,7 @@
 ``python -m repro_torch.launch.serve [--mode host|batch|inflight|sharded]
 [--sla-ms B] [--policy reactive] [--batch-size 16] [--quantum 1]
 [--shards 4] [--queries N] [--n-docs N] [--n-terms V] [--strategy S]
-[--device cuda]``
+[--device cuda] [--trace out.jsonl] [--metrics snap.json]``
 
 Builds a clustered index over the planted-topic benchmark corpus (the JAX
 package's benchmark preset: 24,000 docs, 12,000 terms, 24 topics, 32
@@ -26,7 +26,17 @@ RBO against the exhaustive oracle:
     launch per micro-batch over every (query, shard) pair, budgets from
     ``ShardedSlaBudgeter`` (``--mode sharded``).
 
-The index is built on the host each run.
+``--trace out.jsonl`` records a per-query trace of the timed window (any
+mode, sample rate 1.0, DESIGN.md §13) for ``python -m repro_torch.obs
+report out.jsonl`` / ``... slo out.jsonl``; ``--metrics snap.json``
+exports the metrics registry with the dispatch profiler's split, the SLO
+burn-rate report and the drift detectors' alerts for ``python -m
+repro_torch.obs watch snap.json``, as the reference's
+``examples/serve_anytime.py`` does. Serving with either is bitwise the
+serving without.
+
+The index is built on the host each run; a saved index is served through
+``repro_torch.index_io`` and ``Engine.from_artifact``.
 """
 
 from __future__ import annotations
@@ -44,6 +54,9 @@ from repro_torch.core.metrics import rbo
 from repro_torch.core.oracle import exhaustive_topk
 from repro_torch.core.range_daat import Engine
 from repro_torch.data.synth import Corpus, make_corpus, make_query_log
+from repro_torch.obs import NOOP, Instrumentation, write_snapshot
+from repro_torch.obs.detect import DriftMonitor, default_serving_detectors
+from repro_torch.obs.slo import SloTracker, default_serving_slos
 from repro_torch.serving import (
     BatchEngine,
     BucketSpec,
@@ -56,8 +69,8 @@ from repro_torch.serving import (
 )
 
 __all__ = [
-    "POLICIES", "PRESET", "build_preset", "calibrate", "format_report", "main",
-    "serve", "serve_batch", "serve_inflight",
+    "Operations", "POLICIES", "PRESET", "build_preset", "calibrate", "format_report",
+    "main", "serve", "serve_batch", "serve_inflight",
 ]
 
 PRESET = dict(
@@ -131,12 +144,36 @@ def _latency_stats(times, quality, budget: float, wall: float, n: int) -> dict:
     }
 
 
+class Operations:
+    """The reference example's operations loop over an ``obs`` handle: SLO
+    burn-rate accounting (``SloTracker`` over the default serving SLOs)
+    and the default drift detectors (``DriftMonitor``), sampled at the
+    start and the end of a timed window."""
+
+    def __init__(self, obs, sla_ms: float, server: str, n_shards: int | None = None):
+        self.tracker = SloTracker(obs, default_serving_slos(
+            sla_ms=sla_ms, fidelity_ceiling=None))
+        self.monitor = default_serving_detectors(
+            DriftMonitor(obs), n_shards=n_shards, server=server)
+        self.alerts: list = []
+        self.monitor.subscribe(lambda ev: self.alerts.append(ev.to_dict()))
+        self.tracker.sample()
+
+    def close(self) -> dict:
+        """Sample the window's end, poll the detectors; the SLO report and
+        the alerts, for the metrics snapshot."""
+        self.tracker.sample()
+        self.monitor.poll()
+        return {"slo": self.tracker.evaluate(), "alerts": self.alerts}
+
+
 def serve(
     engine: Engine,
     queries: list,
     policy: Policy | None,
     sla_ms: float | None = None,
     n_calibrate: int = 64,
+    obs=NOOP,
 ) -> dict:
     """Serve ``queries`` through the anytime loop; latency and quality stats.
 
@@ -146,6 +183,8 @@ def serve(
     P99). ``runs`` counts every query run; ``ranges`` the range steps of
     the anytime loop (calibration and serving), ``traversals`` the
     warm-up's whole-query traversals and ``traverse_ranges`` their ranges.
+    An enabled ``obs`` gets one service span per timed query (the host
+    loop has no server in front of it) and the operations report.
     """
     warm = queries[:3]
     traverse_ranges = 0
@@ -157,17 +196,26 @@ def serve(
     oracle, ranges = cal["oracle"], cal["ranges"]
     budget = sla_ms or cal["exhaustive_p99_ms"] * 0.25
 
+    ops = Operations(obs, budget, "host") if obs.enabled else None
     times, vals = [], []
     t0 = time.perf_counter()
     for i, q in enumerate(queries):
-        res = run_query_anytime(engine, engine.plan(q), policy=policy,
-                                budget_ms=budget)
+        plan = engine.plan(q)
+        t_q = obs.clock() if obs.enabled else 0.0
+        res = run_query_anytime(engine, plan, policy=policy, budget_ms=budget)
         ranges += res.ranges_processed
         times.append(res.elapsed_ms)
+        if obs.enabled:
+            obs.trace_begin(i)
+            obs.trace_span(i, "service", t_q, obs.clock())
+            obs.trace_attr(i, server="host", latency_ms=res.elapsed_ms,
+                           exit_reason=res.exit_reason, sla_ms=budget)
+            obs.trace_end(i)
         if i in oracle:
             vals.append(rbo(res.doc_ids.tolist(), oracle[i], phi=0.8))
     wall = time.perf_counter() - t0
     return {
+        **(ops.close() if ops is not None else {}),
         **_latency_stats(times, vals, budget, wall, len(queries)),
         "runs": len(warm) + len(oracle) + len(queries),
         "ranges": ranges,
@@ -196,6 +244,7 @@ def serve_batch(
     sla_ms: float | None = None,
     n_calibrate: int = 64,
     n_shards: int | None = None,
+    obs=NOOP,
 ) -> dict:
     """Serve ``queries`` through ``MicroBatchServer`` over ``BatchEngine``,
     or with ``n_shards`` over ``ShardedBatchEngine`` (range shards stacked
@@ -210,7 +259,9 @@ def serve_batch(
     micro-batches. RBO compares each result, sorted by (score desc, id
     asc), with the exhaustive top-k. ``batches`` counts the dispatches
     (``traverse`` launches under ``impl="cuda"``), ``ranges`` the
-    calibration's range steps.
+    calibration's range steps. ``obs`` instruments the timed window only:
+    the budgeter, the server and the engine that dispatches (the profiler
+    sites ``batch_engine`` or ``sharded``), and the operations report.
     """
     spec = BucketSpec(max_batch=batch_size)
     extra = {}
@@ -242,10 +293,17 @@ def serve_batch(
     server = MicroBatchServer(beng, budgeter, max_batch=batch_size)
     server.replay(queries[:batch_size])  # the budgeter sees one real batch
     rid0 = server._next_rid
+    if obs.enabled:
+        budgeter.obs = server.obs = obs
+        server.clock = obs.clock
+        (seng if n_shards else beng).obs = obs
+        ops = Operations(obs, budget, "micro", n_shards)
 
     t0 = time.perf_counter()
     served = server.replay(queries, batch_size=batch_size)
     wall = time.perf_counter() - t0
+    if obs.enabled:
+        extra.update(ops.close())
     times = [s.latency_ms for s in served]
     vals = _rbo_to_oracle(served, oracle, rid0)
     return {
@@ -268,6 +326,7 @@ def serve_inflight(
     quantum: int = 1,
     sla_ms: float | None = None,
     n_calibrate: int = 64,
+    obs=NOOP,
 ) -> dict:
     """Serve ``queries`` through ``InflightServer`` at saturating load.
 
@@ -277,7 +336,9 @@ def serve_inflight(
     the replay of every query through a server whose ``SlaBudgeter``
     (``Reactive(1.0, 1.5, 0.01)``) fixes each query's budget at admission.
     ``steps`` counts both servers' steps (``traverse`` launches under
-    ``impl="cuda"``), ``ranges`` the calibration's range steps.
+    ``impl="cuda"``), ``ranges`` the calibration's range steps. ``obs``
+    instruments the timed server and its budgeter (the profiler site
+    ``inflight``), and the operations report.
     """
     beng = BatchEngine(engine, BucketSpec(max_batch=n_slots))
     cal = calibrate(engine, queries, n_calibrate)
@@ -290,14 +351,16 @@ def serve_inflight(
     budget = sla_ms or probe_p99 * 0.5
 
     budgeter = SlaBudgeter(sla_ms=budget, policy=Reactive(alpha=1.0, beta=1.5, q=0.01),
-                           rate=cal["rate"])
-    server = InflightServer(beng, budgeter, n_slots=n_slots, quantum=quantum)
+                           rate=cal["rate"], obs=obs)
+    server = InflightServer(beng, budgeter, n_slots=n_slots, quantum=quantum, obs=obs)
+    ops = Operations(obs, budget, "inflight") if obs.enabled else None
     t0 = time.perf_counter()
     served = server.replay(queries)
     wall = time.perf_counter() - t0
     times = [s.latency_ms for s in served]
     vals = _rbo_to_oracle(served, oracle)
     return {
+        **(ops.close() if ops is not None else {}),
         **_latency_stats(times, vals, budget, wall, len(queries)),
         "slots": n_slots,
         "quantum": quantum,
@@ -346,8 +409,36 @@ def main(argv=None):
                              "clustered_random"))
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record a per-query JSONL trace (sample rate 1.0) "
+                         "for `python -m repro_torch.obs report PATH`")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write a metrics/SLO/alerts/profiler snapshot "
+                         "for `python -m repro_torch.obs watch PATH`")
     args = ap.parse_args(argv)
+    obs = (Instrumentation.make(sample_rate=1.0, trace_path=args.trace,
+                                profile=bool(args.metrics))
+           if args.trace or args.metrics else NOOP)
+    stats = _serve_mode(args, obs)
+    if obs.enabled:
+        if args.metrics:
+            write_snapshot(
+                args.metrics, obs.metrics, slo=stats.get("slo"),
+                alerts=stats.get("alerts"),
+                profiler=(obs.profiler.snapshot()
+                          if obs.profiler is not None else None),
+                t=obs.clock(),
+            )
+            print(f"metrics snapshot -> {args.metrics}  "
+                  f"(view: python -m repro_torch.obs watch {args.metrics} --once)")
+        obs.close()
+        if args.trace:
+            print(f"trace: {obs.tracer.finished} records -> {args.trace}  "
+                  f"(summarize: python -m repro_torch.obs report {args.trace})")
 
+
+def _serve_mode(args, obs) -> dict:
+    """Build the preset, serve it in ``args.mode``, print the report."""
     corpus, index = build_preset(args.n_docs, args.n_terms, args.strategy)
     log = make_query_log(corpus, n_queries=args.queries, seed=42)
     engine = Engine(index, k=args.k, device=args.device)
@@ -355,24 +446,26 @@ def main(argv=None):
     print(f"device={engine.device} impl={engine.impl} mode={args.mode}")
     if args.mode in ("batch", "sharded"):
         stats = serve_batch(engine, queries, args.batch_size, sla_ms=args.sla_ms,
-                            n_shards=args.shards if args.mode == "sharded" else None)
+                            n_shards=args.shards if args.mode == "sharded" else None,
+                            obs=obs)
         if args.mode == "sharded":
             print(f"sharded: {stats['shards']} range shards on {engine.device}, "
                   f"mass={stats['mass']}")
         print(format_report(args.mode, stats))
         print(f"batch={stats['batch_size']}, {stats['batches']} dispatches, shapes "
               f"{stats['shapes']}, final alpha {stats['final_alpha']:.2f}")
-        return
+        return stats
     if args.mode == "inflight":
         stats = serve_inflight(engine, queries, args.batch_size, args.quantum,
-                               sla_ms=args.sla_ms)
+                               sla_ms=args.sla_ms, obs=obs)
         print(format_report("inflight", stats))
         print(f"slots={stats['slots']}, quantum={stats['quantum']}, {stats['steps']} "
               f"steps, shapes {stats['shapes']}, final alpha {stats['final_alpha']:.2f}")
-        return
+        return stats
     policy = POLICIES[args.policy](args.alpha)
-    stats = serve(engine, queries, policy, sla_ms=args.sla_ms)
+    stats = serve(engine, queries, policy, sla_ms=args.sla_ms, obs=obs)
     print(format_report(args.policy, stats))
+    return stats
 
 
 if __name__ == "__main__":

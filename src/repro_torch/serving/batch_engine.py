@@ -6,7 +6,11 @@ batch execution path: plans are snapped to a small ladder of shapes (see
 uploaded in one copy per chunk, and traversed by a single
 ``traverse_lanes`` call per chunk (one launch of the ``traverse`` kernel
 under ``impl="cuda"``, its plain version under ``impl="torch"``), whose
-carry is read back in one copy. Budgets are **per
+carry is read back in one copy. An ``obs`` handle (``repro_torch.obs``)
+counts each chunk's lanes and exit reasons from that host copy, and its
+profiler splits a chunk's time into host staging, dispatch, the launch's
+device time (CUDA events around it, read after the copy) and the copy
+itself. Budgets are **per
 query**: the postings/range caps travel down the lane with the plan, so a
 heavy query exhausts *its* budget while light lanes in the same batch run
 to safe or exhaustive completion. Results are bitwise identical to looping
@@ -21,6 +25,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 from repro_torch.core.range_daat import (
+    DeviceTimer,
     Engine,
     QueryPlan,
     batched_init_carry,
@@ -29,6 +34,9 @@ from repro_torch.core.range_daat import (
     traverse_lanes,
     upload_int32,
 )
+from repro_torch.kernels.range_scorer import kernel as scorer_kernel
+from repro_torch.obs import NOOP
+from repro_torch.obs.profiler import jit_cache_size
 from repro_torch.serving.bucketing import (
     BucketSpec,
     batch_ladder,
@@ -104,11 +112,26 @@ class BatchEngine:
     shape), and ``batches_run`` counts dispatches.
     """
 
-    def __init__(self, engine: Engine, spec: BucketSpec | None = None):
+    def __init__(
+        self, engine: Engine, spec: BucketSpec | None = None, obs=None
+    ):
         self.engine = engine
         self.spec = spec or BucketSpec()
+        self.obs = obs if obs is not None else NOOP
         self.compiled_shapes: set[tuple[int, int]] = set()
         self.batches_run = 0
+
+    @classmethod
+    def from_artifact(
+        cls, path: str, spec: BucketSpec | None = None, **engine_kwargs
+    ) -> "BatchEngine":
+        """Serve a saved index artifact (DESIGN.md §8).
+
+        ``engine_kwargs`` pass through to ``core.range_daat.Engine``;
+        ``impact_dtype`` defaults to the artifact's stored dtype, so an
+        int8 artifact serves with int8 postings impacts on the device.
+        """
+        return cls(Engine.from_artifact(path, **engine_kwargs), spec)
 
     # ------------------------------------------------------------- planning
     def plan(self, q_terms: np.ndarray) -> QueryPlan:
@@ -165,12 +188,21 @@ class BatchEngine:
         results: list,
     ) -> None:
         batch = self.spec.batch_bucket(len(chunk_plans))
+        prof = self.obs.profiler if self.obs.enabled else None
+        if prof is not None:
+            clk = self.obs.clock
+            t_plan0 = clk()
         # Dummy lanes get zero budgets -> they exit at i=0 having done no work.
         table = stack_table(chunk_plans, width, batch, budgets[chunk_idx],
                             maxr[chunk_idx])
 
         eng = self.engine
         k = eng.k
+        timer = None
+        if prof is not None:
+            cache0 = jit_cache_size(scorer_kernel.traverse)
+            t_disp0 = clk()
+            timer = DeviceTimer(eng.device)
         # The chunk's one upload: tables, caps and fresh carries together.
         lanes = upload_int32(
             (table.blk, table.rest, table.order, table.bounds, table.budget,
@@ -180,9 +212,12 @@ class BatchEngine:
         out = traverse_lanes(
             eng.dix, *lanes, s_pad=eng.s_pad, k=k, safe_stop=safe_stop,
             prune_blocks=prune_blocks, impl=eng.impl, docs_format=eng.docs_format,
+            timer=timer,
         )
         self.compiled_shapes.add((batch, width))
         self.batches_run += 1
+        if prof is not None:
+            t_dev0 = clk()
 
         # The chunk's one device->host copy: every lane is finished.
         host = out.cpu().numpy()
@@ -190,10 +225,33 @@ class BatchEngine:
         postings, blocks = host[:, k], host[:, k + 1]
         ranges, safe, budg = (host[:, 2 * k + 2], host[:, 2 * k + 3] != 0,
                               host[:, 2 * k + 4] != 0)
+        if prof is not None:
+            # No sync of its own: the device time is read from events that
+            # the copy above has already waited for, and the transfer is
+            # that copy (the wait for the launch included).
+            t_xfer1 = clk()
+            prof.record_dispatch(
+                "batch_engine",
+                (batch, width),
+                cache_before=cache0,
+                cache_after=jit_cache_size(scorer_kernel.traverse),
+                plan_ms=(t_disp0 - t_plan0) * 1e3,
+                dispatch_ms=(t_dev0 - t_disp0) * 1e3,
+                device_ms=timer.ms(),
+                transfer_ms=(t_xfer1 - t_dev0) * 1e3,
+            )
+            prof.record_hbm_once("batch_engine", eng.dix._asdict())
         for lane, qi in enumerate(chunk_idx):
             results[qi] = lane_result(
                 vals, ids, postings, blocks, ranges, safe, budg, lane
             )
+        if self.obs.enabled:
+            self.obs.observe("batch_engine_chunk_lanes", len(chunk_idx))
+            for lane in range(len(chunk_idx)):
+                self.obs.count(
+                    "batch_engine_queries",
+                    reason=exit_reason(bool(safe[lane]), bool(budg[lane])),
+                )
 
     # ---------------------------------------------------------------- misc
     def warmup(self, widths: Sequence[int] | None = None) -> None:

@@ -37,22 +37,25 @@ included) at completion.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Sequence
 
 import numpy as np
 
 from repro_torch.core.range_daat import (
+    DeviceTimer,
     QueryPlan,
     batched_init_carry,
     batched_traverse_resume,
     carry_done,
     carry_to_host,
 )
+from repro_torch.kernels.range_scorer import kernel as scorer_kernel
+from repro_torch.obs import NOOP
+from repro_torch.obs.profiler import jit_cache_size
 from repro_torch.serving.batch_engine import INT32_MAX, BatchEngine, lane_result
 from repro_torch.serving.bucketing import DoubleBuffer
-from repro_torch.serving.microbatch import ServedQuery, SlaBudgeter
+from repro_torch.serving.microbatch import ServedQuery, SlaBudgeter, result_exit_reason
 
 __all__ = ["InflightServer"]
 
@@ -74,9 +77,14 @@ class InflightServer:
         amortise the launch but re-introduce convoy time up to
         ``quantum - 1`` ranges.
     clock: read once per submitted query and twice per step (around the
-        launch and the read), the reference's sequence, so a deterministic
-        clock replays its budgets and latencies exactly (default
-        ``time.perf_counter``).
+        launch and the read), and more when ``obs`` is enabled, the
+        reference's sequence, so a deterministic clock replays its budgets
+        and latencies exactly. An explicit clock wins, else ``obs.clock``
+        (``time.perf_counter`` on ``NOOP``).
+    obs: a ``repro_torch.obs`` handle: admission, step and per-query
+        metrics and trace spans; its profiler splits a step into dispatch,
+        the overlapped planning, the launch's device time (CUDA events
+        around it, read after the carry read) and the carry read.
     """
 
     def __init__(
@@ -86,6 +94,7 @@ class InflightServer:
         n_slots: int = 8,
         quantum: int = 1,
         clock=None,
+        obs=NOOP,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -96,7 +105,8 @@ class InflightServer:
         self.budgeter = budgeter
         self.n_slots = int(n_slots)
         self.quantum = int(quantum)
-        self.clock = clock if clock is not None else time.perf_counter
+        self.obs = obs
+        self.clock = clock if clock is not None else obs.clock
         self.n_ranges = int(self.engine.index.n_ranges)
 
         self.buffers = DoubleBuffer(
@@ -107,6 +117,7 @@ class InflightServer:
 
         self.slot_rid = np.full(self.n_slots, -1, dtype=np.int64)
         self.slot_t_enq = np.zeros(self.n_slots, dtype=np.float64)
+        self.slot_t_adm = np.zeros(self.n_slots, dtype=np.float64)
         self.slot_quanta = np.zeros(self.n_slots, dtype=np.int64)
         self._prev_postings = np.zeros(self.n_slots, dtype=np.int64)
 
@@ -123,6 +134,9 @@ class InflightServer:
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append((rid, np.asarray(q_terms), self.clock()))
+        if self.obs.enabled:
+            self.obs.count("submitted", server="inflight")
+            self.obs.trace_begin(rid)
         return rid
 
     @property
@@ -176,6 +190,19 @@ class InflightServer:
         self.slot_quanta[lane] = 0
         self._prev_postings[lane] = 0
         self.admissions += 1
+        if self.obs.enabled:
+            now = self.clock()
+            self.slot_t_adm[lane] = now
+            self.obs.count("admissions", server="inflight")
+            if budget >= INT32_MAX:
+                # Unlimited (inf-SLA) admissions would pin the histogram's
+                # p50 at the INT32_MAX sentinel; count them separately and
+                # keep the budget distribution finite-only.
+                self.obs.count("unlimited_admissions", server="inflight")
+            else:
+                self.obs.observe("budget_postings", budget, server="inflight")
+            self.obs.trace_span(rid, "queue", t_enq, now)
+            self.obs.trace_attr(rid, budget_postings=budget, slot=lane)
 
     def _park(self, lane: int) -> None:
         self.buffers.back.clear_lane(lane)
@@ -183,6 +210,8 @@ class InflightServer:
         self.slot_rid[lane] = -1
         self.slot_quanta[lane] = 0
         self._prev_postings[lane] = 0
+        if self.obs.enabled:
+            self.obs.count("parks", server="inflight")
 
     def _admit_vacant(self) -> None:
         for lane in np.nonzero(self.slot_rid < 0)[0]:
@@ -203,7 +232,11 @@ class InflightServer:
         front = self.buffers.front
         eng = self.engine
 
+        prof = self.obs.profiler if self.obs.enabled else None
+        if prof is not None:
+            cache0 = jit_cache_size(scorer_kernel.traverse)
         t0 = self.clock()
+        timer = DeviceTimer(eng.device) if prof is not None else None
         # One upload: the front table's host arrays, its caps and the host
         # carry, staged together; one traverse launch under impl="cuda".
         out = batched_traverse_resume(
@@ -220,17 +253,36 @@ class InflightServer:
             quantum=self.quantum,
             impl=eng.impl,
             docs_format=eng.docs_format,
+            timer=timer,
         )
         self.compiled_shapes.add((self.n_slots, front.width))
         self.steps_run += 1
+        if prof is not None:
+            t_disp1 = self.clock()
 
         # The device is scoring; overlap host-side planning for the
         # admissions this step's exits will make room for.
         self._plan_lookahead(self.n_slots)
 
+        if prof is not None:
+            t_plan1 = self.clock()
         self.carry = carry_to_host(out)  # one read; waits for the quantum
         t1 = self.clock()
         step_ms = (t1 - t0) * 1e3
+        if prof is not None:
+            # No sync of its own: the events are read after the carry read
+            # has waited for them; the transfer is that read, wait included.
+            prof.record_dispatch(
+                "inflight",
+                (self.n_slots, front.width),
+                cache_before=cache0,
+                cache_after=jit_cache_size(scorer_kernel.traverse),
+                plan_ms=(t_plan1 - t_disp1) * 1e3,
+                dispatch_ms=(t_disp1 - t0) * 1e3,
+                device_ms=timer.ms(),
+                transfer_ms=(t1 - t_plan1) * 1e3,
+            )
+            prof.record_hbm_once("inflight", eng.dix._asdict())
 
         active = self.slot_rid >= 0
         postings = np.asarray(self.carry.state.postings, dtype=np.int64)
@@ -238,14 +290,32 @@ class InflightServer:
         self._prev_postings[active] = postings[active]
         self.slot_quanta[active] += 1
 
+        obs = self.obs
+        if obs.enabled:
+            obs.observe("step_ms", step_ms, server="inflight")
+            obs.observe("active_lanes", int(active.sum()), server="inflight")
+            obs.gauge(
+                "slot_occupancy", float(active.sum()) / self.n_slots,
+                server="inflight",
+            )
+            obs.gauge("queue_depth", float(self.pending), server="inflight")
+            for lane in np.nonzero(active)[0]:
+                # Device-step attribution: the quantum's host-observed wall
+                # time, shared by every lane riding this launch.
+                obs.trace_span(
+                    int(self.slot_rid[lane]), "dispatch", t0, t1,
+                    device_ms=round(step_ms, 4), step=self.steps_run,
+                )
+
         served: list[ServedQuery] = []
         done = carry_done(self.carry, self.n_ranges) & active
         vals = self.carry.state.vals
         ids = self.carry.state.ids
         blocks = self.carry.state.blocks
+        sla = getattr(self.budgeter, "sla_ms", None)
         for lane in np.nonzero(done)[0]:
             lane = int(lane)
-            served.append(ServedQuery(
+            sq = ServedQuery(
                 rid=int(self.slot_rid[lane]),
                 result=lane_result(
                     vals,
@@ -260,7 +330,27 @@ class InflightServer:
                 latency_ms=(t1 - self.slot_t_enq[lane]) * 1e3,
                 batch_size=self.n_slots,
                 quanta=int(self.slot_quanta[lane]),
-            ))
+            )
+            served.append(sq)
+            if obs.enabled:
+                reason = result_exit_reason(sq.result)
+                obs.count("served_queries", server="inflight", reason=reason)
+                obs.observe("latency_ms", sq.latency_ms, server="inflight")
+                obs.observe("quanta", sq.quanta, server="inflight")
+                obs.trace_span(
+                    sq.rid, "service", float(self.slot_t_adm[lane]), t1,
+                    quanta=sq.quanta,
+                )
+                attrs = dict(
+                    server="inflight",
+                    latency_ms=round(sq.latency_ms, 4),
+                    exit_reason=reason,
+                    quanta=sq.quanta,
+                )
+                if sla is not None and sla != float("inf"):
+                    attrs["sla_ms"] = float(sla)
+                obs.trace_attr(sq.rid, **attrs)
+                obs.trace_end(sq.rid)
             self._park(lane)
 
         # Rate EWMA from the step's time; Eq. (7) from end-to-end latency

@@ -18,19 +18,22 @@ range-sharded engines (``serving.sharded``). ``MicroBatchServer`` is the
 request loop: enqueue, cut a batch at ``max_batch`` (or whatever is
 pending), serve it through a ``BatchEngine`` or ``ShardedBatchEngine``,
 attribute the batch wall time plus queue wait to every member. Every
-budget and every latency equals the reference's under the same clock.
+budget and every latency equals the reference's under the same clock. An
+``obs`` handle (``repro_torch.obs``) records the budgeters' trajectories,
+and the server's batch metrics and per-query trace spans, at the
+reference's places and only when it is enabled.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
 
 from repro_torch.core.anytime import Reactive
 from repro_torch.core.clustered_index import BLOCK
+from repro_torch.obs import NOOP
 from repro_torch.serving.batch_engine import INT32_MAX, BatchEngine, BatchResult
 
 __all__ = [
@@ -51,6 +54,7 @@ class SlaBudgeter:
     rate: float = 100.0  # postings / ms / lane — EWMA, seeded conservatively
     ema: float = 0.3
     floor: int = BLOCK  # always admit at least one block per query
+    obs: object = NOOP  # Instrumentation handle (alpha/rate/cap trajectories)
 
     def budgets(self, n: int, plans=None) -> np.ndarray:
         """[n] int32 postings budgets for the next batch.
@@ -60,6 +64,9 @@ class SlaBudgeter:
         """
         cap = max(float(self.floor), self.rate * self.sla_ms / self.policy.alpha)
         cap = min(cap, float(INT32_MAX))  # inf SLA -> unbounded traversal
+        if self.obs.enabled:
+            self.obs.gauge("budgeter_alpha", float(self.policy.alpha))
+            self.obs.gauge("budgeter_cap_postings", float(int(cap)))
         return np.full(n, int(cap), dtype=np.int32)
 
     def observe(
@@ -81,17 +88,27 @@ class SlaBudgeter:
         if elapsed_ms > 0 and n > 0:
             lane_rate = (total_postings / n) / elapsed_ms
             self.rate = (1 - self.ema) * self.rate + self.ema * max(lane_rate, 1e-6)
+            if self.obs.enabled:
+                self.obs.gauge("budgeter_rate", float(self.rate))
         self._feed_policy(elapsed_ms, latencies_ms)
 
     def _feed_policy(
         self, elapsed_ms: float, latencies_ms: Sequence[float] | None
     ) -> None:
-        """Eq. (7): every end-to-end latency, or the dispatch time alone."""
+        """Eq. (7): every end-to-end latency, or the dispatch time alone.
+        Each (latency, SLA) pair the policy judges is also recorded, so the
+        alpha trajectory can be replayed against what drove it."""
         if latencies_ms is None:
             self.policy.on_query_end(elapsed_ms, self.sla_ms)
+            if self.obs.enabled:
+                self.obs.observe("budgeter_feedback_ms", float(elapsed_ms))
         else:
             for t_ms in latencies_ms:
                 self.policy.on_query_end(float(t_ms), self.sla_ms)
+                if self.obs.enabled:
+                    self.obs.observe("budgeter_feedback_ms", float(t_ms))
+        if self.obs.enabled:
+            self.obs.gauge("budgeter_alpha", float(self.policy.alpha))
 
 
 @dataclasses.dataclass
@@ -148,6 +165,12 @@ class ShardedSlaBudgeter(SlaBudgeter):
     def budgets(self, n: int, plans=None) -> np.ndarray:
         """[n, n_shards] int32 per-(query, shard) postings budgets."""
         caps = self._rate_caps()
+        if self.obs.enabled:
+            self.obs.gauge("budgeter_alpha", float(self.policy.alpha))
+            for s in range(self.n_shards):
+                self.obs.gauge(
+                    "budgeter_shard_cap", float(int(caps[s])), shard=s
+                )
         out = np.tile(caps.astype(np.int64), (n, 1))
         unbounded = float(caps.max()) >= float(INT32_MAX)
         if self.mode == "boundsum" and plans is not None and not unbounded:
@@ -186,6 +209,11 @@ class ShardedSlaBudgeter(SlaBudgeter):
             if active_mask is not None:
                 new = np.where(np.asarray(active_mask, bool), new, self.rates)
             self.rates = new
+            if self.obs.enabled:
+                for s in range(self.n_shards):
+                    self.obs.gauge(
+                        "budgeter_shard_rate", float(self.rates[s]), shard=s
+                    )
         self._feed_policy(elapsed_ms, latencies_ms)
 
     def observe(
@@ -250,9 +278,12 @@ class MicroBatchServer:
     """Queue + cut + dispatch loop over a ``BatchEngine`` or a
     ``ShardedBatchEngine``.
 
-    ``clock`` (default ``time.perf_counter``) is read once per submitted
-    query and twice per batch (around the dispatch), the reference's
-    sequence, so a deterministic clock replays its budgets exactly.
+    ``clock`` is read once per submitted query and twice per batch (around
+    the dispatch), and twice more per batch when ``obs`` is enabled: the
+    reference's sequence, so a deterministic clock replays its budgets
+    exactly. An explicit ``clock`` wins; otherwise the ``obs`` handle's
+    (``NOOP`` carries ``time.perf_counter``), so trace timestamps and SLA
+    feedback read one source.
     """
 
     def __init__(
@@ -261,11 +292,13 @@ class MicroBatchServer:
         budgeter: SlaBudgeter,
         max_batch: int | None = None,
         clock=None,
+        obs=NOOP,
     ):
         self.bengine = bengine
         self.budgeter = budgeter
         self.max_batch = max_batch or bengine.spec.max_batch
-        self.clock = clock if clock is not None else time.perf_counter
+        self.obs = obs
+        self.clock = clock if clock is not None else obs.clock
         self._queue: list[tuple[int, np.ndarray, float]] = []
         self._next_rid = 0
 
@@ -273,6 +306,9 @@ class MicroBatchServer:
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append((rid, np.asarray(q_terms), self.clock()))
+        if self.obs.enabled:
+            self.obs.count("submitted", server="micro")
+            self.obs.trace_begin(rid)
         return rid
 
     @property
@@ -312,10 +348,15 @@ class MicroBatchServer:
         """Serve one micro-batch from the head of the queue."""
         if not self._queue:
             return []
+        obs = self.obs
         cut, self._queue = self._queue[: self.max_batch], self._queue[self.max_batch :]
         rids = [c[0] for c in cut]
         enq = [c[2] for c in cut]
+        # Stage timestamps are taken only when instrumented, so a FakeClock
+        # run without obs sees the exact uninstrumented read sequence.
+        t_cut = self.clock() if obs.enabled else 0.0
         plans = self.bengine.plan_many([c[1] for c in cut])
+        t_planned = self.clock() if obs.enabled else 0.0
         budgets = self.budgeter.budgets(len(plans), plans=plans)
 
         t0 = self.clock()
@@ -325,10 +366,64 @@ class MicroBatchServer:
 
         latencies_ms = [(served_at - t_enq) * 1e3 for t_enq in enq]
         self._observe(batch_ms, results, latencies_ms=latencies_ms)
-        return [
+        served = [
             ServedQuery(rid=rid, result=res, latency_ms=lat, batch_size=len(cut))
             for rid, lat, res in zip(rids, latencies_ms, results)
         ]
+        if obs.enabled:
+            self._record_batch(
+                served, enq, budgets, t_cut, t_planned, t0, served_at, batch_ms
+            )
+        return served
+
+    def _record_batch(
+        self, served, enq, budgets, t_cut, t_planned, t0, served_at, batch_ms
+    ) -> None:
+        """Metrics + trace spans for one drained batch (obs-enabled only)."""
+        obs = self.obs
+        if not obs.enabled:
+            # Self-protecting: drain_once gates the call, but a subclass
+            # or another caller must not pay per-query span cost silently.
+            return
+        obs.observe("batch_size", len(served), server="micro")
+        obs.observe("batch_ms", batch_ms, server="micro")
+        obs.gauge("queue_depth", float(len(self._queue)), server="micro")
+        per_q = np.asarray(budgets, np.int64)
+        if per_q.ndim == 2:  # sharded budgeter: [n, S] -> per-query totals
+            per_q = per_q.sum(axis=1)
+        sla = getattr(self.budgeter, "sla_ms", None)
+        for sq, t_enq, bq in zip(served, enq, per_q):
+            reason = result_exit_reason(sq.result)
+            obs.count("served_queries", server="micro", reason=reason)
+            obs.observe("latency_ms", sq.latency_ms, server="micro")
+            if int(bq) >= INT32_MAX:
+                # Inf-SLA sentinel budgets stay out of the histogram (they
+                # would pin p50 at ~1.6e9); count them instead.
+                obs.count("unlimited_admissions", server="micro")
+            else:
+                obs.observe("budget_postings", int(bq), server="micro")
+            obs.trace_span(sq.rid, "queue", t_enq, t_cut)
+            obs.trace_span(sq.rid, "plan", t_cut, t_planned, batch=len(served))
+            obs.trace_span(
+                sq.rid, "budget", t_planned, t0, budget_postings=int(bq)
+            )
+            obs.trace_span(
+                sq.rid, "service", t0, served_at, device_ms=round(batch_ms, 4)
+            )
+            attrs = dict(
+                server="micro",
+                latency_ms=round(sq.latency_ms, 4),
+                exit_reason=reason,
+                batch=len(served),
+            )
+            if sla is not None and sla != float("inf"):
+                attrs["sla_ms"] = float(sla)
+            fb = getattr(sq.result, "fidelity_bound", None)
+            if fb is not None:
+                attrs["fidelity_bound"] = int(fb)
+                attrs["exact"] = bool(sq.result.exact)
+            obs.trace_attr(sq.rid, **attrs)
+            obs.trace_end(sq.rid)
 
     def replay(
         self, queries: Sequence[np.ndarray], batch_size: int | None = None

@@ -43,6 +43,7 @@ from repro_torch.core.clustered_index import (
 )
 from repro_torch.core.range_daat import (
     DeviceIndex,
+    DeviceTimer,
     Engine,
     QueryPlan,
     batched_init_carry,
@@ -52,6 +53,9 @@ from repro_torch.core.range_daat import (
     traverse_lanes,
     upload_int32,
 )
+from repro_torch.kernels.range_scorer import kernel as scorer_kernel
+from repro_torch.obs import NOOP
+from repro_torch.obs.profiler import jit_cache_size
 from repro_torch.serving.bucketing import (
     BucketSpec,
     batch_ladder,
@@ -114,6 +118,7 @@ def sharded_batched_traverse(
     prune_blocks: bool = True,
     impl: str = "torch",
     docs_format: str = "int32",
+    timer: DeviceTimer | None = None,
 ) -> torch.Tensor:
     """(batch x shard) traversal on one device.
 
@@ -136,7 +141,7 @@ def sharded_batched_traverse(
     )
     out = traverse_lanes(
         dix, *lanes, s_pad=s_pad, k=k, safe_stop=safe_stop, prune_blocks=prune_blocks,
-        impl=impl, docs_format=docs_format,
+        impl=impl, docs_format=docs_format, timer=timer,
     ).view(N, S, 2 * k + 5)
     # Lift local docids to global, then broker-merge.
     ids = out[:, :, k + 2:2 * k + 2]
@@ -246,8 +251,10 @@ class ShardedEngine:
     raises ``NotImplementedError`` until the mesh path is ported.
     ``shards`` is a preloaded shard list to use instead of re-partitioning.
     The positional order is the reference's: ``mesh_axis`` names the mesh
-    axis of the unported mesh path and is ignored; ``obs`` takes only None
-    until the telemetry is ported (ROADMAP A2).
+    axis of the unported mesh path and is ignored. ``obs`` is a
+    ``repro_torch.obs`` handle (None: ``NOOP``): per-query and per-shard
+    exit counters, and the profiler's split of each dispatch, whose device
+    time and transfer are read when ``_to_results`` reads the outputs.
     """
 
     def __init__(
@@ -259,11 +266,8 @@ class ShardedEngine:
         shards: list[IndexShard] | None = None,
         obs=None,
     ):
-        if obs is not None:
-            raise NotImplementedError(
-                "obs= (the reference's telemetry hooks) is not ported yet, ROADMAP A2; "
-                "pass obs=None"
-            )
+        self.obs = obs if obs is not None else NOOP
+        self._pending_profile = None
         if use_mesh:
             raise NotImplementedError(
                 "use_mesh=True (one shard per card: make_mesh_dispatch and "
@@ -359,6 +363,55 @@ class ShardedEngine:
         self.doc_base = torch.from_numpy(self.doc_base_host.astype(np.int32)).to(
             self.device)
 
+    @classmethod
+    def from_artifact(
+        cls,
+        path: str,
+        n_shards: int,
+        shards_path: str | None = None,
+        use_mesh: bool | None = None,
+        mesh_axis: str = "shard",
+        **engine_kwargs,
+    ) -> "ShardedEngine":
+        """Build a sharded engine from saved artifacts (DESIGN.md §8, §10).
+
+        ``path`` is a ``clustered_index`` artifact or a delta-chain head
+        (the global planner needs the full index, which a chain head
+        materializes on load); ``shards_path`` optionally names a saved
+        ``index_shards`` artifact to reuse instead of re-partitioning,
+        rejected when its recorded ``source_fingerprint`` does not match
+        the loaded (materialized) index, so a stale shard set cannot
+        silently serve against a rebuilt *or extended* index.
+        ``engine_kwargs`` (``device`` among them) pass through to
+        ``Engine.from_artifact``.
+        """
+        from repro_torch import index_io  # local: index_io sits above serving
+
+        engine = Engine.from_artifact(path, **engine_kwargs)
+        shards = None
+        if shards_path is not None:
+            src = index_io.read_manifest(shards_path).get("source_fingerprint")
+            if src is None:
+                # An unverifiable shard set is as dangerous as a stale one:
+                # mismatched docid spaces serve garbage with no error. Use
+                # load_shards + ShardedEngine(shards=...) to bypass.
+                raise index_io.ArtifactError(
+                    f"shard artifact {shards_path} records no "
+                    f"source_fingerprint; re-save with "
+                    f"source_fingerprint=index.fingerprint()"
+                )
+            if src != engine.index.fingerprint():
+                raise index_io.ArtifactError(
+                    f"shard artifact {shards_path} was carved from index "
+                    f"{src}, but {path} has fingerprint "
+                    f"{engine.index.fingerprint()} — rebuild the shards"
+                )
+            shards = index_io.load_shards(shards_path)
+        return cls(
+            engine, n_shards, use_mesh=use_mesh, mesh_axis=mesh_axis,
+            shards=shards,
+        )
+
     # ------------------------------------------------------------- planning
     def plan(self, q_terms: np.ndarray) -> QueryPlan:
         return self.engine.plan(q_terms)
@@ -441,12 +494,29 @@ class ShardedEngine:
         """Run one (batch x shard) step on stacked host tables (one upload,
         one ``traverse`` launch under ``impl="cuda"``); the packed outputs
         of ``sharded_batched_traverse``, on the device."""
-        return sharded_batched_traverse(
+        prof = self.obs.profiler if self.obs.enabled else None
+        timer = None
+        if prof is not None:
+            clk = self.obs.clock
+            t_plan0 = clk()
+            cache0 = jit_cache_size(scorer_kernel.traverse)
+            t_disp0 = clk()
+            timer = DeviceTimer(self.device)
+        out = sharded_batched_traverse(
             self.dix, self.doc_base, blk, rest, order, bounds,
             np.asarray(budgets, np.int64), np.asarray(maxr, np.int64),
             s_pad=self.s_pad, k=self.k, safe_stop=safe_stop,
             prune_blocks=prune_blocks, impl=self.impl, docs_format=self.docs_format,
+            timer=timer,
         )
+        if prof is not None:
+            # Completed by _to_results once its read has waited for the
+            # device: no sync of its own.
+            self._pending_profile = (
+                timer, (int(blk.shape[0]), int(blk.shape[-1])), cache0,
+                t_plan0, t_disp0, clk(),
+            )
+        return out
 
     # ------------------------------------------------------------ execution
     def traverse(
@@ -490,6 +560,22 @@ class ShardedEngine:
         """Packed device outputs (read in one copy) + host bounds tables
         [N, S, R_max] -> results."""
         host = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+        pending, self._pending_profile = self._pending_profile, None
+        if pending is not None:  # set by dispatch only under the profiler
+            timer, shape, cache0, t_plan0, t_disp0, t_dev0 = pending
+            t_xfer1 = self.obs.clock()
+            prof = self.obs.profiler
+            prof.record_dispatch(
+                "sharded",
+                shape,
+                cache_before=cache0,
+                cache_after=jit_cache_size(scorer_kernel.traverse),
+                plan_ms=(t_disp0 - t_plan0) * 1e3,
+                dispatch_ms=(t_dev0 - t_disp0) * 1e3,
+                device_ms=timer.ms(),
+                transfer_ms=(t_xfer1 - t_dev0) * 1e3,
+            )
+            prof.record_hbm_once("sharded", self.dix._asdict())
         vals, ids, post, blocks, ranges, safe, budget = split_outputs(
             host, self.k, self.n_shards)
         down = (
@@ -559,6 +645,12 @@ class ShardedEngine:
                     exact=exact,
                 )
             )
+            if self.obs.enabled:
+                self.obs.count("sharded_queries")
+                for s, r in enumerate(reasons):
+                    self.obs.count("shard_exits", shard=s, reason=r)
+                self.obs.count("sharded_exact", exact=exact)
+                self.obs.observe("fidelity_bound", fb)
         return results
 
 
@@ -572,10 +664,15 @@ class ShardedBatchEngine:
     (the reference's compiled programs).
     """
 
-    def __init__(self, sengine: ShardedEngine, spec: BucketSpec | None = None):
+    def __init__(
+        self, sengine: ShardedEngine, spec: BucketSpec | None = None, obs=None
+    ):
         self.sengine = sengine
         self.engine = sengine.engine
         self.spec = spec or BucketSpec()
+        # Default to the wrapped engine's handle so the whole sharded stack
+        # shares one registry unless a caller deliberately splits them.
+        self.obs = obs if obs is not None else sengine.obs
         self.compiled_shapes: set[tuple[int, int]] = set()
         self.batches_run = 0
 

@@ -15,7 +15,9 @@ at ``s_pad`` 9,984, a global scratch at 65,536), and the ``traverse``
 kernel (N lanes' whole-query loops) against ``traverse_ref`` on every
 carry field, also over stacked range shards (lane n reads shard n % S),
 with ``BatchEngine``, ``ShardedBatchEngine`` and ``InflightServer`` on
-``cuda`` equal to ``torch``. The bag
+``cuda`` equal to ``torch``; engines loaded from index artifacts
+(``from_artifact``) equal the in-memory ones on the card, and serving
+with an enabled ``obs`` handle equals serving without. The bag
 reduce sums
 floats in another order than its plain version, so it is held within a
 stated tolerance instead.
@@ -27,17 +29,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.clustered_index import BLOCK, build_index, pack_dir_entries, pack_docs
+from repro_torch import index_io
+from repro_torch.core.clustered_index import (
+    BLOCK, build_index, pack_dir_entries, pack_docs, shard_device_index)
 from repro_torch.core.oracle import exhaustive_topk
 from repro_torch.core.range_daat import DeviceIndex, Engine
 from repro_torch.data.synth import make_corpus, make_query_log
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ref import bag_reduce_plain
 from repro_torch.kernels.range_scorer import kernel, ref
+from repro_torch.obs import NOOP, Instrumentation
 from repro_torch.serving import (
     BatchEngine,
     BucketSpec,
     InflightServer,
+    MicroBatchServer,
     ShardedBatchEngine,
     ShardedEngine,
     SlaBudgeter,
@@ -738,3 +744,72 @@ def test_embedding_bag_without_card_raises_and_names_cpu(monkeypatch):
     out = embedding_bag(table_from_numpy(table, device="cpu"),
                         torch.zeros(2, 3, dtype=torch.int32))
     assert out.device.type == "cpu" and out.tolist() == [[3.0] * 4] * 2
+
+
+def _fields(r) -> list:
+    return [np.asarray(v).tolist() if isinstance(v, np.ndarray) else v for v in r]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impact_dtype,docs_format", [("int8", "packed"),
+                                                       ("int32", "int32")])
+def test_from_artifact_on_card_matches_in_memory(cuda_device, small_index, tmp_path,
+                                                  impact_dtype, docs_format):
+    """The three engines from saved artifacts on the card equal the
+    in-memory engines on the card, on every field, unbudgeted and budgeted."""
+    index, queries = small_index
+    path, spath = str(tmp_path / "idx"), str(tmp_path / "idx.shards")
+    index_io.save_index(index, path, impact_dtype=impact_dtype, docs_format=docs_format)
+    index_io.save_shards(shard_device_index(index, 2), spath, impact_dtype=impact_dtype,
+                         quantizer=index.quantizer, source_fingerprint=index.fingerprint())
+    mem = Engine(index, k=10, device=cuda_device, impact_dtype=impact_dtype,
+                 docs_format=docs_format)
+    eng = Engine.from_artifact(path, k=10, device=cuda_device)
+    assert (eng.impl, eng.impact_dtype, eng.docs_format) == ("cuda", impact_dtype,
+                                                             docs_format)
+    plans = [mem.plan(q) for q in queries]
+    for p in plans:
+        for budget in (2**31 - 1, 300):
+            a, b = eng.traverse(p, budget_postings=budget), mem.traverse(p, budget_postings=budget)
+            assert (eng.topk_docs(a.state)[0].tolist(), a.ranges_processed, a.exit_safe,
+                    a.exit_budget, int(a.state.postings)) == (
+                mem.topk_docs(b.state)[0].tolist(), b.ranges_processed, b.exit_safe,
+                b.exit_budget, int(b.state.postings))
+    beng = BatchEngine.from_artifact(path, BucketSpec(max_batch=4), k=10, device=cuda_device)
+    got = beng.run_batch(plans, budget_postings=300)
+    want = BatchEngine(mem, BucketSpec(max_batch=4)).run_batch(plans, budget_postings=300)
+    assert [_fields(g) for g in got] == [_fields(w) for w in want]
+    seng = ShardedEngine.from_artifact(path, 2, shards_path=spath, k=10, device=cuda_device)
+    sref = ShardedEngine(mem, 2)
+    for p in plans:
+        assert _fields(seng.traverse(p, 400)) == _fields(sref.traverse(p, 400))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["micro", "inflight", "sharded"])
+def test_obs_on_equals_obs_off_on_card(cuda_device, small_index, mode):
+    """Serving with an enabled handle (trace sample 1.0, profiler on) on the
+    card equals serving with NOOP, and the profiler reads device time."""
+    index, queries = small_index
+    eng = Engine(index, k=10, device=cuda_device, impact_dtype="int8",
+                 docs_format="packed")
+
+    def serve(obs):
+        if mode == "sharded":
+            beng = ShardedBatchEngine(ShardedEngine(eng, 2, obs=obs), BucketSpec(max_batch=4))
+        else:
+            beng = BatchEngine(eng, BucketSpec(max_batch=4), obs=obs)
+        bud = SlaBudgeter(sla_ms=float("inf"), obs=obs)
+        bud.budgets = lambda n, plans=None: np.full(n, 500, np.int32)
+        if mode == "inflight":
+            srv = InflightServer(beng, bud, n_slots=4, quantum=2, obs=obs)
+            served = srv.replay(queries)
+        else:
+            served = MicroBatchServer(beng, bud, max_batch=4, obs=obs).replay(queries)
+        return [(s.rid, s.quanta, _fields(s.result))
+                for s in sorted(served, key=lambda s: s.rid)]
+
+    obs = Instrumentation.make(sample_rate=1.0, profile=True)
+    assert serve(obs) == serve(NOOP)
+    snap = next(iter(obs.profiler.snapshot().values()))
+    assert snap["recompiles"] == 0 and snap["device_ms"] > 0.0

@@ -40,6 +40,12 @@ def test_port_modules_import_neither_jax_nor_reference():
         "           'repro_torch.serving.microbatch', 'repro_torch.serving.inflight',\n"
         "           'repro_torch.serving.sharded'}\n"
         "assert serving <= set(names), names\n"
+        "later = {'repro_torch.index_io.artifact', 'repro_torch.index_io.corpus_io',\n"
+        "         'repro_torch.index_io.__main__', 'repro_torch.control.journal',\n"
+        "         'repro_torch.obs.__main__'} | {'repro_torch.obs.' + m for m in (\n"
+        "         'catalog', 'clock', 'detect', 'export', 'instrument', 'metrics',\n"
+        "         'profiler', 'report', 'slo', 'trace', 'watch')}\n"
+        "assert later <= set(names), sorted(later - set(names))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
