@@ -49,16 +49,29 @@ fails (non-zero exit, no result line) on any fault:
      ``append_index`` of 2,400 documents, its ``compact``, and a fresh
      build of ``concat_corpora``): chain head (``load_chain``), compaction
      and fresh build served on the card equal on every ``observe_query``
-     field for 64 queries, unbudgeted and budgeted;
+     field for 64 queries, unbudgeted and budgeted; over the chain's base
+     and head, a control plane journals a reshard and a shard down, and a
+     fresh ``ControlPlane.from_artifact(..., replay=True)`` has the same
+     cuts and ledger and answers 64 queries equally; the partitioned IR
+     (``serve/distributed_ir.py``: the preset corpus split round-robin
+     into 4 sub-indexes of 8 ranges, built in a worker): 64 queries x 4
+     shards in one ``traverse`` launch, equal to its plain version on the
+     card (values, global ids, ranges; unbudgeted and budgeted) and to the
+     merged per-shard oracles; anytime MIPS (``serve/retrieval.py``) over
+     1,000,000 candidates of width 64 in 64 ranges (built in a worker): the
+     card against the CPU port on safe, budgeted and multi-interest
+     queries (counters exact, scores within 1e-5), ms per query;
   4. scale phase (its index through ``build_index_cached`` under
      ``.cache/``, hit or miss printed, a hit checked with
      ``validate_artifact``) — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
-     the same parity (the anytime loop on the first 64 queries); the
+     the same parity, the plain path on the first 96 queries (the oracle
+     on all), the anytime loop on the first 48; the
      standalone kernels' own path
      (``ops.score_blocks(impl="cuda")`` on each query's first range, both
      docid formats, against its plain version); batch parity
      (``BatchEngine`` on cuda == on torch == ``Engine.traverse`` per
-     query, 200 queries at ``max_batch`` 32, unbudgeted, budgeted and
+     query, 200 queries at ``max_batch`` 32 (torch on the first 96),
+     unbudgeted, budgeted and
      range-capped, one ``traverse`` per chunk); ``Engine(k=2048)`` on cuda
      equal to ``impl="torch"`` on every ``observe_query`` field for 16
      queries, unbudgeted and budgeted; the serving loop of
@@ -72,14 +85,24 @@ fails (non-zero exit, no result line) on any fault:
      at quantum 2 equal to the plain server; one ``traverse`` per step);
      sharded parity (S = 2 and 4: ``ShardedBatchEngine`` on cuda at
      ``max_batch`` 16 equal to the plain sharded path on every
-     ``ShardedResult`` field for 64 queries, unbudgeted, budgeted and one
+     ``ShardedResult`` field for 32 queries, unbudgeted, budgeted and one
      shard down; the merged top-k equal to ``Engine.traverse``, bitwise
      when both run exhaustively (no safe stop, no block pruning) and up
      to ties at the k-th score under safe stop and pruning;
      one ``traverse`` per chunk); the serving windows of ``--mode
      inflight`` (16 slots, quantum 1) and ``--mode sharded`` (S = 4,
-     batch 16); each window with the launch counters reset just before
-     and read just after; the batch and in-flight windows again with an
+     batch 16); the control plane (``ControlPlane(engine, 4, n_replicas=2)``
+     at batch 16 on the one card: 64 queries equal to
+     ``ShardedBatchEngine(ShardedEngine(engine, 4))`` and to the plane on
+     the plain path; shard 1 down, equal to the plain plane, every query
+     reaching shard 1 inexact; recovered, equal again; a live reshard with
+     ``drain_once`` at 16 queued queries a drain, each stage's wall, the
+     longest drain, queries served mid-cutover and arm to cutover, beside
+     the same layout stop-the-world, then 64 queries equal to a fresh
+     ``ShardedEngine`` at the new cuts; the plane's window against the
+     sharded window over the same engine in turns, q/s, P99, miss);
+     each window with the launch counters reset just before and read
+     just after; the batch and in-flight windows again with an
      enabled ``obs`` (q/s and P99 beside the ``obs``-off windows, the
      obs profiler's plan/dispatch/device/transfer split beside the smoke's
      own split of the profiled windows below); the artifact phase
@@ -171,7 +194,12 @@ WIDE_K = 2048  # the engine run at a k above the port's former limit of 1,024
 # directory rows, their postings.
 DEP_ROUNDS = 3
 N_QUERIES = 200
-SCALE_ANYTIME_QUERIES = 64  # the anytime loop's parity at scale (all N_QUERIES at preset)
+SCALE_ANYTIME_QUERIES = 48  # the anytime loop's parity at scale (all N_QUERIES at preset)
+# At scale, the queries held against the plain path (all N_QUERIES against
+# the oracle or Engine.traverse) and the sharded path's: cut from 200 and 64
+# so that the control phase fits the smoke's earlier wall time.
+SCALE_PLAIN_QUERIES = 96
+SCALE_SHARDED_PLAIN_QUERIES = 32
 QUERY_SEED = 42
 BATCH = 16  # the batch and sharded windows' micro-batch, the in-flight window's slots
 SHARDS = 4  # the sharded serving window's range shards (launch/serve.py --mode sharded)
@@ -952,10 +980,12 @@ def anytime_parity(kern, plain, plans, whole, caps, name: str) -> dict:
     return out
 
 
-def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = None) -> dict:
-    """Kernel engines == plain engines on the card; == oracle on safe exits;
-    the anytime loop's kernel engine == its plain engine (``anytime_parity``)
-    on the first ``n_anytime`` queries (None: all)."""
+def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = None,
+                    n_plain: int | None = None) -> dict:
+    """Kernel engines == plain engines on the card on the first ``n_plain``
+    queries (None: all), unbudgeted and budgeted; == oracle on every safe
+    exit; the anytime loop's kernel engine == its plain engine
+    (``anytime_parity``) on the first ``n_anytime`` queries (None: all)."""
     import numpy as np
     from repro_torch.core.oracle import exhaustive_scores, exhaustive_topk
     from repro_torch.core.range_daat import Engine
@@ -979,13 +1009,14 @@ def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = Non
         kern_s = time.perf_counter() - t0
         launches = read_launches()
         t0 = time.perf_counter()
-        want = [observe(plain, p) for p in plans]
+        want = [observe(plain, p) for p in plans[:n_plain]]
         plain.synchronize()
         plain_s = time.perf_counter() - t0
         name = f"{label} {dt}/{fmt}"
-        safe = 0
         for i, (g, w) in enumerate(zip(got, want)):
             check(g == w, f"{name} query {i}: kernels {g} != plain {w}")
+        safe = 0
+        for i, g in enumerate(got):
             if not g[6]:  # safe or exhausted: rank-safe, must match the oracle
                 safe += 1
                 check(rank_safe(g[0], g[1], *oracle[i]),
@@ -993,7 +1024,7 @@ def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = Non
         ranges = sum(g[4] for g in got)
         # A whole-query traversal is one traverse launch, and nothing else.
         check_launches(launches, {"traverse": len(plans)}, name)
-        budgets = [int(rng.integers(1, max(w[2], 1) + 1)) for w in want]
+        budgets = [int(rng.integers(1, max(g[2], 1) + 1)) for g in got]
         reset_launches()
         budgeted = [observe(kern, p, b) for p, b in zip(plans, budgets)]
         budget_launches = read_launches()
@@ -1001,18 +1032,20 @@ def four_way_parity(index, queries, label: str, dev, n_anytime: int | None = Non
         check_launches(budget_launches, {"traverse": len(plans)}, f"{name} budgeted")
         n_budget_exits = 0
         for i, (p, b, g) in enumerate(zip(plans, budgets, budgeted)):
-            w = observe(plain, p, b)
-            check(g == w, f"{name} query {i} budget {b}: kernels {g} != plain {w}")
+            if n_plain is None or i < n_plain:
+                w = observe(plain, p, b)
+                check(g == w, f"{name} query {i} budget {b}: kernels {g} != plain {w}")
             n_budget_exits += g[6]
         caps = [int(rng.integers(0, g[4] + 1)) for g in got][:n_anytime]
         anytime = anytime_parity(kern, plain, plans[:len(caps)], got, caps, name)
         out["engines"][f"{dt}/{fmt}"] = dict(
-            kernels_s=kern_s, plain_s=plain_s, ranges=ranges, launches=launches,
+            kernels_s=kern_s, plain_s=plain_s, plain_queries=len(want), ranges=ranges,
+            launches=launches,
             budget_ranges=budget_ranges, budget_launches=budget_launches,
             safe_exits=safe, budget_exits=n_budget_exits, anytime=anytime)
-        log(f"{name}: {len(queries)} queries equal to plain and oracle "
-            f"({safe} safe/exhausted exits), {len(queries)} budgeted equal "
-            f"({n_budget_exits} budget exits); kernels {kern_s:.2f} s, plain "
+        log(f"{name}: {len(queries)} queries, equal to plain for {len(want)} (unbudgeted "
+            f"and budgeted) and to the oracle on {safe} safe/exhausted exits, "
+            f"{n_budget_exits} budget exits; kernels {kern_s:.2f} s, plain "
             f"{plain_s:.2f} s; traverse launches {launches['traverse']} = queries "
             f"({ranges} ranges scored), budgeted {budget_launches['traverse']} "
             f"({budget_ranges} ranges); range_step and standalone scatter/decode "
@@ -1226,11 +1259,12 @@ def batch_result_fields(r) -> tuple:
             r.ranges_processed, r.exit_safe, r.exit_budget)
 
 
-def batch_parity(index, queries, dev) -> dict:
-    """``BatchEngine`` on cuda == ``BatchEngine`` on torch == ``Engine.traverse``
-    per query, on all seven fields: unbudgeted, random per-query postings
-    budgets, and random ``max_ranges`` caps (0 included), at ``MAX_BATCH``;
-    one ``traverse`` launch per chunk and nothing else."""
+def batch_parity(index, queries, dev, n_plain: int | None = None) -> dict:
+    """``BatchEngine`` on cuda == ``Engine.traverse`` per query, and ==
+    ``BatchEngine`` on torch for the first ``n_plain`` (None: all), on all
+    seven fields: unbudgeted, random per-query postings budgets, and random
+    ``max_ranges`` caps (0 included), at ``MAX_BATCH``; one ``traverse``
+    launch per chunk and nothing else."""
     import numpy as np
     from repro_torch.core.range_daat import Engine
     from repro_torch.serving import BatchEngine, BucketSpec
@@ -1258,16 +1292,19 @@ def batch_parity(index, queries, dev) -> dict:
         launches = read_launches()
         chunks = kb.batches_run - before
         check_launches(launches, {"traverse": chunks}, f"batch parity {label}")
+        m = n if n_plain is None else n_plain
         t0 = time.perf_counter()
-        want = pb.run_batch(plans, budget_postings=budgets, max_ranges=maxr)
+        want = pb.run_batch(plans[:m], budget_postings=None if budgets is None else
+                            budgets[:m], max_ranges=None if maxr is None else maxr[:m])
         plain_s = time.perf_counter() - t0
         first = first or got
         exits = {"safe": 0, "budget": 0, "exhausted": 0}
-        for i, (g, w, p) in enumerate(zip(got, want, plans)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(batch_result_fields(g) == batch_result_fields(w),
+                  f"batch parity {label} query {i}: cuda {batch_result_fields(g)} != "
+                  f"torch {batch_result_fields(w)}")
+        for i, (g, p) in enumerate(zip(got, plans)):
             gf = batch_result_fields(g)
-            check(gf == batch_result_fields(w),
-                  f"batch parity {label} query {i}: cuda {gf} != torch "
-                  f"{batch_result_fields(w)}")
             one = observe(kern, p, None if budgets is None else budgets[i],
                           None if maxr is None else maxr[i])
             check(gf == one, f"batch parity {label} query {i}: batch {gf} != "
@@ -1277,7 +1314,8 @@ def batch_parity(index, queries, dev) -> dict:
                           plain_s=plain_s, exits=exits,
                           ranges=sum(g.ranges_processed for g in got))
         log(f"batch parity {label}: {n} queries at max_batch {MAX_BATCH}, cuda == "
-            f"torch == Engine.traverse on all seven fields; {chunks} chunks, traverse "
+            f"Engine.traverse (and == torch for {m}) on all seven fields; {chunks} "
+            f"chunks, traverse "
             f"launches {launches['traverse']}, others 0; exits {exits}, "
             f"{out[label]['ranges']} ranges; cuda {kern_s:.3f} s, torch {plain_s:.2f} s")
     return out
@@ -2237,6 +2275,7 @@ def chain_phase(job, dev) -> dict:
         f"{fps['chain']}, {len(queries)} queries on every observe_query field, "
         f"unbudgeted and budgeted ({n_budget} budget exits, {n_new} appended docs "
         f"served); traverse launches {launches['traverse']}, others 0")
+    res["journal"] = journal_phase(paths, queries, dev)
     shutil.rmtree(CHAIN_DIR, ignore_errors=True)
     return res
 
@@ -2612,6 +2651,529 @@ def obs_windows(engine, queries, rounds: int = 3) -> dict:
     return out
 
 
+# ---------------------------------------------------------- control plane
+
+
+CONTROL_QUERIES = 64  # the control phases' parity queries
+CONTROL_REPLICAS = 2  # one card: the replica groups serve through the sharded engine
+# Partitioned IR (serve/distributed_ir.py): the preset corpus split round-robin.
+IR_SHARDS = 4
+IR_RANGES = 8  # ranges per sub-index (build_sharded_index's default)
+# A lane's postings budget that binds: a preset query scores a few hundred
+# postings a shard, so 2,000 cut no lane short on the H100.
+IR_BUDGET = 100
+# Anytime MIPS (serve/retrieval.py): the reference's recsys candidate count
+# (_REC_CANDIDATES, src/repro/configs/base.py:498) at MIND's width (D 64,
+# src/repro/configs/other_archs.py:25-30), 64 k-means ranges.
+MIPS = dict(n=1_000_000, dim=64, clusters=64, centers=256)
+MIPS_TOL = 1e-5  # rtol and atol on scores, card against the CPU
+
+
+def plane_dispatches(*bengines) -> int:
+    """Dispatches (``traverse`` launches on the card) of distinct batch engines."""
+    return sum(b.batches_run for b in {id(b): b for b in bengines}.values())
+
+
+def control_parity(index, queries, engine, dev, n: int = CONTROL_QUERIES) -> tuple:
+    """(a) and (b) of the control phase at the scale cell: the record and
+    the plane, which (c) and (d) go on with.
+
+    ``ControlPlane(engine, 4, n_replicas=2)`` on one card (``replica_mesh``
+    False, no replica-mesh dispatch) serves ``n`` unbudgeted queries equal to
+    ``ShardedBatchEngine(ShardedEngine(engine, 4))`` and to the same plane
+    over the plain path on the card, on every ``ShardedResult`` field; then
+    shard 1 down (equal to the plain plane, every query whose terms reach
+    shard 1 inexact), then up (equal to the healthy run again). One
+    ``traverse`` launch per dispatch, nothing else.
+    """
+    from repro_torch.control import ControlPlane
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serving import BucketSpec, ShardedBatchEngine, ShardedEngine
+
+    qs = queries[:n]
+    spec = BucketSpec(max_batch=BATCH)
+    t0 = time.perf_counter()
+    plane = ControlPlane(engine, n_shards=SHARDS, n_replicas=CONTROL_REPLICAS, spec=spec)
+    build_s = time.perf_counter() - t0
+    st = plane.stats()
+    check(st["replica_mesh"] is False and plane.replicas.group_mesh is None,
+          f"control: replica mesh on one card: {st['replica_mesh']}")
+    base = ShardedBatchEngine(ShardedEngine(engine, SHARDS, shards=plane.sengine.shards), spec)
+    plain_eng = Engine(index, k=10, device=dev, impl="torch", impact_dtype="int8",
+                       docs_format="packed")
+    plain = ControlPlane(plain_eng, n_shards=SHARDS, n_replicas=CONTROL_REPLICAS, spec=spec)
+    check(plain.cuts.tolist() == plane.cuts.tolist(), "control: plain plane's cuts differ")
+    out = dict(build_s=build_s, cuts=plane.cuts.tolist(), replica_mesh=st["replica_mesh"])
+
+    def serve(p, label):
+        before = plane_dispatches(plane.bengine, plane.bengine_single)
+        reset_launches()
+        t0 = time.perf_counter()
+        served = sorted(p.replay(qs, batch_size=BATCH), key=lambda s: s.rid)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        if p is plane:
+            check_launches(launches, {"traverse": plane_dispatches(
+                plane.bengine, plane.bengine_single) - before}, f"control {label}")
+        else:
+            check(not any(launches.values()), f"control {label}: launches {launches}")
+        return [s.result for s in served], launches, secs
+
+    healthy, launches, secs = serve(plane, "healthy")
+    want = base.run_batch([engine.plan(q) for q in qs])
+    plain_healthy, _, plain_s = serve(plain, "healthy, plain")
+    for i, (g, w, p) in enumerate(zip(healthy, want, plain_healthy)):
+        check(sharded_fields(g) == sharded_fields(w),
+              f"control (a) query {i}: plane {sharded_fields(g)} != ShardedBatchEngine "
+              f"{sharded_fields(w)}")
+        check(sharded_fields(g) == sharded_fields(p),
+              f"control (a) query {i}: plane on cuda != plane on the plain path")
+    out["healthy"] = dict(launches=launches["traverse"], kernel_s=secs, plain_s=plain_s,
+                          exact=sum(r.exact for r in healthy))
+    for p in (plane, plain):
+        p.mark_down(1)
+    degraded, launches, secs = serve(plane, "shard 1 down")
+    plain_degraded, _, _ = serve(plain, "shard 1 down, plain")
+    reach = 0
+    for i, (g, p, q) in enumerate(zip(degraded, plain_degraded, qs)):
+        check(sharded_fields(g) == sharded_fields(p),
+              f"control (b) query {i}: plane on cuda {sharded_fields(g)} != plain "
+              f"{sharded_fields(p)}")
+        check(g.shard_exit_reasons[1] == "down" and g.shard_postings[1] == 0,
+              f"control (b) query {i}: shard 1 served while down")
+        if plane.sengine.query_shard_mass(engine.plan(q))[1] > 0:
+            reach += 1
+            check(not g.exact and g.fidelity_bound > 0,
+                  f"control (b) query {i}: exact with shard 1 down")
+    out["degraded"] = dict(launches=launches["traverse"], kernel_s=secs, reaching=reach,
+                           inexact=sum(not r.exact for r in degraded),
+                           max_fidelity_bound=max(r.fidelity_bound for r in degraded))
+    for p in (plane, plain):
+        p.mark_up(1)
+    recovered, launches, _ = serve(plane, "recovered")
+    for i, (g, w) in enumerate(zip(recovered, healthy)):
+        check(sharded_fields(g) == sharded_fields(w),
+              f"control (b) query {i}: after mark_up {sharded_fields(g)} != healthy")
+    out["recovered_launches"] = launches["traverse"]
+    log(f"control (a): ControlPlane(S={SHARDS}, replicas={CONTROL_REPLICAS}) on one card "
+        f"(built in {build_s:.2f} s, cuts {out['cuts']}, replica_mesh False, 0 replica-mesh "
+        f"dispatches): {n} unbudgeted queries == ShardedBatchEngine(ShardedEngine(engine, "
+        f"{SHARDS})) == the plane on the plain path, every ShardedResult field; "
+        f"{out['healthy']['launches']} traverse launches, others 0; cuda "
+        f"{secs:.3f} s, plain {plain_s:.2f} s")
+    log(f"control (b): shard 1 down: {n} queries == plain on every field (fidelity_bound "
+        f"and exact included), {out['degraded']['inexact']} inexact, {reach} of them "
+        f"reach shard 1 (each inexact), largest fidelity_bound "
+        f"{out['degraded']['max_fidelity_bound']}; mark_up: == (a) again")
+    return out, plane
+
+
+def reshard_phase(plane, index, queries, engine, dev, n: int = CONTROL_QUERIES) -> dict:
+    """(c): a live reshard to the planner's proposal (or the first boundary
+    moved one range) with ``drain_once`` at BATCH queued queries a drain,
+    each stage's wall, the longest drain, queries served mid-cutover and the
+    arm-to-cutover wall; the same layout stop-the-world (carve, build, warm
+    with the queue blocked) before it; after the cutover ``n`` queries equal
+    a fresh ``ShardedEngine`` over ``shard_device_index(index, cuts=...)``."""
+    import numpy as np
+    from repro_torch.control import ReplicaGroupEngine, ReshardTask
+    from repro_torch.core.clustered_index import shard_device_index
+    from repro_torch.serving import ShardedBatchEngine, ShardedEngine
+
+    if plane.planner.should_reshard():
+        cuts, source = plane.planner.propose(), "planner"
+    else:
+        cuts = plane.cuts.copy()
+        cuts[1] = cuts[1] - 1 if cuts[1] > 1 else cuts[1] + 1
+        source = "nudge"
+    widths = sorted({w for (_, w) in plane.bengine.compiled_shapes})
+
+    def timed(task):
+        stages, step = [], task.step
+
+        def run():
+            t0 = time.perf_counter()
+            stage = step()
+            stages.append((stage, (time.perf_counter() - t0) * 1e3))
+            return stage
+
+        task.step = run
+        return stages
+
+    # Stop-the-world first: the queue waits behind carve + build + warm.
+    def build(shards):
+        seng = ShardedEngine(engine, len(shards), shards=shards)
+        return seng, ShardedBatchEngine(ReplicaGroupEngine(seng, CONTROL_REPLICAS),
+                                        plane.spec)
+
+    for q in queries[:BATCH]:
+        plane.submit(q)
+    t0 = time.perf_counter()
+    stw = ReshardTask(plane.sengine.shards, cuts, build, widths)
+    stw_stages = timed(stw)
+    while not stw.ready:
+        stw.step()
+    stw_ms = (time.perf_counter() - t0) * 1e3
+    blocked = plane.drain_once()
+    stw_p99 = float(np.percentile([s.latency_ms for s in blocked], 99))
+
+    reset_launches()
+    t_arm = time.perf_counter()
+    task = plane.start_reshard(cuts)
+    stages = timed(task)
+    drains, qi, served = [], 0, 0
+    engines = [plane.bengine, plane.bengine_single]
+    before = plane_dispatches(*engines)
+    while plane.reshard_task is not None:
+        for q in queries[qi % len(queries):qi % len(queries) + BATCH]:
+            plane.submit(q)
+        qi += BATCH
+        t0 = time.perf_counter()
+        got = plane.drain_once()
+        drains.append((time.perf_counter() - t0) * 1e3)
+        served += len(got)
+        check(len(got) > 0, "reshard: a drain served nothing mid-cutover")
+    reshard_ms = (time.perf_counter() - t_arm) * 1e3
+    launches = read_launches()
+    engines.append(task.bengine)  # the successor, warmed inside the task
+    check_launches(launches, {"traverse": plane_dispatches(*engines) - before},
+                   "live reshard")
+    check(plane.cuts.tolist() == [int(c) for c in cuts], "reshard: cuts not adopted")
+    fresh = ShardedEngine(engine, SHARDS, shards=shard_device_index(index, cuts=cuts))
+    plans = [engine.plan(q) for q in queries[:n]]
+    got = plane.bengine.run_batch(plans)
+    want = ShardedBatchEngine(fresh, plane.spec).run_batch(plans)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(sharded_fields(g) == sharded_fields(w),
+              f"reshard query {i}: plane after cutover != fresh ShardedEngine at the cuts")
+
+    def by_stage(st):
+        return {name: [round(ms, 3) for s, ms in st if s == name]
+                for name in ("carve", "build", "warm")}
+
+    out = dict(source=source, cuts=[int(c) for c in cuts], widths=widths,
+               live=dict(stages_ms=by_stage(stages), steps=task.steps_done,
+                         drains_ms=drains, longest_drain_ms=max(drains),
+                         median_drain_ms=float(np.median(drains)),
+                         served_mid_cutover=plane.queries_served_during_reshard,
+                         reshard_ms=reshard_ms, launches=launches["traverse"]),
+               stop_the_world=dict(stages_ms=by_stage(stw_stages), total_ms=stw_ms,
+                                   blocked_queries=len(blocked), blocked_p99_ms=stw_p99))
+    live = out["live"]
+    log(f"control (c): live reshard ({source}) {plane.cuts.tolist()}: carve per shard "
+        f"{live['stages_ms']['carve']} ms, build {live['stages_ms']['build']} ms, warm per "
+        f"width {live['stages_ms']['warm']} ms; {len(drains)} drains of {BATCH} queued "
+        f"queries, longest {live['longest_drain_ms']:.1f} ms (median "
+        f"{live['median_drain_ms']:.2f} ms), {live['served_mid_cutover']} queries served "
+        f"mid-cutover, arm to cutover {reshard_ms:.1f} ms, traverse launches "
+        f"{live['launches']}, others 0; after the cutover {n} queries == a fresh "
+        f"ShardedEngine at the cuts")
+    log(f"control (c): the same layout stop-the-world: carve "
+        f"{out['stop_the_world']['stages_ms']['carve']} ms, build "
+        f"{out['stop_the_world']['stages_ms']['build']} ms, warm "
+        f"{out['stop_the_world']['stages_ms']['warm']} ms = {stw_ms:.1f} ms with the "
+        f"queue blocked ({len(blocked)} queued queries, P99 {stw_p99:.1f} ms)")
+    return out
+
+
+def control_window(plane, engine, queries, sla_ms: float, rounds: int = 3) -> dict:
+    """(d): the plane's serving window against the sharded window over the
+    same sharded engine (S = 4, batch 16) in turns (sharded, control,
+    control, sharded, ...; ``2 * rounds`` windows each), both budgeted by a
+    fresh ``ShardedSlaBudgeter`` of one configuration (the plane's BoundSum
+    mode, SLA ``sla_ms``: the sharded serving window's); q/s, P99 and the
+    miss share against ``sla_ms``; what the plane adds per batch is the
+    difference of the median wall per batch. One ``traverse`` per dispatch."""
+    import numpy as np
+    from repro_torch.core.anytime import Reactive
+    from repro_torch.serving import MicroBatchServer, ShardedBatchEngine, ShardedSlaBudgeter
+
+    beng = ShardedBatchEngine(plane.sengine, plane.spec)
+    widths = sorted({plane.spec.width_bucket(engine.plan(q).blk_tab_host.shape[1])
+                     for q in queries})
+    beng.warmup(widths)
+    plane.bengine.warmup(widths)
+
+    def budgeter():
+        return ShardedSlaBudgeter(sla_ms=sla_ms, n_shards=plane.n_shards, mode="boundsum",
+                                  shard_mass=plane.sengine.query_shard_mass,
+                                  policy=Reactive(alpha=1.0, beta=1.5, q=0.01))
+
+    runs = {"sharded": [], "control": []}
+    for r in range(2 * rounds):
+        mode = "control" if (r % 4) in (1, 2) else "sharded"
+        bud = budgeter()
+        if mode == "control":
+            bud.down_mask = plane.health.shard_down_mask
+            plane.budgeter = plane.server.budgeter = bud
+            before = plane_dispatches(plane.bengine, plane.bengine_single)
+            run, count = (lambda: plane.replay(queries, batch_size=BATCH),
+                          lambda: plane_dispatches(plane.bengine, plane.bengine_single))
+        else:
+            server = MicroBatchServer(beng, bud, max_batch=BATCH)
+            before = beng.batches_run
+            run, count = (lambda: server.replay(queries, batch_size=BATCH),
+                          lambda: beng.batches_run)
+        reset_launches()
+        t0 = time.perf_counter()
+        served = run()
+        wall = time.perf_counter() - t0
+        check_launches(read_launches(), {"traverse": count() - before},
+                       f"{mode} window {r}")
+        lat = np.asarray([s.latency_ms for s in served])
+        batches = -(-len(queries) // BATCH)
+        runs[mode].append(dict(qps=len(served) / wall, p99_ms=float(np.percentile(lat, 99)),
+                               miss_pct=float((lat > sla_ms).mean() * 100),
+                               ms_per_batch=wall * 1e3 / batches,
+                               dispatches=count() - before))
+    med = {m: float(np.median([w["ms_per_batch"] for w in v])) for m, v in runs.items()}
+    out = dict(sla_ms=sla_ms, rounds=rounds, **{m: v for m, v in runs.items()},
+               median_ms_per_batch=med,
+               plane_adds_ms_per_batch=med["control"] - med["sharded"])
+    for m in ("sharded", "control"):
+        log(f"control (d): {m} window in turns, {len(queries)} queries at batch {BATCH}, "
+            f"SLA {sla_ms:.3f} ms: q/s {[round(w['qps'], 1) for w in runs[m]]}, P99 ms "
+            f"{[round(w['p99_ms'], 3) for w in runs[m]]}, miss % "
+            f"{[round(w['miss_pct'], 2) for w in runs[m]]}")
+    log(f"control (d): the plane adds {out['plane_adds_ms_per_batch']:.4f} ms a batch "
+        f"(median {med['control']:.4f} against {med['sharded']:.4f} ms)")
+    return out
+
+
+def journal_phase(paths: dict, queries, dev, n: int = CONTROL_QUERIES) -> dict:
+    """(e): over the chain phase's base artifact and its delta head, a plane
+    journals a reshard (first boundary moved one range) and ``mark_down(1)``;
+    ``ControlPlane.from_artifact(path, 4, replay=True)`` in a fresh plane
+    then has the same cuts and ledger and answers ``n`` queries equal on
+    every ``ShardedResult`` field (one ``traverse`` per dispatch)."""
+    from repro_torch.control import ControlPlane
+    from repro_torch.serving import BucketSpec
+
+    out = {}
+    kw = dict(spec=BucketSpec(max_batch=BATCH), engine_kwargs=dict(k=10, device=dev))
+    for name in ("base", "head"):
+        path = paths[name]
+        t0 = time.perf_counter()
+        plane = ControlPlane.from_artifact(path, SHARDS, **kw)
+        open_s = time.perf_counter() - t0
+        cuts = plane.cuts.copy()
+        cuts[1] = cuts[1] - 1 if cuts[1] > 1 else cuts[1] + 1
+        plane.start_reshard(cuts)
+        while plane.reshard_task is not None:
+            plane.submit(queries[0])
+            plane.drain_once()
+        plane.mark_down(1)
+        reset_launches()
+        before = plane_dispatches(plane.bengine, plane.bengine_single)
+        want = sorted(plane.replay(queries[:n], batch_size=BATCH), key=lambda s: s.rid)
+        t0 = time.perf_counter()
+        fresh = ControlPlane.from_artifact(path, SHARDS, replay=True, **kw)
+        replay_s = time.perf_counter() - t0
+        check(fresh.cuts.tolist() == plane.cuts.tolist() == [int(c) for c in cuts],
+              f"journal {name}: replayed cuts {fresh.cuts.tolist()}")
+        check(fresh.health._up.tolist() == plane.health._up.tolist(),
+              f"journal {name}: replayed ledger differs")
+        got = sorted(fresh.replay(queries[:n], batch_size=BATCH), key=lambda s: s.rid)
+        launches = read_launches()
+        check_launches(launches, {"traverse": plane_dispatches(
+            plane.bengine, plane.bengine_single) - before + plane_dispatches(
+            fresh.bengine, fresh.bengine_single)}, f"journal {name}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(sharded_fields(g.result) == sharded_fields(w.result),
+                  f"journal {name} query {i}: replayed plane != journaling plane")
+        records = plane.journal.records()
+        out[name] = dict(open_s=open_s, replay_s=replay_s, cuts=plane.cuts.tolist(),
+                         records=[r["kind"] for r in records],
+                         fingerprint=records[0]["fingerprint"],
+                         launches=launches["traverse"])
+        log(f"control (e): {name} artifact: journaled {out[name]['records']} (fingerprint "
+            f"{out[name]['fingerprint']}); from_artifact(replay=True) in {replay_s:.2f} s: "
+            f"cuts {fresh.cuts.tolist()}, ledger and {n} answers equal (shard 1 down); "
+            f"traverse launches {launches['traverse']}")
+    return out
+
+
+# ------------------------------------------------- partitioned IR and MIPS
+
+
+def build_ir(src: str, cfg: dict, n_queries: int) -> dict:
+    """Worker: ``build_sharded_index`` over the preset corpus (M = IR_SHARDS,
+    IR_RANGES ranges a sub-index, ``cfg``'s strategy) on the CPU, as numpy:
+    the stacked arrays, each sub-index's arrays, and a query log."""
+    sys.path.insert(0, src)
+    from repro_torch.core.clustered_index import INDEX_ARRAYS
+    from repro_torch.data.synth import make_corpus, make_query_log
+    from repro_torch.serve.distributed_ir import build_sharded_index
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(n_docs=cfg["n_docs"], n_terms=cfg["n_terms"],
+                         n_topics=cfg["n_topics"], mean_doc_len=cfg["mean_doc_len"], seed=0)
+    arrays, engines = build_sharded_index(corpus, IR_SHARDS, IR_RANGES,
+                                          strategy=cfg["strategy"], device="cpu")
+    build_s = time.perf_counter() - t0
+    subs = []
+    for e in engines:
+        idx = e.index
+        a = {n: getattr(idx, n) for n in INDEX_ARRAYS if n not in ("doc_order", "range_ends")}
+        a["doc_order"] = idx.arrangement.doc_order
+        a["range_ends"] = idx.arrangement.range_ends
+        subs.append(dict(arrays=a, fingerprint=idx.fingerprint(), meta=dict(
+            n_docs=idx.n_docs, n_terms=idx.n_terms, strategy=idx.arrangement.strategy,
+            quant_bits=idx.quantizer.bits, quant_scale=idx.quantizer.scale)))
+    fields = ("docs", "impacts", "blk_start", "blk_len", "blk_maximp", "range_starts",
+              "doc_base")
+    return dict(stacked={f: getattr(arrays, f).numpy() for f in fields},
+                s_pad=arrays.s_pad, k=arrays.k, subs=subs, build_s=build_s,
+                terms=make_query_log(corpus, n_queries=n_queries, seed=QUERY_SEED).terms)
+
+
+def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
+    """Partitioned IR on the card: ``sharded_anytime_query`` over the Q x M
+    (query, shard) lanes, one ``traverse`` launch a call, equal on every
+    output (values, global ids, ranges) to its plain path on the card
+    (``impl="torch"``), unbudgeted and at a postings budget, and on the
+    score lists to the merged per-shard exhaustive oracles."""
+    import torch
+    from repro_torch.core.clustered_index import index_from_arrays
+    from repro_torch.core.oracle import exhaustive_topk
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serve.distributed_ir import (
+        ShardedIndexArrays, plan_queries, sharded_anytime_query)
+
+    out = job.get()
+    engines = []
+    for sub in out["subs"]:
+        idx = index_from_arrays(sub["arrays"], **sub["meta"])
+        check(idx.fingerprint() == sub["fingerprint"], "ir: fingerprint changed in transfer")
+        engines.append(Engine(idx, k=10, device=dev))
+    arrays = ShardedIndexArrays(
+        **{f: torch.from_numpy(a) for f, a in out["stacked"].items()},
+        s_pad=out["s_pad"], k=out["k"]).to(dev)
+    terms = out["terms"][:n]
+    t0 = time.perf_counter()
+    tables = plan_queries(engines, terms)
+    plan_s = time.perf_counter() - t0
+    res = dict(build_s=out["build_s"], plan_s=plan_s, shards=IR_SHARDS, ranges=IR_RANGES,
+               s_pad=arrays.s_pad, nnz=int(arrays.docs.shape[1]))
+    for label, budget in (("unbudgeted", 2**31 - 1), ("budgeted", IR_BUDGET)):
+        reset_launches()
+        got = [t.cpu() for t in sharded_anytime_query(arrays, tables, None, budget,
+                                                       impl="cuda")]
+        launches = read_launches()
+        check_launches(launches, {"traverse": 1}, f"ir {label}")
+        want = [t.cpu() for t in sharded_anytime_query(arrays, tables, None, budget,
+                                                        impl="torch")]
+        for name, g, w in zip(("vals", "ids", "ranges"), got, want):
+            check(g.dtype == w.dtype and g.tolist() == w.tolist(),
+                  f"ir {label}: {name} on cuda != the plain path")
+        ms = time_ms(lambda: sharded_anytime_query(arrays, tables, None, budget,
+                                                   impl="cuda"), iters=20, warmup=3)
+        res[label] = dict(launches=launches["traverse"], ms_per_call=ms,
+                          ranges=int(got[2]), lanes=len(terms) * IR_SHARDS)
+    check(res["budgeted"]["ranges"] < res["unbudgeted"]["ranges"],
+          f"ir: a {IR_BUDGET}-posting budget cut no lane short")
+    vals = [t.cpu() for t in sharded_anytime_query(arrays, tables, None)][0]
+    for qi in range(len(terms)):
+        merged = []
+        for e in engines:
+            merged.extend(exhaustive_topk(e.index, terms[qi], 10)[1].tolist())
+        expect = [v for v in sorted(merged, reverse=True)[:10] if v > 0]
+        check(sorted([v for v in vals[qi].tolist() if v > 0], reverse=True) == expect,
+              f"ir query {qi}: merged top-k scores != the merged per-shard oracles")
+    log(f"partitioned IR: build_sharded_index (preset corpus, M = {IR_SHARDS}, "
+        f"{IR_RANGES} ranges a shard, worker) {out['build_s']:.1f} s; {len(terms)} queries "
+        f"x {IR_SHARDS} shards: cuda == plain on vals, ids and ranges, unbudgeted and at "
+        f"{IR_BUDGET} postings a lane; == the merged per-shard oracles; one traverse a "
+        f"call, {res['unbudgeted']['ms_per_call']:.3f} ms a call unbudgeted "
+        f"({res['unbudgeted']['ranges']} lane-ranges), "
+        f"{res['budgeted']['ms_per_call']:.3f} ms budgeted "
+        f"({res['budgeted']['ranges']} lane-ranges)")
+    return res
+
+
+def build_mips(src: str, spec: dict, seed: int = 0) -> dict:
+    """Worker: ``spec["n"]`` clusterable candidates of width ``spec["dim"]``
+    (``spec["centers"]`` planted directions plus noise, as the reference's
+    test makes them), clustered by ``build_clustered_candidates`` into
+    ``spec["clusters"]`` ranges on the CPU; numpy out, with the queries."""
+    sys.path.insert(0, src)
+    import numpy as np
+    from repro_torch.serve.retrieval import build_clustered_candidates
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    centers = rng.normal(0, 1, size=(spec["centers"], spec["dim"])).astype(np.float32)
+    emb = centers[rng.integers(0, spec["centers"], size=spec["n"])]
+    emb += 0.3 * rng.standard_normal(size=emb.shape, dtype=np.float32)
+    t1 = time.perf_counter()
+    cc = build_clustered_candidates(emb, spec["clusters"], seed=1, device="cpu")
+    return dict(cc={f: getattr(cc, f).numpy() for f in ("emb", "ids", "lo", "hi")},
+                data_s=t1 - t0, build_s=time.perf_counter() - t1,
+                safe=rng.normal(0, 1, size=(16, spec["dim"])).astype(np.float32),
+                multi=rng.normal(0, 1, size=(8, 4, spec["dim"])).astype(np.float32))
+
+
+def mips_phase(job, dev) -> dict:
+    """Anytime MIPS on the card against the CPU port on the same candidates:
+    safe queries, budgeted ones (a quarter of the candidates, no safe stop)
+    and multi-interest ones (J = 4): ids, ``ranges_processed``,
+    ``candidates_scored`` and ``exit_safe`` equal, scores within MIPS_TOL,
+    ids differing only within a tolerance tie; ms per query on each."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.retrieval import ClusteredCandidates, anytime_mips
+
+    out = job.get()
+    host = ClusteredCandidates(**{f: torch.from_numpy(a) for f, a in out["cc"].items()})
+    card = ClusteredCandidates(**{f: getattr(host, f).to(dev)
+                                  for f in ("emb", "ids", "lo", "hi")})
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "mips: TF32 is on")
+    budget = MIPS["n"] // 4
+    forms = {"safe": (out["safe"], {}),
+             "budgeted": (out["safe"][:8], dict(budget_candidates=budget, safe_stop=False)),
+             "multi-interest": (out["multi"], {})}
+    res = dict(data_s=out["data_s"], build_s=out["build_s"], capacity=card.capacity,
+               ranges=card.n_ranges)
+    for label, (qs, kw) in forms.items():
+        rows, card_ms, cpu_ms = [], [], []
+        for i, q in enumerate(qs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = anytime_mips(card, q, k=10, **kw)
+            gs, gi = g.scores.cpu().numpy(), g.ids.cpu().numpy()
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            w = anytime_mips(host, q, k=10, **kw)
+            cpu_ms.append((time.perf_counter() - t0) * 1e3)
+            ws, wi = w.scores.numpy(), w.ids.numpy()
+            ctx = f"mips {label} query {i}"
+            check((g.ranges_processed, g.candidates_scored, g.exit_safe)
+                  == (w.ranges_processed, w.candidates_scored, w.exit_safe),
+                  f"{ctx}: counters {g[2:]} != CPU {w[2:]}")
+            check(bool(np.allclose(gs, ws, rtol=MIPS_TOL, atol=MIPS_TOL)),
+                  f"{ctx}: scores beyond tolerance")
+            for j in np.nonzero(gi != wi)[0]:
+                near = np.abs(ws - ws[j]) <= MIPS_TOL + MIPS_TOL * np.abs(ws[j])
+                near[j] = False
+                check(bool(near.any()), f"{ctx}: ids differ outside a tolerance tie")
+            rows.append(dict(ranges=g.ranges_processed, scored=g.candidates_scored,
+                             safe=g.exit_safe,
+                             max_abs_err=float(np.max(np.abs(gs - ws)))))
+        res[label] = dict(queries=len(qs), card_ms=card_ms, cpu_ms=cpu_ms,
+                          median_card_ms=float(np.median(card_ms)),
+                          median_cpu_ms=float(np.median(cpu_ms)),
+                          mean_ranges=float(np.mean([r["ranges"] for r in rows])),
+                          safe_exits=sum(r["safe"] for r in rows),
+                          max_abs_err=max(r["max_abs_err"] for r in rows))
+        log(f"anytime MIPS {label}: {len(qs)} queries over {MIPS['n']} candidates "
+            f"(D {MIPS['dim']}, {card.n_ranges} ranges, capacity {card.capacity}): card == "
+            f"CPU port (counters exact, scores within {MIPS_TOL}, largest |err| "
+            f"{res[label]['max_abs_err']:.3g}); mean ranges {res[label]['mean_ranges']:.1f}, "
+            f"{res[label]['safe_exits']} safe exits; median ms a query card "
+            f"{res[label]['median_card_ms']:.2f}, CPU {res[label]['median_cpu_ms']:.2f}")
+    return res
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2645,6 +3207,8 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         "scale": pool.apply_async(build_corpus_index, (str(SRC), scale, N_QUERIES,
                                                        str(ROOT / ".cache"))),
         "chain": pool.apply_async(build_chain, (str(SRC), preset, str(CHAIN_DIR))),
+        "ir": pool.apply_async(build_ir, (str(SRC), preset, N_QUERIES)),
+        "mips": pool.apply_async(build_mips, (str(SRC), MIPS)),
     }
 
     dev = torch.device("cuda", 0) if dev is None else dev
@@ -2684,7 +3248,13 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     del index
     t0 = time.perf_counter()
     record["chain"] = chain_phase(jobs["chain"], dev)
-    log(f"chain phase {time.perf_counter() - t0:.1f} s")
+    log(f"chain phase (control (e) included) {time.perf_counter() - t0:.1f} s")
+    # Partitioned IR and anytime MIPS, while the scale build runs on.
+    t0 = time.perf_counter()
+    record["ir"] = ir_phase(jobs["ir"], dev)
+    t1 = time.perf_counter()
+    record["mips"] = mips_phase(jobs["mips"], dev)
+    log(f"partitioned IR phase {t1 - t0:.1f} s, MIPS phase {time.perf_counter() - t1:.1f} s")
 
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
@@ -2692,16 +3262,19 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     # The anytime loop's parity at scale on 64 queries: the scale phases
     # follow the slowest host build, so they set the smoke's wall time.
     record["scale"]["parity"] = four_way_parity(index, queries, "scale", dev,
-                                                n_anytime=SCALE_ANYTIME_QUERIES)
+                                                n_anytime=SCALE_ANYTIME_QUERIES,
+                                                n_plain=SCALE_PLAIN_QUERIES)
     # The standalone scatter and decode, off the engine's path, on their own.
     blocks_launches = score_blocks_path(index, queries, parity, dev)
     record["scale"]["score_blocks_launches"] = blocks_launches
-    record["scale"]["batch_parity"] = batch_parity(index, queries, dev)
+    record["scale"]["batch_parity"] = batch_parity(index, queries, dev,
+                                                   n_plain=SCALE_PLAIN_QUERIES)
     record["scale"]["wide_k_parity"] = wide_k_parity(index, queries, dev)
     t0 = time.perf_counter()
     record["scale"]["inflight_parity"] = inflight_parity(index, queries, dev)
     t1 = time.perf_counter()
-    record["scale"]["sharded_parity"] = sharded_parity(index, queries, dev)
+    record["scale"]["sharded_parity"] = sharded_parity(
+        index, queries, dev, n_plain=SCALE_SHARDED_PLAIN_QUERIES)
     log(f"in-flight parity {t1 - t0:.1f} s, sharded parity {time.perf_counter() - t1:.1f} s")
 
     # The main path: the serving loop over the kernels' engine.
@@ -2767,6 +3340,30 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         f"shapes {sstats['shapes']}, final alpha {sstats['final_alpha']:.3f}")
     record["scale"]["serve_sharded"] = sstats
     record["scale"]["sharded_path_launches"] = sharded_launches
+
+    # This slice's path: the control plane on the same engine, S = 4.
+    t0 = time.perf_counter()
+    control, plane = control_parity(index, queries, engine, dev)
+    control["reshard"] = reshard_phase(plane, index, queries, engine, dev)
+    control["window"] = control_window(plane, engine, queries, sstats["sla_ms"])
+    del plane
+    # launch/serve.py --mode control: healthy, shard 0 down, up, live reshard.
+    reset_launches()
+    cstats = serve.serve_control(engine, queries, SHARDS, CONTROL_REPLICAS, BATCH)
+    check_launches(read_launches(), {"traverse": cstats["batches"],
+                                     "range_step": cstats["ranges"]},
+                   "control serving window")
+    log(serve.format_report("control", cstats))
+    log(f"control serving window (--mode control, S={SHARDS}, replicas "
+        f"{CONTROL_REPLICAS}, batch {BATCH}): {cstats['degraded']} degraded answers while "
+        f"shard 0 was down, reshard {cstats['first_cuts']} -> {cstats['cuts']} in "
+        f"{cstats['reshard_steps']} steps with {cstats['served_during_reshard']} queries "
+        f"served mid-cutover; {cstats['batches']} traverse launches, one a dispatch")
+    control["serve_control"] = cstats
+    control_launches = sum(w["dispatches"] for w in control["window"]["control"]) + \
+        cstats["batches"]
+    record["scale"]["control"] = control
+    log(f"control phase {time.perf_counter() - t0:.1f} s")
 
     # The batch and in-flight windows again, instrumented, before any
     # profiler session; then the artifact phase.
@@ -2870,9 +3467,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     kernels = []
     # The standalone kernels report their own path's launches (score_blocks);
     # range_step the serving window's, traverse the batch serving window's.
+    ir_launches = sum(record["ir"][f]["launches"] for f in ("unbudgeted", "budgeted"))
     path_launches = dict(blocks_launches, range_step=launches["range_step"],
                          traverse=batch_launches["traverse"]
-                         + inflight_launches["traverse"] + sharded_launches["traverse"])
+                         + inflight_launches["traverse"] + sharded_launches["traverse"]
+                         + control_launches + ir_launches)
     replaces = {"scatter_accumulate": f"{TPU_SCORER}:47",
                 "unpack_locals": f"{TPU_SCORER}:107",
                 "range_step": f"{TPU_SCORER}:47 + {TPU_SCORER}:107",
@@ -2883,9 +3482,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         per_query = {
             "range_step": f"{launches[kname] / runs:.2f} launches/query on the serving "
                           "window",
-            "traverse": f"{path_launches[kname]} launches on the batch, in-flight and "
-                        f"sharded serving windows ({batch_launches['traverse']}, "
-                        f"{inflight_launches['traverse']}, {sharded_launches['traverse']})",
+            "traverse": f"{path_launches[kname]} launches on the batch, in-flight, "
+                        f"sharded and control windows and the partitioned-IR calls "
+                        f"({batch_launches['traverse']}, {inflight_launches['traverse']}, "
+                        f"{sharded_launches['traverse']}, {control_launches}, "
+                        f"{ir_launches})",
         }.get(kname, f"{path_launches[kname]} launches on score_blocks, 0 on the main "
                      "path")
         log(f"{kname} [{tm['shape']}]: {tm['ms'] * 1e3:.2f} us/call, plain "

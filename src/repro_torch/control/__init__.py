@@ -1,5 +1,10 @@
-# The control plane's durable topology journal (DESIGN.md §10), copied from
-# the reference: ``python -m repro_torch.index_io log`` reads it. The rest of
-# the reference's control plane (health ledger, reshard, replica groups,
-# ControlPlane) is not ported yet.
+# Anytime serving control plane (DESIGN.md §9, §10), on one card: health-
+# ledger-driven degraded failover, online reshard with a staged live
+# cutover, replica groups (served through the sharded engine until the mesh
+# paths are ported), all above the port's serving engines, plus the durable
+# topology journal replayed across process restarts.
+from repro_torch.control.health import HealthEvent, HealthLedger  # noqa: F401
 from repro_torch.control.journal import JOURNAL_NAME, TopologyJournal  # noqa: F401
+from repro_torch.control.plane import ControlPlane  # noqa: F401
+from repro_torch.control.replica import ReplicaGroupEngine  # noqa: F401
+from repro_torch.control.reshard import ReshardPlanner, ReshardTask  # noqa: F401

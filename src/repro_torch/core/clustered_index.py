@@ -73,6 +73,8 @@ __all__ = [
     "pack_docs",
     "plan_delta",
     "range_postings_mass",
+    "restack_prep",
+    "restack_shards",
     "shard_cuts",
     "shard_device_index",
     "unpack_docs",
@@ -1120,6 +1122,216 @@ def shard_device_index(
             )
         )
     return shards
+
+
+def _gather_block_postings(
+    dst: np.ndarray,
+    src: np.ndarray,
+    dst_start: np.ndarray,
+    src_start: np.ndarray,
+    lens: np.ndarray,
+    delta: int,
+) -> None:
+    """Copy per-block posting runs ``src[src_start:+len] + delta`` into
+    ``dst[dst_start:+len]`` without a per-posting Python loop (the cumsum/
+    repeat trick ``shard_device_index`` uses, generalized to scattered
+    destinations)."""
+    if lens.size == 0:
+        return
+    total = int(lens.sum())
+    within = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(lens) - lens, lens
+    )
+    dst_idx = np.repeat(dst_start, lens) + within
+    src_idx = np.repeat(src_start, lens) + within
+    dst[dst_idx] = src[src_idx] + delta
+
+
+@dataclasses.dataclass(frozen=True)
+class _RestackPrep:
+    """Shared geometry for re-carving one shard set: computed (and the
+    source layout + cuts validated) once, reused by every per-shard carve
+    step of a staged cutover."""
+
+    shards: list  # sources, sorted by range_lo
+    cuts: np.ndarray  # [S_new + 1] validated
+    g_range_starts: np.ndarray  # [R] global docid of each range start
+    g_range_sizes: np.ndarray  # [R]
+    n_docs: int
+    n_blocks: int  # global block-id space size
+    src_gids: list  # per source shard: ascending global block ids
+    src_ranges: list  # per source shard: global range id per block
+
+
+def restack_prep(shards: list[IndexShard], cuts: np.ndarray) -> _RestackPrep:
+    """Validate a restack and recover the global geometry from shard arrays.
+
+    Range starts/sizes come from each source shard's local tables, block
+    ownership from ``blk_map`` (whose ascending global ids correspond to
+    local ids 0..NB_s-1), and each block's global range from ``blk_maxdoc``
+    (blocks never straddle ranges). Raises on non-contiguous sources or
+    malformed cuts — callers staging a cutover get the error up front,
+    never mid-serving.
+    """
+    if not shards:
+        raise ValueError("cannot restack an empty shard list")
+    shards = sorted(shards, key=lambda sh: sh.range_lo)
+    if shards[0].range_lo != 0 or any(
+        a.range_hi != b.range_lo for a, b in zip(shards, shards[1:])
+    ):
+        raise ValueError("source shards must tile the range space contiguously")
+    cuts = _validate_cuts(cuts, shards[-1].range_hi)
+
+    g_range_starts = np.concatenate(
+        [sh.range_starts.astype(np.int64) + sh.doc_base for sh in shards]
+    )
+    g_range_sizes = np.concatenate(
+        [sh.range_sizes.astype(np.int64) for sh in shards]
+    )
+    src_gids, src_ranges = [], []
+    for sh in shards:
+        gids = np.nonzero(sh.blk_map >= 0)[0]
+        if gids.shape[0] != sh.blk_len.shape[0]:
+            raise ValueError(
+                f"shard {sh.shard_id}: blk_map owns {gids.shape[0]} blocks "
+                f"but arrays hold {sh.blk_len.shape[0]}"
+            )
+        r_loc = (
+            np.searchsorted(sh.range_starts, sh.blk_maxdoc, side="right") - 1
+        )
+        src_gids.append(gids)
+        src_ranges.append(r_loc.astype(np.int64) + sh.range_lo)
+    return _RestackPrep(
+        shards=shards,
+        cuts=cuts,
+        g_range_starts=g_range_starts,
+        g_range_sizes=g_range_sizes,
+        n_docs=int(g_range_starts[-1] + g_range_sizes[-1]),
+        n_blocks=int(shards[0].blk_map.shape[0]),
+        src_gids=src_gids,
+        src_ranges=src_ranges,
+    )
+
+
+def restack_shards(
+    shards: list[IndexShard],
+    cuts: np.ndarray,
+    only: int | None = None,
+    prep: _RestackPrep | None = None,
+) -> list[IndexShard]:
+    """Re-carve a shard set to new range cuts from shard arrays alone.
+
+    The online-reshard primitive (DESIGN.md §9): no full index is needed —
+    every posting, block, and bound already lives in exactly one source
+    shard, and a new contiguous band of ranges is assembled by slicing /
+    concatenating those shard-local arrays and rebasing their coordinates.
+    Blocks are re-sorted into global-block-id order (recovered from each
+    shard's ``blk_map``), so the output is **array-for-array identical** to
+    ``shard_device_index(index, cuts=cuts)`` on the original index — the
+    bitwise-cutover guarantee the control plane's tests pin. Works directly
+    on shards loaded from an ``index_io`` shard artifact.
+
+    ``only`` carves just that output shard (a one-element list) — the unit
+    of work the control plane's staged cutover performs per serving-loop
+    step, so a reshard never blocks the queue for a whole re-stack; pass
+    the :func:`restack_prep` result as ``prep`` to share the geometry
+    scan across steps.
+    """
+    if prep is None:
+        prep = restack_prep(shards, cuts)
+    shards, cuts = prep.shards, prep.cuts
+    g_range_starts, g_range_sizes = prep.g_range_starts, prep.g_range_sizes
+    src_gids, src_ranges = prep.src_gids, prep.src_ranges
+    n_docs, NB, R = prep.n_docs, prep.n_blocks, int(cuts[-1])
+
+    targets = (
+        range(cuts.shape[0] - 1)
+        if only is None
+        else range(only, only + 1)
+    )
+    out: list[IndexShard] = []
+    for s in targets:
+        lo, hi = int(cuts[s]), int(cuts[s + 1])
+        doc_base = int(g_range_starts[lo])
+        # (global id, source shard, source-local block id) for owned blocks.
+        rows = []
+        for si, (gids, g_r) in enumerate(zip(src_gids, src_ranges)):
+            sel = (g_r >= lo) & (g_r < hi)
+            loc = np.nonzero(sel)[0]
+            rows.append((gids[loc], np.full(loc.shape[0], si), loc))
+        gid = np.concatenate([r[0] for r in rows])
+        src = np.concatenate([r[1] for r in rows]).astype(np.int64)
+        loc = np.concatenate([r[2] for r in rows]).astype(np.int64)
+        order = np.argsort(gid, kind="stable")  # fresh-carve block order
+        gid, src, loc = gid[order], src[order], loc[order]
+
+        lens = np.empty(gid.shape[0], np.int64)
+        for si, sh in enumerate(shards):
+            m = src == si
+            lens[m] = sh.blk_len[loc[m]]
+        new_start = np.zeros(gid.shape[0], dtype=np.int64)
+        if gid.size:
+            new_start[1:] = np.cumsum(lens)[:-1]
+        nnz_s = int(lens.sum())
+
+        docs = np.empty(nnz_s, np.int32)
+        impacts = np.empty(nnz_s, np.int32)
+        maxdoc = np.empty(gid.shape[0], np.int32)
+        maximp = np.empty(gid.shape[0], np.int32)
+        for si, sh in enumerate(shards):
+            m = src == si
+            if not m.any():
+                continue
+            delta = sh.doc_base - doc_base  # old-local -> new-local docids
+            _gather_block_postings(
+                docs, sh.docs, new_start[m], sh.blk_start[loc[m]],
+                lens[m], delta,
+            )
+            _gather_block_postings(
+                impacts, sh.impacts, new_start[m], sh.blk_start[loc[m]],
+                lens[m], 0,
+            )
+            maxdoc[m] = sh.blk_maxdoc[loc[m]] + delta
+            maximp[m] = sh.blk_maximp[loc[m]]
+
+        blk_map = np.full(NB, -1, dtype=np.int32)
+        blk_map[gid] = np.arange(gid.shape[0], dtype=np.int32)
+        n_docs_s = int(
+            (g_range_starts[hi] if hi < R else n_docs) - doc_base
+        )
+        bounds = np.hstack(
+            [
+                sh.bounds_dense[
+                    :, max(lo, sh.range_lo) - sh.range_lo
+                    : min(hi, sh.range_hi) - sh.range_lo
+                ]
+                for sh in shards
+                if sh.range_hi > lo and sh.range_lo < hi
+            ]
+        )
+        out.append(
+            IndexShard(
+                shard_id=s,
+                range_lo=lo,
+                range_hi=hi,
+                doc_base=doc_base,
+                n_docs=n_docs_s,
+                postings=nnz_s,
+                docs=docs,
+                impacts=impacts,
+                blk_start=new_start,
+                blk_len=lens.astype(np.int32),
+                blk_maxdoc=maxdoc,
+                blk_maximp=maximp,
+                blk_map=blk_map,
+                range_starts=(g_range_starts[lo:hi] - doc_base).astype(
+                    np.int32
+                ),
+                range_sizes=g_range_sizes[lo:hi].astype(np.int32),
+                bounds_dense=np.ascontiguousarray(bounds),
+            )
+        )
+    return out
 
 
 def build_index_cached(

@@ -1,14 +1,14 @@
 """Serving launcher of the port: anytime IR under an SLA, on the card.
 
-``python -m repro_torch.launch.serve [--mode host|batch|inflight|sharded]
+``python -m repro_torch.launch.serve [--mode host|batch|inflight|sharded|control]
 [--sla-ms B] [--policy reactive] [--batch-size 16] [--quantum 1]
-[--shards 4] [--queries N] [--n-docs N] [--n-terms V] [--strategy S]
-[--device cuda] [--trace out.jsonl] [--metrics snap.json]``
+[--shards 4] [--replicas 1] [--queries N] [--n-docs N] [--n-terms V]
+[--strategy S] [--device cuda] [--trace out.jsonl] [--metrics snap.json]``
 
 Builds a clustered index over the planted-topic benchmark corpus (the JAX
 package's benchmark preset: 24,000 docs, 12,000 terms, 24 topics, 32
 ranges, mean length 220, ``clustered_bp``) and serves a query stream in
-one of four modes, reporting q/s, percentile latencies, SLA compliance and
+one of five modes, reporting q/s, percentile latencies, SLA compliance and
 RBO against the exhaustive oracle:
 
   * ``--mode host`` (default) — the host-driven anytime loop under the
@@ -24,7 +24,18 @@ RBO against the exhaustive oracle:
   * ``--mode sharded`` — ``MicroBatchServer`` over ``ShardedBatchEngine``
     with ``--shards`` range shards stacked on one card, one ``traverse``
     launch per micro-batch over every (query, shard) pair, budgets from
-    ``ShardedSlaBudgeter`` (``--mode sharded``).
+    ``ShardedSlaBudgeter`` (``--mode sharded``);
+  * ``--mode control`` — the control plane (``control.ControlPlane``)
+    over ``--shards`` range shards and ``--replicas`` replica groups (one
+    card: the groups serve through the sharded engine), BoundSum budgets,
+    one stream through a healthy window, an outage of shard 0 (served
+    degraded through the fidelity bound), its recovery and a live reshard
+    (the planner's proposal, or the first boundary nudged one range) with
+    serving uninterrupted: the counterpart of the reference's
+    ``examples/serve_anytime.py --mode control``. With ``--trace`` or
+    ``--metrics`` the operations loop (SLO tracker, drift monitor) runs
+    every drain, its alerts fed back into the plane, and the metrics
+    snapshot is rewritten after every drain.
 
 ``--trace out.jsonl`` records a per-query trace of the timed window (any
 mode, sample rate 1.0, DESIGN.md §13) for ``python -m repro_torch.obs
@@ -46,6 +57,7 @@ import time
 
 import numpy as np
 
+from repro_torch.control import ControlPlane
 from repro_torch.core.anytime import (
     Fixed, Overshoot, Policy, Predictive, Reactive, Undershoot, run_query_anytime,
 )
@@ -70,7 +82,7 @@ from repro_torch.serving import (
 
 __all__ = [
     "Operations", "POLICIES", "PRESET", "build_preset", "calibrate", "format_report",
-    "main", "serve", "serve_batch", "serve_inflight",
+    "main", "serve", "serve_batch", "serve_control", "serve_inflight",
 ]
 
 PRESET = dict(
@@ -374,6 +386,132 @@ def serve_inflight(
     }
 
 
+def serve_control(
+    engine: Engine,
+    queries: list,
+    n_shards: int = 4,
+    n_replicas: int = 1,
+    batch_size: int = 16,
+    sla_ms: float | None = None,
+    n_calibrate: int = 64,
+    obs=NOOP,
+    metrics_path: str | None = None,
+) -> dict:
+    """Serve ``queries`` through a ``ControlPlane``: healthy, shard 0 down,
+    recovered, then a live reshard, one stream.
+
+    The reference's ``serve_control`` (``examples/serve_anytime.py``): the
+    plane (``sla_ms`` None serves unbudgeted) runs every (batch, width)
+    shape once, then the first
+    third of the log healthy, the second third with shard 0 marked down
+    (every query answers, degraded), and the rest while a reshard to the
+    planner's proposal (or, when the planner is not armed, the first
+    boundary moved by one range) cuts over between drains. With an enabled
+    ``obs`` the plane's operations loop (``SloTracker``, ``DriftMonitor``
+    with the default detectors) polls every drain and ``metrics_path`` is
+    rewritten after each drain of the reshard window. ``batches`` counts
+    the dispatches of every batch engine the plane served through, the
+    successor's warm-up included (``traverse`` launches under
+    ``impl="cuda"``); ``ranges`` the calibration's range steps.
+    """
+    plane = ControlPlane(
+        engine, n_shards=n_shards, n_replicas=n_replicas,
+        sla_ms=sla_ms or float("inf"), spec=BucketSpec(max_batch=batch_size), obs=obs,
+    )
+    tracker = monitor = None
+    alerts: list = []
+    if obs.enabled:
+        tracker = SloTracker(obs, default_serving_slos(sla_ms=sla_ms, fidelity_ceiling=None))
+        monitor = DriftMonitor(obs)
+        default_serving_detectors(monitor, n_shards=n_shards, server="control")
+        monitor.subscribe(lambda ev: alerts.append(ev.to_dict()))
+        plane.enable_operations(slos=tracker, monitor=monitor)
+    first = plane.stats()
+    cal = calibrate(engine, queries, n_calibrate)
+    oracle = cal["oracle"]
+    widths = {plane.bengine.spec.width_bucket(engine.plan(q).blk_tab_host.shape[1])
+              for q in queries}
+    plane.bengine.warmup(sorted(widths))
+    engines = {}  # every batch engine the plane dispatched through
+
+    def track():
+        task = plane.reshard_task
+        for beng in (plane.bengine, plane.bengine_single,
+                     task.bengine if task is not None else None):
+            if beng is not None:
+                engines[id(beng)] = beng
+
+    times, vals, degraded = [], [], 0
+
+    def consume(served):
+        nonlocal degraded
+        track()
+        for s in served:
+            times.append(s.latency_ms)
+            r = s.result
+            if "down" in r.shard_exit_reasons and not r.exact:
+                degraded += 1
+        vals.extend(_rbo_to_oracle(served, oracle))
+
+    def refresh_metrics():
+        if metrics_path and obs.enabled:
+            write_snapshot(
+                metrics_path, obs.metrics,
+                slo=tracker.evaluate() if tracker is not None else None,
+                alerts=alerts[-32:],
+                profiler=obs.profiler.snapshot() if obs.profiler is not None else None,
+                t=obs.clock(),
+            )
+
+    third = max(batch_size, len(queries) // 3)
+    track()
+    t0 = time.perf_counter()
+    consume(plane.replay(queries[:third], batch_size=batch_size))
+    plane.mark_down(0)
+    consume(plane.replay(queries[third:2 * third], batch_size=batch_size))
+    plane.mark_up(0)
+    task = (plane.start_reshard(plane.planner.propose())
+            if plane.planner.should_reshard() else None)
+    if task is None and n_shards > 1:
+        # Nudge the first boundary by one range (a single shard has no
+        # interior boundary to move).
+        cuts = plane.cuts.copy()
+        cuts[1] = cuts[1] - 1 if cuts[1] > 1 else cuts[1] + 1
+        if cuts[1] < cuts[2] and not np.array_equal(cuts, plane.cuts):
+            task = plane.start_reshard(cuts)
+    qi = 2 * third
+    while qi < len(queries) or plane.reshard_task is not None:
+        for q in queries[qi:qi + batch_size]:
+            plane.submit(q)
+        qi += batch_size
+        consume(plane.drain_once())
+        refresh_metrics()
+    while plane.pending:
+        consume(plane.drain_once())
+        refresh_metrics()
+    wall = time.perf_counter() - t0
+    budget = sla_ms or float("inf")
+    st = plane.stats()
+    return {
+        **({"slo": tracker.evaluate(), "alerts": alerts} if obs.enabled else {}),
+        **_latency_stats(times, vals, budget, wall, len(times)),
+        "shards": n_shards,
+        "replicas": n_replicas,
+        "first_cuts": first["cuts"],
+        "cuts": st["cuts"],
+        "replica_mesh": st["replica_mesh"],
+        "budget_mode": plane.budgeter.mode,
+        "degraded": degraded,
+        "reshard_steps": task.steps_done if task is not None else 0,
+        "reshards": plane.reshards_completed,
+        "served_during_reshard": plane.queries_served_during_reshard,
+        "degraded_slo": st["degraded_slo"],
+        "batches": sum(b.batches_run for b in engines.values()),
+        "ranges": cal["ranges"],
+        "exhaustive_p99_ms": cal["exhaustive_p99_ms"],
+    }
+
+
 def format_report(policy_name: str, s: dict) -> str:
     probe = (f"unbudgeted {policy_name} P99 {s['probe_p99_ms']:.2f} ms, "
              if "probe_p99_ms" in s else "")
@@ -390,13 +528,16 @@ def format_report(policy_name: str, s: dict) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="host",
-                    choices=("host", "batch", "inflight", "sharded"))
+                    choices=("host", "batch", "inflight", "sharded", "control"))
     ap.add_argument("--batch-size", type=int, default=16,
                     help="micro-batch (batch, sharded) or slots (inflight)")
     ap.add_argument("--quantum", type=int, default=1,
                     help="ranges per in-flight step (--mode inflight)")
     ap.add_argument("--shards", type=int, default=4,
-                    help="range shards on the card (--mode sharded)")
+                    help="range shards on the card (--mode sharded, control)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica groups (--mode control; on one card they serve "
+                         "through the sharded engine)")
     ap.add_argument("--sla-ms", type=float, default=None)
     ap.add_argument("--policy", default="reactive", choices=sorted(POLICIES))
     ap.add_argument("--alpha", type=float, default=1.0)
@@ -461,6 +602,24 @@ def _serve_mode(args, obs) -> dict:
         print(format_report("inflight", stats))
         print(f"slots={stats['slots']}, quantum={stats['quantum']}, {stats['steps']} "
               f"steps, shapes {stats['shapes']}, final alpha {stats['final_alpha']:.2f}")
+        return stats
+    if args.mode == "control":
+        stats = serve_control(engine, queries, args.shards, args.replicas, args.batch_size,
+                              sla_ms=args.sla_ms, obs=obs, metrics_path=args.metrics)
+        print(f"control plane: {stats['shards']} shards x {stats['replicas']} replicas, "
+              f"cuts={stats['first_cuts']}, replica_mesh={stats['replica_mesh']}, "
+              f"budget mode={stats['budget_mode']}")
+        print(f"  outage window: shard 0 down, {stats['degraded']} queries served "
+              "degraded (exact=False, bounded fidelity loss)")
+        if stats["reshards"]:
+            print(f"  live reshard -> cuts={stats['cuts']} in {stats['reshard_steps']} "
+                  f"steps; {stats['served_during_reshard']} queries served mid-cutover "
+                  "(serving never paused)")
+        print(format_report("control", stats))
+        print(f"degraded={stats['degraded']}, reshards={stats['reshards']}, "
+              f"{stats['batches']} dispatches")
+        if stats["degraded_slo"]:
+            print("  SLO state: degraded (burn-rate alert firing)")
         return stats
     policy = POLICIES[args.policy](args.alpha)
     stats = serve(engine, queries, policy, sla_ms=args.sla_ms, obs=obs)

@@ -17,7 +17,11 @@ carry field, also over stacked range shards (lane n reads shard n % S),
 with ``BatchEngine``, ``ShardedBatchEngine`` and ``InflightServer`` on
 ``cuda`` equal to ``torch``; engines loaded from index artifacts
 (``from_artifact``) equal the in-memory ones on the card, and serving
-with an enabled ``obs`` handle equals serving without. The bag
+with an enabled ``obs`` handle equals serving without; the control plane
+(healthy, a shard down, a live reshard, a journal replayed) on ``cuda``
+equals it on the plain path, the partitioned IR's one launch over the
+(query, shard) lanes equals its plain version, and anytime MIPS on the
+card equals the CPU within float32 tolerance. The bag
 reduce sums
 floats in another order than its plain version, so it is held within a
 stated tolerance instead.
@@ -813,3 +817,126 @@ def test_obs_on_equals_obs_off_on_card(cuda_device, small_index, mode):
     assert serve(obs) == serve(NOOP)
     snap = next(iter(obs.profiler.snapshot().values()))
     assert snap["recompiles"] == 0 and snap["device_ms"] > 0.0
+
+
+# ------------------------------------------------------------ control plane
+
+
+def _served_fields(served) -> list:
+    return [(s.rid, _fields(s.result)) for s in sorted(served, key=lambda s: s.rid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_replicas", [1, 2])
+def test_control_plane_on_card_matches_plain(cuda_device, small_index, n_replicas):
+    """ControlPlane on cuda == on the plain path on the card: healthy, shard
+    1 down, recovered, through a live reshard and after it; one launch a
+    dispatch; replica groups serve through the fallback on one card."""
+    from repro_torch.control import ControlPlane
+
+    index, queries = small_index
+    planes = [ControlPlane(Engine(index, k=10, device=cuda_device, impl=impl,
+                                  impact_dtype="int8", docs_format="packed"),
+                           n_shards=4, n_replicas=n_replicas, spec=BucketSpec(max_batch=4))
+              for impl in (None, "torch")]
+    kern, plain = planes
+    assert kern.stats()["replica_mesh"] is False and kern.sengine.impl == "cuda"
+    for step in ("healthy", "down", "up"):
+        if step != "healthy":
+            for p in planes:
+                getattr(p, f"mark_{step}")(1)
+        before = kernel.traverse.launches
+        got = kern.replay(queries, batch_size=4)
+        assert kernel.traverse.launches > before
+        assert _served_fields(got) == _served_fields(plain.replay(queries, batch_size=4))
+    cuts = kern.cuts.copy()
+    cuts[1] = cuts[1] - 1 if cuts[1] > 1 else cuts[1] + 1
+    for p in planes:
+        p.start_reshard(cuts)
+    while kern.reshard_task is not None:
+        for p in planes:
+            p.submit(queries[0])
+        assert _served_fields(kern.drain_once()) == _served_fields(plain.drain_once())
+    assert plain.reshard_task is None and kern.cuts.tolist() == cuts.tolist()
+    assert _served_fields(kern.replay(queries, batch_size=4)) == _served_fields(
+        plain.replay(queries, batch_size=4))
+
+
+@pytest.mark.cuda
+def test_control_plane_journal_replays_on_card(cuda_device, small_index, tmp_path):
+    from repro_torch.control import ControlPlane
+
+    index, queries = small_index
+    path = str(tmp_path / "art")
+    index_io.save_index(index, path)
+    kw = dict(spec=BucketSpec(max_batch=4), engine_kwargs=dict(k=10, device=cuda_device))
+    plane = ControlPlane.from_artifact(path, 3, **kw)
+    plane.start_reshard(np.asarray([0, 2, 5, 8]))
+    while plane.reshard_task is not None:
+        plane.drain_once()
+    plane.mark_down(2)
+    fresh = ControlPlane.from_artifact(path, 3, replay=True, **kw)
+    assert fresh.cuts.tolist() == [0, 2, 5, 8]
+    assert fresh.health._up.tolist() == plane.health._up.tolist()
+    assert _served_fields(fresh.replay(queries, batch_size=4)) == _served_fields(
+        plane.replay(queries, batch_size=4))
+
+
+# ------------------------------------------------- partitioned IR and MIPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [2**31 - 1, 500])
+def test_partitioned_ir_on_card_matches_plain(cuda_device, budget):
+    """One traverse launch over the Q x M lanes (int32 impacts, raw int32
+    docids), equal to its plain version on the card; the merged scores
+    equal the merged per-shard oracles."""
+    from repro_torch.serve.distributed_ir import (
+        build_sharded_index, plan_queries, sharded_anytime_query)
+
+    corpus = make_corpus(n_docs=1600, n_terms=1200, n_topics=6, mean_doc_len=40, seed=3)
+    terms = make_query_log(corpus, n_queries=8, seed=4).terms
+    arrays, engines = build_sharded_index(corpus, 4, 4, device=cuda_device)
+    tables = plan_queries(engines, terms)
+    before = kernel.traverse.launches
+    got = [t.cpu() for t in sharded_anytime_query(arrays, tables, None, budget)]
+    assert kernel.traverse.launches == before + 1
+    want = [t.cpu() for t in sharded_anytime_query(arrays, tables, None, budget,
+                                                    impl="torch")]
+    assert [t.tolist() for t in got] == [t.tolist() for t in want]
+    if budget < 2**31 - 1:
+        return
+    for qi in range(len(terms)):
+        merged = []
+        for e in engines:
+            merged.extend(exhaustive_topk(e.index, terms[qi], 10)[1].tolist())
+        expect = [v for v in sorted(merged, reverse=True)[:10] if v > 0]
+        assert sorted([v for v in got[0][qi].tolist() if v > 0], reverse=True) == expect
+
+
+@pytest.mark.cuda
+def test_anytime_mips_on_card_matches_cpu(cuda_device):
+    """Card == CPU: counters exact, scores within rtol/atol 1e-5, ids only
+    differing within a tolerance tie."""
+    from repro_torch.serve.retrieval import (
+        ClusteredCandidates, anytime_mips, build_clustered_candidates)
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 1, size=(8, 32)).astype(np.float32)
+    emb = centers[rng.integers(0, 8, size=5000)] + 0.3 * rng.normal(
+        0, 1, size=(5000, 32)).astype(np.float32)
+    host = build_clustered_candidates(emb, n_clusters=16, seed=1, device="cpu")
+    card = ClusteredCandidates(*(getattr(host, f).to(cuda_device)
+                                 for f in ("emb", "ids", "lo", "hi")))
+    for kw in ({}, dict(budget_candidates=600, safe_stop=False), dict(max_ranges=2)):
+        for shape in ((32,), (4, 32)):
+            q = rng.normal(0, 1, size=shape).astype(np.float32)
+            g, w = anytime_mips(card, q, k=10, **kw), anytime_mips(host, q, k=10, **kw)
+            assert g[2:] == w[2:]
+            gs, ws = g.scores.cpu().numpy(), w.scores.numpy()
+            np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5)
+            gi, wi = g.ids.cpu().numpy(), w.ids.numpy()
+            for j in np.nonzero(gi != wi)[0]:
+                near = np.abs(ws - ws[j]) <= 1e-5 + 1e-5 * np.abs(ws[j])
+                near[j] = False
+                assert near.any(), (kw, j)

@@ -1,13 +1,16 @@
 """The port's incremental index artifacts against the reference's.
 
-Follows the reference's ``tests/test_incremental.py`` in every case that
-needs no ``ControlPlane``: ``extend_index`` equals a fresh build bitwise
-(and the reference's ``extend_index``), delta chains round-trip and
-``compact`` in both packages to the same files, an engine from a chain
-head serves bitwise, a crashed append, mis-chained deltas, a
-pre-incremental artifact and the topology journal's torn tail behave as
-there, and the CLI's append/compact/log. The journal-replay cases of the
-control plane wait for its port.
+Follows the reference's ``tests/test_incremental.py``: ``extend_index``
+equals a fresh build bitwise (and the reference's ``extend_index``), delta
+chains round-trip and ``compact`` in both packages to the same files, an
+engine from a chain head serves bitwise, a crashed append, mis-chained
+deltas, a pre-incremental artifact and the topology journal's torn tail
+behave as there, and the CLI's append/compact/log; the control plane's
+journal replay (cuts and ledger reconstructed, records from before the
+last reshard skipped, a foreign journal refused, a chain head's journal),
+a journal written by either package's plane replayed by the other's, and
+the replay across a process boundary (the reference's subprocess case,
+JAX-free and on one device: ``use_mesh=False``).
 """
 
 from __future__ import annotations
@@ -15,18 +18,21 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 from differential import observe_query
 from repro import index_io as ref_io
+from repro.control import ControlPlane as RefPlane
 from repro.control import TopologyJournal as RefJournal
 from repro.core import clustered_index as ref_ci
 from repro.data.synth import concat_corpora as ref_concat
 from repro.data.synth import make_corpus, make_query_log
 from repro_torch import index_io
-from repro_torch.control import JOURNAL_NAME, TopologyJournal
+from repro_torch.control import JOURNAL_NAME, ControlPlane, TopologyJournal
 from repro_torch.core.clustered_index import (
     apply_delta,
     build_index,
@@ -37,6 +43,9 @@ from repro_torch.core.clustered_index import (
 from repro_torch.core.range_daat import Engine
 from repro_torch.data.synth import concat_corpora
 from repro_torch.index_io.__main__ import main as cli
+from repro_torch.serving import BucketSpec
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 INDEX_FIELDS = (
     "ptr", "docs", "impacts",
@@ -425,3 +434,193 @@ def test_cli_append_compact_log(tmp_path, capsys):
         "append", "--parent", str(tmp_path / "nope"), "--out",
         str(tmp_path / "x"), "--n-docs", "10", "--n-terms", "300",
     ]) == 1
+
+
+# --------------------------------------------------------------------------
+# Control plane: the topology journal replayed
+# --------------------------------------------------------------------------
+
+PLANE_KW = dict(use_mesh=False, spec=BucketSpec(max_batch=4),
+                engine_kwargs=dict(k=5, device="cpu"))
+
+
+def test_plane_journal_replay_reconstructs_cuts_and_ledger(base_index, tmp_path):
+    """A second plane opened on the same artifact with replay=True resumes
+    at the journaled layout and ledger and serves bitwise-identically."""
+    path = str(tmp_path / "art")
+    index_io.save_index(base_index, path)
+    kw = dict(n_shards=3, **PLANE_KW)
+    plane = ControlPlane.from_artifact(path, **kw)
+    assert plane.journal is not None and not plane.journal.exists
+    plane.start_reshard(np.asarray([0, 1, 4, 6]))
+    while plane.reshard_task is not None:
+        plane.drain_once()
+    plane.mark_down(1)
+    plane.mark_up(1)
+    plane.mark_down(2)
+    assert len(plane.journal.records()) == 4
+
+    plane2 = ControlPlane.from_artifact(path, replay=True, **kw)
+    np.testing.assert_array_equal(plane2.cuts, plane.cuts)
+    np.testing.assert_array_equal(plane2.health._up, plane.health._up)
+    assert plane2.reshards_completed == 1
+    assert len(plane.journal.records()) == 4  # replay journals nothing
+
+    log = make_query_log(make_corpus(n_docs=200, n_terms=700, n_topics=4, seed=2),
+                         n_queries=6, seed=3)
+    for i in range(log.n_queries):
+        a = plane.bengine.run_batch([plane.engine.plan(log.terms[i])])[0]
+        b = plane2.bengine.run_batch([plane2.engine.plan(log.terms[i])])[0]
+        assert a.doc_ids.tolist() == b.doc_ids.tolist()
+        assert a.scores.tolist() == b.scores.tolist()
+        assert a.shard_exit_reasons == b.shard_exit_reasons
+    # Dying mid-reshard: an uncommitted cutover leaves no record.
+    plane.mark_up(2)
+    plane.start_reshard(np.asarray([0, 2, 4, 6]))
+    plane3 = ControlPlane.from_artifact(path, replay=True, **kw)
+    np.testing.assert_array_equal(plane3.cuts, [0, 1, 4, 6])
+    assert plane3.health.all_up
+
+
+def test_replay_skips_health_records_from_before_last_reshard(base_index, tmp_path):
+    path = str(tmp_path / "art")
+    index_io.save_index(base_index, path)
+    plane = ControlPlane.from_artifact(path, n_shards=4, **PLANE_KW)
+    plane.mark_down(3)  # only valid under the 4-shard layout
+    plane.mark_up(3)
+    plane.start_reshard(np.asarray([0, 1, base_index.n_ranges]))  # 4 -> 2
+    while plane.reshard_task is not None:
+        plane.drain_once()
+    plane.mark_down(1)
+    plane2 = ControlPlane.from_artifact(path, n_shards=2, replay=True, **PLANE_KW)
+    np.testing.assert_array_equal(plane2.cuts, [0, 1, base_index.n_ranges])
+    assert plane2.reshards_completed == 1
+    assert plane2.health.shard_down_mask().tolist() == [False, True]
+
+
+def test_plane_refuses_foreign_journal(base_corpus, base_index, tmp_path):
+    import shutil
+
+    path = str(tmp_path / "art")
+    index_io.save_index(base_index, path)
+    plane = ControlPlane.from_artifact(path, n_shards=2, **PLANE_KW)
+    plane.mark_down(0)
+    other = build_index(base_corpus, n_ranges=4, strategy="clustered", seed=9)
+    opath = str(tmp_path / "other")
+    index_io.save_index(other, opath)
+    shutil.copy(os.path.join(path, JOURNAL_NAME), os.path.join(opath, JOURNAL_NAME))
+    with pytest.raises(index_io.ArtifactError, match="foreign"):
+        ControlPlane.from_artifact(opath, n_shards=2, replay=True, **PLANE_KW)
+    with pytest.raises(RuntimeError, match="no topology journal"):
+        ControlPlane.from_artifact(opath, n_shards=2, journal=False,
+                                   **PLANE_KW).replay_journal()
+
+
+def test_plane_from_chain_head_with_journal(base_index, deltas, tmp_path):
+    base, head = str(tmp_path / "base"), str(tmp_path / "head")
+    index_io.save_index(base_index, base)
+    ext = index_io.append_index(base, deltas[0], head, n_ranges=2, seed=5)
+    plane = ControlPlane.from_artifact(head, n_shards=3, **PLANE_KW)
+    assert plane.engine.index.fingerprint() == ext.fingerprint()
+    plane.mark_down(2)
+    assert plane.journal.records()[0]["fingerprint"] == ext.fingerprint()
+    plane2 = ControlPlane.from_artifact(head, n_shards=3, replay=True, **PLANE_KW)
+    assert plane2.health.shard_down_mask().tolist() == [False, False, True]
+
+
+def _served_rows(served):
+    return [[s.result.doc_ids.tolist(), s.result.scores.tolist(),
+             list(s.result.shard_exit_reasons), int(s.result.fidelity_bound),
+             bool(s.result.exact)] for s in sorted(served, key=lambda s: s.rid)]
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_journal_replays_across_packages(base_index, tmp_path, writer):
+    """A journal written by either package's plane (a reshard, a health
+    transition, same JSON and fingerprint stamp) replays in the other's:
+    cuts, ledger and degraded answers equal."""
+    path = str(tmp_path / "art")
+    index_io.save_index(base_index, path)
+    ref_kw = dict(n_shards=3, use_mesh=False, engine_kwargs=dict(k=5))
+    port_kw = dict(n_shards=3, **PLANE_KW)
+    make_writer, make_reader = (
+        (lambda **kw: RefPlane.from_artifact(path, **ref_kw, **kw),
+         lambda **kw: ControlPlane.from_artifact(path, **port_kw, **kw))
+        if writer == "reference" else
+        (lambda **kw: ControlPlane.from_artifact(path, **port_kw, **kw),
+         lambda **kw: RefPlane.from_artifact(path, **ref_kw, **kw)))
+    w = make_writer()
+    w.start_reshard(np.asarray([0, 2, 5, 6]))
+    while w.reshard_task is not None:
+        w.drain_once()
+    w.mark_down(1)
+    records = w.journal.records()
+    assert [r["kind"] for r in records] == ["reshard", "health"]
+    assert {r["fingerprint"] for r in records} == {base_index.fingerprint()}
+    r = make_reader(replay=True)
+    assert r.cuts.tolist() == [0, 2, 5, 6] == w.cuts.tolist()
+    assert r.health._up.tolist() == w.health._up.tolist()
+    assert r.reshards_completed == 1
+    log = make_query_log(make_corpus(n_docs=200, n_terms=700, n_topics=4, seed=2),
+                         n_queries=6, seed=3)
+    queries = [log.terms[i] for i in range(log.n_queries)]
+    assert _served_rows(r.replay(queries, batch_size=4)) == _served_rows(
+        w.replay(queries, batch_size=4))
+
+
+_JOURNAL_SUBPROC = r"""
+import json, sys
+import numpy as np
+from repro_torch import index_io
+from repro_torch.control import ControlPlane
+from repro_torch.core.clustered_index import build_index
+from repro_torch.data.synth import make_corpus, make_query_log
+from repro_torch.serving import BucketSpec
+
+path, phase = sys.argv[1], sys.argv[2]
+corpus = make_corpus(n_docs=900, n_terms=700, n_topics=4, mean_doc_len=50, seed=7)
+log = make_query_log(corpus, n_queries=8, seed=8)
+queries = [log.terms[i] for i in range(log.n_queries)]
+kw = dict(n_shards=4, use_mesh=False, spec=BucketSpec(max_batch=4),
+          engine_kwargs=dict(k=5, device="cpu"))
+
+def rows(served):
+    return [[s.result.doc_ids.tolist(), s.result.scores.tolist(),
+             list(s.result.shard_exit_reasons), s.result.fidelity_bound,
+             bool(s.result.exact)] for s in sorted(served, key=lambda s: s.rid)]
+
+if phase == "write":
+    index_io.save_index(build_index(corpus, n_ranges=8, strategy="clustered"), path)
+    plane = ControlPlane.from_artifact(path, **kw)
+    plane.start_reshard(np.asarray([0, 1, 3, 6, 8]))
+    while plane.reshard_task is not None:
+        plane.submit(queries[0]); plane.drain_once()
+    plane.mark_down(3)
+    with open(path + ".expect.json", "w") as f:
+        json.dump({"cuts": plane.cuts.tolist(), "up": plane.health._up.tolist(),
+                   "rows": rows(plane.replay(queries, batch_size=4))}, f)
+    print("WRITE_OK", len(plane.journal.records()))
+else:
+    with open(path + ".expect.json") as f:
+        expect = json.load(f)
+    plane = ControlPlane.from_artifact(path, replay=True, **kw)
+    assert plane.cuts.tolist() == expect["cuts"], plane.cuts
+    assert plane.health._up.tolist() == expect["up"]
+    assert rows(plane.replay(queries, batch_size=4)) == expect["rows"]
+    print("REPLAY_OK", len(queries))
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+"""
+
+
+def test_journal_replay_across_process_boundary_subprocess(tmp_path):
+    """A broker process exits after a journaled reshard and outage; a NEW
+    process replays the journal and serves the degraded layout
+    bitwise-identically (one device, no JAX in either process)."""
+    path = str(tmp_path / "art")
+    env = dict(os.environ, PYTHONPATH=os.path.join(_REPO_ROOT, "src"))
+    for phase, marker in (("write", "WRITE_OK 2"), ("replay", "REPLAY_OK 8")):
+        out = subprocess.run(
+            [sys.executable, "-c", _JOURNAL_SUBPROC, path, phase],
+            capture_output=True, text=True, env=env, cwd=_REPO_ROOT, timeout=600,
+        )
+        assert marker in out.stdout, out.stdout + out.stderr

@@ -45,6 +45,10 @@ def test_port_modules_import_neither_jax_nor_reference():
         "         'repro_torch.obs.__main__'} | {'repro_torch.obs.' + m for m in (\n"
         "         'catalog', 'clock', 'detect', 'export', 'instrument', 'metrics',\n"
         "         'profiler', 'report', 'slo', 'trace', 'watch')}\n"
+        "later |= {'repro_torch.control.' + m for m in (\n"
+        "          'health', 'reshard', 'replica', 'plane')}\n"
+        "later |= {'repro_torch.serve', 'repro_torch.serve.distributed_ir',\n"
+        "          'repro_torch.serve.retrieval'}\n"
         "assert later <= set(names), sorted(later - set(names))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -103,7 +107,7 @@ def test_serve_cli_defaults_to_the_card(monkeypatch):
         serve.main(["--queries", "4"])
 
 
-@pytest.mark.parametrize("mode", ["inflight", "sharded"])
+@pytest.mark.parametrize("mode", ["inflight", "sharded", "control"])
 def test_serve_cli_new_modes_default_to_the_card(monkeypatch, mode):
     from repro_torch.launch import serve
 
@@ -129,6 +133,29 @@ def test_sharded_and_inflight_run_on_the_engine_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ShardedEngine(Engine(_tiny_index(), k=3), 2)
+
+
+def test_control_and_serve_entry_points_default_to_the_card(monkeypatch):
+    """The control plane serves on its engine's device; the partitioned IR
+    and MIPS builders put their arrays on the card unless asked for the CPU."""
+    from repro_torch.control import ControlPlane
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.data.synth import make_corpus
+    from repro_torch.serve.distributed_ir import build_sharded_index
+    from repro_torch.serve.retrieval import build_clustered_candidates
+
+    plane = ControlPlane(Engine(_tiny_index(), k=3, device="cpu"), n_shards=2)
+    assert plane.sengine.dix.docs.device.type == "cpu" and plane.sengine.impl == "torch"
+    emb = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    assert build_clustered_candidates(emb, 3, device="cpu").emb.device.type == "cpu"
+    corpus = make_corpus(n_docs=60, n_terms=80, n_topics=2, mean_doc_len=10, seed=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ControlPlane(Engine(_tiny_index(), k=3), n_shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_clustered_candidates(emb, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_sharded_index(corpus, 2, n_ranges_per_shard=2, strategy="clustered")
 
 
 def test_table_from_numpy_defaults_to_the_card(monkeypatch):

@@ -1,10 +1,9 @@
 """The port's telemetry (``repro_torch.obs`` and its hooks) against the reference's.
 
-Follows the reference's ``tests/test_obs.py`` but for its four
-``ControlPlane`` cases, which wait for the control plane's port: the
-metrics, histogram, sampling, tracer/sink, clock, export, report/slo/watch
-CLIs, detectors and profiler classification of the port's copy; and the
-contracts of its hooks on the port's engines and servers (on the CPU):
+Follows the reference's ``tests/test_obs.py``: the metrics, histogram,
+sampling, tracer/sink, clock, export, report/slo/watch CLIs, detectors and
+profiler classification of the port's copy; and the contracts of its
+hooks on the port's engines, servers and ``ControlPlane`` (on the CPU):
 
   * **results neutrality** — serving with full instrumentation (metrics,
     tracing at sample rate 1.0 to a JSONL sink, profiler) is bitwise
@@ -18,9 +17,14 @@ contracts of its hooks on the port's engines and servers (on the CPU):
     XLA programs, so a dispatch compiles once per process on the card and
     never on the CPU, where the reference compiles once per bucket; a
     recompile stays 0 over the bucket ladder in both;
-  * **OBSGUARD** — every telemetry call in the port's ``core`` and
-    ``serving`` sits behind an ``enabled`` (or ``is not None``) guard, by
-    the reference's own analyzer.
+  * **the control plane** — the reference's four ``ControlPlane`` cases:
+    health transitions and degraded serving in the counters (equal to the
+    reference's plane under one ``FakeClock``), every metric's help, a
+    planted shard skew arming a reshard through the drift monitor's alert,
+    and an SLO burn marking the plane degraded;
+  * **OBSGUARD** — every telemetry call in the port's ``core``,
+    ``serving`` and ``control`` sits behind an ``enabled`` (or ``is not
+    None``) guard, by the reference's own analyzer.
 """
 
 from __future__ import annotations
@@ -799,18 +803,146 @@ def test_inflight_profiler_counts_steps_without_recompiles(setup):
 
 
 # --------------------------------------------------------------------------
-# OBSGUARD: every telemetry call of core and serving is guarded
+# control plane instrumentation
+# --------------------------------------------------------------------------
+
+
+def _plane_health_run(plane, queries):
+    served = plane.replay(queries, batch_size=4)
+    plane.mark_down(1)
+    down = plane.replay(queries[:4], batch_size=4)
+    plane.mark_up(1)
+    return served, down
+
+
+def test_control_plane_health_and_serving_telemetry():
+    """The reference's case on the port's plane, and its clock-free
+    counters equal the reference plane's under one ``FakeClock`` step."""
+    from repro.control import ControlPlane as RefPlane
+    from repro_torch.control import ControlPlane
+
+    eng, queries = _small_setup(seed=9, n_ranges=8)
+    clock = FakeClock(dt=0.001)
+    obs = Instrumentation.make(sample_rate=1.0, clock=clock)
+    plane = ControlPlane(eng, n_shards=2, use_mesh=False, obs=obs)
+    served, down = _plane_health_run(plane, queries)
+    assert len(served) == len(queries) and len(down) == 4
+    ht = obs.metrics.counter("health_transitions")
+    assert ht.value(event="down", shard=1) == 1
+    assert ht.value(event="up", shard=1) == 1
+    assert_exit_reason_conservation(
+        obs, "served_queries",
+        [result_exit_reason(s.result) for s in served + down], server="micro",
+    )
+    assert obs.metrics.counter("sharded_exact").value(exact=False) >= 1
+    assert obs.metrics.gauge("plane_available").value() == 1.0
+
+    ref_idx = ref_ci.build_index(
+        make_corpus(n_docs=900, n_terms=700, n_topics=4, mean_doc_len=50, seed=9),
+        n_ranges=8, strategy="clustered")
+    assert ref_idx.fingerprint() == eng.index.fingerprint()
+    ref_obs = RefInstrumentation.make(sample_rate=1.0, clock=RefFakeClock(dt=0.001))
+    _plane_health_run(RefPlane(ref_daat.Engine(ref_idx, k=5), n_shards=2,
+                               use_mesh=False, obs=ref_obs), queries)
+    got = {n: m for n, m in obs.snapshot().items() if n not in CLOCK_METRICS}
+    want = {n: m for n, m in ref_obs.snapshot().items() if n not in CLOCK_METRICS}
+    assert sorted(got) == sorted(want) and got == want
+
+
+def test_every_plane_metric_carries_help():
+    """The reference's case: the plane, an in-flight server and the SLO
+    tracker through one handle, no empty help string."""
+    from repro_torch.control import ControlPlane
+    from repro_torch.obs.slo import SloTracker, default_serving_slos
+
+    eng, queries = _small_setup(seed=10, n_ranges=8)
+    obs = Instrumentation.make(sample_rate=1.0, profile=True)
+    plane = ControlPlane(eng, n_shards=2, use_mesh=False, obs=obs)
+    plane.replay(queries[:8], batch_size=4)
+    srv = InflightServer(BatchEngine(eng, BucketSpec(max_batch=4)),
+                         SlaBudgeter(sla_ms=float("inf"), obs=obs), n_slots=4, obs=obs)
+    for q in queries[:4]:
+        srv.submit(q)
+    srv.run_until_idle()
+    tracker = SloTracker(obs, default_serving_slos(sla_ms=5.0))
+    tracker.sample(now=0.0)
+    tracker.evaluate(now=1.0)
+    assert obs.metrics.missing_help() == []
+    text = prometheus_text(obs.metrics)
+    for name in ("latency_ms", "served_queries", "profiler_dispatches", "shard_postings",
+                 "plane_available"):
+        assert f"# HELP {name}" in text
+
+
+def test_planted_shard_skew_arms_reshard_via_alert(tmp_path):
+    """Detector -> ControlPlane arming, end to end through real serving."""
+    from repro_torch.control import ControlPlane
+    from repro_torch.obs.detect import DriftMonitor, ShardSkewProbe, ThresholdDetector
+
+    eng, queries = _small_setup(seed=11, n_ranges=8, n_queries=24)
+    path = str(tmp_path / "trace.jsonl")
+    obs = Instrumentation.make(sample_rate=1.0, trace_path=path)
+    plane = ControlPlane(eng, n_shards=2, use_mesh=False, obs=obs, reshard_trigger=1.02)
+    twin = ShardedEngine(Engine(eng.index, k=5, device="cpu"), n_shards=2, use_mesh=False)
+    ratio = []
+    for q in queries:
+        p = np.asarray(twin.traverse(twin.engine.plan(q)).shard_postings, np.float64)
+        ratio.append(p.max() * 2.0 / max(p.sum(), 1.0))
+    hot = queries[int(np.argmax(ratio))]
+    assert max(ratio) >= 1.5
+
+    monitor = DriftMonitor(obs)
+    monitor.add(ThresholdDetector("shard_skew", 1.3, patience=2), ShardSkewProbe(2))
+    plane.enable_operations(monitor=monitor)
+    for _ in range(16):
+        plane.submit(hot)
+        plane.drain_once()
+    while plane.pending or plane.reshard_task is not None:
+        plane.drain_once()
+    assert obs.metrics.counter("alerts").value(detector="shard_skew", state="fire") >= 1
+    assert plane.reshards_completed >= 1
+    assert obs.metrics.counter("reshard_started").total() >= 1
+    assert obs.metrics.counter("reshard_cutovers").total() == plane.reshards_completed
+    assert obs.metrics.histogram("reshard_ms").count() == plane.reshards_completed
+    obs.close()
+    alerts = [r for r in read_traces(path) if r.get("kind") == "alert"]
+    assert any(a["detector"] == "shard_skew" and a["state"] == "fire" for a in alerts)
+
+
+def test_burn_rate_alert_marks_plane_degraded():
+    """Impossible latency SLO -> fast burn -> degraded-SLO plane state."""
+    from repro_torch.control import ControlPlane
+    from repro_torch.obs.detect import DriftMonitor, ThresholdDetector, gauge_probe
+    from repro_torch.obs.slo import SloTracker, default_serving_slos
+
+    eng, queries = _small_setup(seed=14, n_ranges=8)
+    obs = Instrumentation.make(sample_rate=1.0)
+    plane = ControlPlane(eng, n_shards=2, use_mesh=False, obs=obs)
+    tracker = SloTracker(obs, default_serving_slos(sla_ms=1e-4))
+    monitor = DriftMonitor(obs)
+    monitor.add(ThresholdDetector("slo_fast_burn", 14.4, patience=2),
+                gauge_probe("slo_burn_rate", slo="latency_sla", window="5m"))
+    plane.enable_operations(slos=tracker, monitor=monitor)
+    plane.replay(queries, batch_size=4)
+    assert plane.stats()["degraded_slo"] is True
+    assert "slo_fast_burn" in monitor.firing()
+    assert obs.metrics.gauge("plane_degraded_slo").value() == 1.0
+    assert obs.metrics.gauge("slo_state").value(slo="latency_sla") == 2
+
+
+# --------------------------------------------------------------------------
+# OBSGUARD: every telemetry call of core, serving and control is guarded
 # --------------------------------------------------------------------------
 
 
 def test_port_telemetry_calls_are_guarded():
     """The reference's OBSGUARD rule (DESIGN.md §15) over the port's
-    ``core`` and ``serving`` modules, each analyzed under a ``serving/``
-    path so the rule's scope covers it."""
+    ``core``, ``serving`` and ``control`` modules, each analyzed under a
+    ``serving/`` path so the rule's scope covers it."""
     from repro.analysis.runner import analyze_source
 
-    files = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py")) + sorted(
-        (ROOT / "src" / "repro_torch" / "serving").glob("*.py"))
+    files = [f for sub in ("core", "serving", "control")
+             for f in sorted((ROOT / "src" / "repro_torch" / sub).glob("*.py"))]
     hooked = 0
     for path in files:
         text = path.read_text()

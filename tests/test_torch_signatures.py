@@ -5,10 +5,15 @@ thing to the port: ``Engine(index, k, ordering, bounds, impl, interpret,
 impact_dtype, docs_format, obs)``, ``ShardedEngine(engine, n_shards,
 use_mesh, mesh_axis, shards, obs)``, ``BatchEngine``,
 ``ShardedBatchEngine``, ``MicroBatchServer`` and ``InflightServer`` with
-their ``obs``, the dataclass fields of ``SlaBudgeter`` and
-``ShardedSlaBudgeter``, and the three ``from_artifact`` class methods,
-pinned with ``inspect.signature``. The port may append its own arguments
-after the reference's (``device``). ``interpret`` (Pallas's interpret
+their ``obs``, the dataclass fields of ``SlaBudgeter``,
+``ShardedSlaBudgeter`` and ``ReshardPlanner``, the three ``from_artifact``
+class methods; the control plane's ``ControlPlane`` (and its
+``from_artifact``), ``ReplicaGroupEngine``, ``ReshardTask`` and
+``HealthLedger``; and the functions ``restack_shards``,
+``build_sharded_index``, ``sharded_anytime_query``,
+``build_clustered_candidates`` and ``anytime_mips``, pinned with
+``inspect.signature``. The port may append its own arguments after the
+reference's (``device``, ``impl``). ``interpret`` (Pallas's interpret
 mode) is accepted and ignored; ``obs`` is a ``repro_torch.obs`` handle.
 """
 
@@ -20,15 +25,21 @@ import inspect
 import pytest
 import torch
 
+from repro import control as jax_control
+from repro.core import clustered_index as jax_ci
 from repro.core import range_daat as jax_daat
+from repro.serve import distributed_ir as jax_ir
+from repro.serve import retrieval as jax_mips
 from repro.serving import batch_engine as jax_batch
 from repro.serving import inflight as jax_inflight
 from repro.serving import microbatch as jax_microbatch
 from repro.serving import sharded as jax_sharded
-from repro_torch.core import range_daat
+from repro_torch import control
+from repro_torch.core import clustered_index, range_daat
 from repro_torch.core.clustered_index import build_index
 from repro_torch.data.synth import make_corpus
 from repro_torch.obs import NOOP, Instrumentation
+from repro_torch.serve import distributed_ir, retrieval
 from repro_torch.serving import batch_engine, inflight, microbatch, sharded
 
 PAIRS = {
@@ -40,16 +51,35 @@ PAIRS = {
     "MicroBatchServer": (jax_microbatch.MicroBatchServer, microbatch.MicroBatchServer,
                          ()),
     "InflightServer": (jax_inflight.InflightServer, inflight.InflightServer, ()),
+    "ControlPlane": (jax_control.ControlPlane, control.ControlPlane, ()),
+    "ReplicaGroupEngine": (jax_control.ReplicaGroupEngine, control.ReplicaGroupEngine,
+                           ()),
+    "ReshardTask": (jax_control.ReshardTask, control.ReshardTask, ()),
+    "HealthLedger": (jax_control.HealthLedger, control.HealthLedger, ()),
 }
 BUDGETERS = {
     "SlaBudgeter": (jax_microbatch.SlaBudgeter, microbatch.SlaBudgeter),
     "ShardedSlaBudgeter": (jax_microbatch.ShardedSlaBudgeter,
                            microbatch.ShardedSlaBudgeter),
+    "ReshardPlanner": (jax_control.ReshardPlanner, control.ReshardPlanner),
 }
 LOADERS = {
     "Engine": (jax_daat.Engine, range_daat.Engine),
     "BatchEngine": (jax_batch.BatchEngine, batch_engine.BatchEngine),
     "ShardedEngine": (jax_sharded.ShardedEngine, sharded.ShardedEngine),
+    "ControlPlane": (jax_control.ControlPlane, control.ControlPlane),
+}
+FUNCTIONS = {
+    "restack_shards": (jax_ci.restack_shards, clustered_index.restack_shards, ()),
+    "restack_prep": (jax_ci.restack_prep, clustered_index.restack_prep, ()),
+    "build_sharded_index": (jax_ir.build_sharded_index, distributed_ir.build_sharded_index,
+                            ("device",)),
+    "plan_queries": (jax_ir.plan_queries, distributed_ir.plan_queries, ()),
+    "sharded_anytime_query": (jax_ir.sharded_anytime_query,
+                              distributed_ir.sharded_anytime_query, ("impl",)),
+    "build_clustered_candidates": (jax_mips.build_clustered_candidates,
+                                   retrieval.build_clustered_candidates, ("device",)),
+    "anytime_mips": (jax_mips.anytime_mips, retrieval.anytime_mips, ()),
 }
 
 
@@ -103,6 +133,20 @@ def test_from_artifact_signature_is_the_references(name):
     got = inspect.signature(port_cls.from_artifact)
     assert [(p.name, p.kind, p.default) for p in got.parameters.values()] == [
         (p.name, p.kind, p.default) for p in want.parameters.values()]
+
+
+@pytest.mark.parametrize("name", sorted(FUNCTIONS))
+def test_function_signature_is_the_references(name):
+    """Every parameter of the reference's, by name, kind and default, in its
+    order, then the port's own (``device``, ``impl``)."""
+    ref_fn, port_fn, extra = FUNCTIONS[name]
+    want = [(p.name, p.kind, p.default)
+            for p in inspect.signature(ref_fn).parameters.values()]
+    got = [(p.name, p.kind, p.default)
+           for p in inspect.signature(port_fn).parameters.values()]
+    assert got[:len(want)] == want, f"{name}: port {got}, reference {want}"
+    assert [n for n, _, _ in got[len(want):]] == list(extra), name
+    assert all(d is None for _, _, d in got[len(want):]), name
 
 
 def test_positional_engine_call_means_the_same(tiny_index):
