@@ -60,7 +60,26 @@ fails (non-zero exit, no result line) on any fault:
      merged per-shard oracles; anytime MIPS (``serve/retrieval.py``) over
      1,000,000 candidates of width 64 in 64 ranges (built in a worker): the
      card against the CPU port on safe, budgeted and multi-interest
-     queries (counters exact, scores within 1e-5), ms per query;
+     queries (counters exact, scores within 1e-5), ms per query; the
+     ``anytime-ir`` architecture through the registry
+     (``ARCHS["anytime-ir"].build_step``, both shapes) over the same
+     partitioned index, equal to ``sharded_anytime_query`` at the shape's
+     budget bitwise, one ``traverse`` a step; then the arch phase: the five
+     reduced LM configs (``prefill_32k`` and ``decode_32k``, both variants)
+     and the four reduced towers (three shapes) on the card equal to the CPU
+     port with the same weights (float32, TF32 off, rtol 1e-4, atol 1e-5,
+     every MoE call's ``topi`` exact); qwen3-4b whole and deepseek-v3-671b
+     at published widths with its depth cut to one dense and one MoE layer
+     (bfloat16): ``prefill_32k`` at batch 1 x 32,768 (tokens/s, each
+     expert's share of the routed slots and the capacity drops),
+     ``decode_32k`` against a 32,768-slot cache (ms a step), a decoded token
+     against an uncached ``lm_forward`` over the same tokens (relative L2
+     within 5e-2), peak device memory; BST, MIND, AutoInt and BERT4Rec at
+     their published configs at ``serve_p99`` (512), ``serve_bulk``
+     (262,144) and ``retrieval_cand`` (1,000,000 candidates), ms a batch and
+     examples/s; MIND's retrieval top-10 against anytime MIPS's safe top-10
+     over the same rows and interests (k-means in a worker), the ranges its
+     safe exit skipped;
   4. scale phase (its index through ``build_index_cached`` under
      ``.cache/``, hit or miss printed, a hit checked with
      ``validate_artifact``) — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
@@ -3088,6 +3107,7 @@ def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
         f"({res['unbudgeted']['ranges']} lane-ranges), "
         f"{res['budgeted']['ms_per_call']:.3f} ms budgeted "
         f"({res['budgeted']['ranges']} lane-ranges)")
+    res["arch"] = arch_ir(arrays, tables)
     return res
 
 
@@ -3174,6 +3194,452 @@ def mips_phase(job, dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------- architectures
+
+LM_NAMES = ("qwen3-4b", "qwen2.5-3b", "deepseek-67b", "deepseek-v3-671b",
+            "moonshot-v1-16b-a3b")
+REC_NAMES = ("bst", "mind", "autoint", "bert4rec")
+ARCH_TOL = (1e-4, 1e-5)  # (rtol, atol): the card against the CPU port, float32, TF32 off
+LOGIT_TOL = 5e-2  # relative L2 of bfloat16 logits: cached decode against an uncached pass
+# Published widths; what is cut is listed in each plan's "reduced".
+LM_PLANS = {
+    "qwen3-4b": dict(
+        cut={}, prefill=(1, 32768), decode=(8, 32768, 16384), consistency=8192,
+        reduced=["prefill_32k batch 32 -> 1", "decode_32k batch 128 -> 8 (the "
+                 "cache at 128 is 618 GB; at 8, 38.7 GB beside 8.8 GB of weights)"]),
+    "deepseek-v3-671b": dict(
+        cut=dict(n_layers=2, n_dense_layers=1), prefill=(1, 32768),
+        decode=(4, 32768, 16384), consistency=512,
+        reduced=["depth 61 -> 2 layers (1 dense, 1 MoE; the MTP head kept): ~29.7 GB",
+                 "prefill_32k batch 32 -> 1", "decode_32k batch 128 -> 4 (MLA expands "
+                 "the compressed cache to per-head K/V every call: ~7 GB a batch row "
+                 "a layer)", "decode consistency at 512 tokens with capacity_factor "
+                 "= n_experts / top_k (no drops; a drop depends on the batch)"]),
+}
+DECODE_STEPS = 5
+# Bytes a float32 attention score costs the reference's form: the product
+# writes 4, the scale and the mask read and write 8 each, the softmax reads
+# and writes 12, the bfloat16 cast 6, the weighted sum reads 2.
+SCORE_BYTES = 40
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+MIPS_CLUSTERS = 64  # MIND's candidates in anytime MIPS: k-means ranges
+REC_ITERS = {"serve_p99": 10, "serve_bulk": 2, "retrieval_cand": 3}
+
+
+class RoutingLog:
+    """While open, ``transformer.moe_ffn`` records each call's routing
+    (``topi``, the slots each expert took, the capacity and the slots
+    dropped past it) before it runs unchanged. Measurement only: the extra
+    ``_route`` is one [T, d] x [d, E] product a call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe, transformer
+
+        self._orig = orig = transformer.moe_ffn
+
+        def logged(params, x2d, cfg, shard_ctx=None):
+            _, topi, _ = moe._route(params["router"], x2d, cfg)
+            cap = moe._capacity(x2d.shape[0], cfg)
+            rank = moe._dispatch_ranks(topi.reshape(-1), cfg.n_experts)
+            self.calls.append(dict(
+                topi=topi.cpu(), capacity=cap, drops=int((rank >= cap).sum()),
+                counts=torch.bincount(topi.reshape(-1), minlength=cfg.n_experts).cpu()))
+            return orig(params, x2d, cfg, shard_ctx)
+
+        transformer.moe_ffn = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.moe_ffn = self._orig
+
+    def summary(self, moe_cfg) -> dict:
+        import torch
+
+        counts = torch.stack([c["counts"] for c in self.calls]).sum(0)
+        slots = int(counts.sum())
+        share = counts.double() / max(slots, 1)
+        drops = sum(c["drops"] for c in self.calls)
+        return dict(calls=len(self.calls), slots=slots, capacity=self.calls[0]["capacity"],
+                    drops=drops, drop_share=drops / max(slots, 1),
+                    share_min=float(share.min()), share_max=float(share.max()),
+                    share_mean=1.0 / moe_cfg.n_experts, experts_unused=int((counts == 0).sum()),
+                    share=share.tolist())
+
+
+def _sync_s(fn):
+    """Host seconds of ``fn()`` with the card drained before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t.float()).all())
+
+
+def fill_sizes(n: int, chunk: int = 4096, sub: int = 512) -> list[int]:
+    """Prefill pieces for ``n`` tokens whose attention keeps query chunks of
+    ``sub``: whole ``chunk``s, then a multiple of ``sub``, then the rest
+    (a length not a multiple of ``sub`` runs as one query chunk)."""
+    sizes = [chunk] * (n // chunk)
+    r = n % chunk
+    sizes += [r // sub * sub] if r >= sub else []
+    sizes += [r % sub] if r % sub else []
+    return sizes
+
+
+def decode_consistency(arch, cfg, params, dev, n: int, cache_len: int) -> dict:
+    """A token appended at position ``n - 1`` by the ``decode_32k`` step
+    (its cache filled by prefill pieces) has the logits of one uncached
+    ``lm_forward`` over the ``n`` tokens at that position, within
+    ``LOGIT_TOL`` (relative L2, bfloat16)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import dot_f32
+
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    tokens = np.random.default_rng(QUERY_SEED + 1).integers(
+        0, cfg.vocab, size=(1, n)).astype(np.int32)
+    cache = transformer.init_cache(cfg, 1, cache_len, device=dev)
+    c0 = 0
+    for size in fill_sizes(n - 1):
+        _, cache = transformer.lm_decode_step(params, tokens[:, c0:c0 + size], cache, c0,
+                                              cfg, logits_last_only=True)
+        c0 += size
+    decode, _ = arch.build_step(cfg, "decode_32k")
+    got, _ = decode(params, {"tokens": tokens[:, n - 1:], "cache": cache,
+                             "pos": np.int32(n - 1)})
+    del cache
+    h, _ = transformer.lm_forward(params, tokens, cfg)
+    want = dot_f32(h[:, -1:], params["lm_head"])
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    same_top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+    check(_finite(got) and rel <= LOGIT_TOL,
+          f"{arch.name}: decode at {n - 1} != an uncached pass over {n} tokens "
+          f"(relative L2 {rel:.3g} > {LOGIT_TOL})")
+    return dict(tokens=n, pieces=fill_sizes(n - 1), cache_len=cache_len, rel_l2=rel,
+                same_top1=same_top1, max_abs=float((got - want).abs().max()))
+
+
+def lm_full(dev, name: str) -> dict:
+    """One LM at published widths (depth cut where ``LM_PLANS`` says):
+    ``prefill_32k`` (tokens/s, the MoE routing), ``decode_32k`` (ms a step),
+    decode consistency, peak device memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import transformer
+
+    plan = LM_PLANS[name]
+    arch = ARCHS[name]
+    cfg = dataclasses.replace(arch.model_config(), **plan["cut"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _sync_s(lambda: arch.init_params(0, cfg, device=dev))
+    res = dict(reduced=plan["reduced"], n_layers=cfg.n_layers, d_model=cfg.d_model,
+               params=sum(p.numel() for p in params.parameters()),
+               param_bytes=sum(p.numel() * p.element_size() for p in params.parameters()),
+               init_s=init_s)
+    rng = np.random.default_rng(QUERY_SEED)
+    B, S = plan["prefill"]
+    prefill, _ = arch.build_step(cfg, "prefill_32k")
+    tokens = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    _, warm_s = _sync_s(lambda: prefill(params, {"tokens": tokens[:, :4096]}))
+    with RoutingLog() as routing:
+        (logits, cache), prefill_s = _sync_s(lambda: prefill(params, {"tokens": tokens}))
+    check(tuple(logits.shape) == (B, 1, cfg.vocab) and _finite(logits),
+          f"{name} prefill_32k: logits {tuple(logits.shape)} not finite or misshapen")
+    del cache, logits
+    # Every chunk scores against the whole S-slot cache, on every head.
+    scores = cfg.n_layers * B * S * S * cfg.attn.n_heads
+    qk = getattr(cfg.attn, "head_dim", None) or (cfg.attn.qk_nope_head_dim
+                                                 + cfg.attn.qk_rope_head_dim)
+    res["prefill"] = dict(batch=B, seq=S, chunks=S // min(4096, S), s=prefill_s,
+                          warm_one_chunk_s=warm_s, tokens_per_s=B * S / prefill_s,
+                          scores=scores,
+                          score_bytes_bound_s=scores * SCORE_BYTES / HBM_BYTES_PER_S,
+                          score_flops_bound_s=2 * scores * qk / FP32_FLOPS)
+    if routing.calls:
+        res["routing"] = routing.summary(cfg.moe)
+    B, cache_len, pos = plan["decode"]
+    decode, _ = arch.build_step(cfg, "decode_32k")
+    batch = dict(tokens=rng.integers(0, cfg.vocab, size=(B, 1)).astype(np.int32),
+                 cache=transformer.init_cache(cfg, B, cache_len, device=dev),
+                 pos=np.int32(pos))
+    decode(params, batch)
+    step_ms = []
+    for i in range(DECODE_STEPS):
+        batch = dict(batch, tokens=rng.integers(0, cfg.vocab, size=(B, 1)).astype(np.int32),
+                     pos=np.int32(pos + 1 + i))
+        (logits, _), s = _sync_s(lambda: decode(params, batch))
+        step_ms.append(s * 1e3)
+        check(tuple(logits.shape) == (B, 1, cfg.vocab) and _finite(logits),
+              f"{name} decode_32k: logits not finite or misshapen")
+    del batch, logits
+    res["decode"] = dict(batch=B, cache_len=cache_len, pos=pos, ms_per_step=step_ms,
+                         median_ms=float(np.median(step_ms)),
+                         tokens_per_s=B / (float(np.median(step_ms)) / 1e3))
+    res["consistency"] = decode_consistency(arch, cfg, params, dev, plan["consistency"],
+                                            cache_len)
+    res["max_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    routed = res.get("routing")
+    log(f"arch {name} at published widths ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{res['params']} parameters, {res['param_bytes']} B; reduced: "
+        f"{'; '.join(plan['reduced'])}): prefill_32k batch {plan['prefill'][0]} x "
+        f"{plan['prefill'][1]} ({res['prefill']['chunks']} chunks) in "
+        f"{prefill_s:.2f} s = {res['prefill']['tokens_per_s']:.0f} tokens/s ({scores} "
+        f"float32 scores: {res['prefill']['score_bytes_bound_s']:.2f} s by their bytes, "
+        f"{res['prefill']['score_flops_bound_s']:.2f} s by their products); decode_32k "
+        f"batch {res['decode']['batch']} at pos {pos} of {cache_len}: "
+        f"{res['decode']['median_ms']:.2f} ms a step; decode == an uncached pass over "
+        f"{plan['consistency']} tokens (relative L2 {res['consistency']['rel_l2']:.3g}, "
+        f"top-1 same {res['consistency']['same_top1']}); peak "
+        f"{res['max_memory_bytes'] / 2**30:.2f} GiB"
+        + ("" if routed is None else
+           f"; routing over {routed['slots']} slots: expert share "
+           f"{routed['share_min']:.5f}-{routed['share_max']:.5f} (mean "
+           f"{routed['share_mean']:.5f}), {routed['drops']} slots dropped past capacity "
+           f"{routed['capacity']} ({routed['drop_share']:.4f})"))
+    return res
+
+
+def _card_copy(params, dev):
+    import copy
+
+    return copy.deepcopy(params).to(dev)
+
+
+def _allclose(got, want) -> bool:
+    import torch
+
+    return bool(torch.allclose(got.cpu(), want, rtol=ARCH_TOL[0], atol=ARCH_TOL[1]))
+
+
+def reduced_parity(dev) -> dict:
+    """(ii) Each reduced LM and recsys config on the card equals the same
+    port run on the CPU with the same weights, float32, TF32 off: every
+    serve step's output (LM: logits and the cache after; both variants)
+    within ``ARCH_TOL``, every MoE call's ``topi`` exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "arch parity: TF32 is on")
+    res = {}
+    for name in LM_NAMES:
+        arch = ARCHS[name]
+        cfg = arch.model_config(True)
+        cpu = arch.init_params(0, cfg, device="cpu")
+        card = _card_copy(cpu, dev)
+        routed = 0
+        for shape in ("prefill_32k", "decode_32k"):
+            for variant in arch.variants:
+                step, _ = arch.build_step(cfg, shape, variant=variant)
+                host = arch.make_batch(cfg, shape, seed=1, device="cpu")
+                if shape == "decode_32k":
+                    rng = np.random.default_rng(2)
+                    for seg in host["cache"].values():
+                        for k in seg:
+                            seg[k] = torch.from_numpy(
+                                rng.standard_normal(seg[k].shape).astype(np.float32))
+                on_card = dict(host, cache={s: {k: t.to(dev) for k, t in seg.items()}
+                                            for s, seg in host["cache"].items()}) \
+                    if shape == "decode_32k" else host
+                with RoutingLog() as rc:
+                    g_logits, g_cache = step(card, on_card)
+                with RoutingLog() as rh:
+                    w_logits, w_cache = step(cpu, host)
+                ctx = f"arch parity {name} {shape} {variant}"
+                check(_allclose(g_logits, w_logits), f"{ctx}: logits card != CPU")
+                for s in w_cache:
+                    for k in w_cache[s]:
+                        check(_allclose(g_cache[s][k], w_cache[s][k]),
+                              f"{ctx}: cache {s}/{k} card != CPU")
+                check(len(rc.calls) == len(rh.calls) and all(
+                    a["topi"].tolist() == b["topi"].tolist()
+                    for a, b in zip(rc.calls, rh.calls)), f"{ctx}: MoE topi card != CPU")
+                routed += len(rc.calls)
+        res[name] = dict(cases=2 * len(arch.variants), moe_calls=routed)
+    for name in REC_NAMES:
+        arch = ARCHS[name]
+        cfg = arch.model_config(True)
+        cpu = arch.init_params(0, cfg, device="cpu")
+        card = _card_copy(cpu, dev)
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            step, _ = arch.build_step(cfg, shape)
+            batch = arch.make_batch(cfg, shape, seed=1)
+            check(_allclose(step(card, batch), step(cpu, batch)),
+                  f"arch parity {name} {shape}: card != CPU")
+        res[name] = dict(cases=3)
+    log("arch parity: the five reduced LM configs (prefill_32k and decode_32k, both "
+        "variants, logits and caches) and the four reduced towers (three shapes) on the "
+        f"card == the CPU port with the same weights (float32, TF32 off, rtol "
+        f"{ARCH_TOL[0]}, atol {ARCH_TOL[1]}); MoE topi exact over "
+        f"{sum(r.get('moe_calls', 0) for r in res.values())} routed calls")
+    return res
+
+
+def build_mips_rows(src: str, rows, clusters: int) -> dict:
+    """Worker: ``build_clustered_candidates`` over ``rows`` on the CPU."""
+    sys.path.insert(0, src)
+    from repro_torch.serve.retrieval import build_clustered_candidates
+
+    t0 = time.perf_counter()
+    cc = build_clustered_candidates(rows, clusters, seed=1, device="cpu")
+    return dict(cc={f: getattr(cc, f).numpy() for f in ("emb", "ids", "lo", "hi")},
+                build_s=time.perf_counter() - t0)
+
+
+def recsys_full(dev, pool) -> dict:
+    """The four towers at their published configs: ms a batch and examples/s
+    at ``serve_p99`` and ``serve_bulk``, ms a query at ``retrieval_cand``
+    (1,000,000 candidates), peak memory; the batch lies on the card. Then
+    MIND's top-10 from ``rec_retrieval_scores`` against anytime MIPS's safe
+    top-10 over the same candidates' rows and the same four interests."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.layers import topk_first
+    from repro_torch.models.recsys import rec_user_embedding
+    from repro_torch.serve.retrieval import ClusteredCandidates, anytime_mips
+
+    res, mind = {}, None
+    for name in REC_NAMES:
+        arch = ARCHS[name]
+        cfg = arch.model_config()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s = _sync_s(lambda: arch.init_params(0, cfg, device=dev))
+        row = dict(init_s=init_s, param_bytes=sum(p.numel() * p.element_size()
+                                                  for p in params.parameters()))
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            step, _ = arch.build_step(cfg, shape)
+            host = arch.make_batch(cfg, shape, seed=QUERY_SEED)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            out = step(params, batch)
+            n = batch["candidates"].shape[0] if shape == "retrieval_cand" else \
+                batch[next(iter(batch))].shape[0]
+            check(tuple(out.shape) == (n,) and _finite(out),
+                  f"{name} {shape}: scores {tuple(out.shape)} not finite or misshapen")
+            ms = [_sync_s(lambda: step(params, batch))[1] * 1e3
+                  for _ in range(REC_ITERS[shape])]
+            med = float(np.median(ms))
+            row[shape] = dict(batch=int(batch[next(iter(batch))].shape[0]), n=n, ms=ms,
+                              median_ms=med, per_s=n / (med / 1e3))
+            if name == "mind" and shape == "retrieval_cand":
+                feats = {"history": batch["history"]}
+                u = rec_user_embedding(params, feats, cfg)[0]
+                rows = params["item_emb"][batch["candidates"].long()].cpu().numpy()
+                mind = dict(scores=out, interests=u,
+                            job=pool.apply_async(build_mips_rows,
+                                                 (str(SRC), rows, MIPS_CLUSTERS)))
+        row["max_memory_bytes"] = torch.cuda.max_memory_allocated()
+        res[name] = row
+        log(f"arch {name} (published config): " + "; ".join(
+            f"{s} {row[s]['median_ms']:.3f} ms = {row[s]['per_s']:.0f} "
+            f"{'candidates' if s == 'retrieval_cand' else 'examples'}/s"
+            for s in ("serve_p99", "serve_bulk", "retrieval_cand"))
+            + f"; peak {row['max_memory_bytes'] / 2**30:.2f} GiB")
+        del params
+    out = mind["job"].get()
+    cc = ClusteredCandidates(**{f: torch.from_numpy(a).to(dev) for f, a in out["cc"].items()})
+    got = anytime_mips(cc, mind["interests"], k=10)
+    want_v, want_i = topk_first(mind["scores"], 10)
+    gv, gi = got.scores.cpu().numpy(), got.ids.cpu().numpy()
+    wv, wi = want_v.cpu().numpy(), want_i.cpu().numpy().astype(np.int32)
+    check(bool(np.allclose(gv, wv, rtol=MIPS_TOL, atol=MIPS_TOL)),
+          "mind retrieval: anytime MIPS top-10 scores != rec_retrieval_scores'")
+    for j in np.nonzero(gi != wi)[0]:
+        near = np.abs(wv - wv[j]) <= MIPS_TOL + MIPS_TOL * np.abs(wv[j])
+        near[j] = False
+        check(bool(near.any()), "mind retrieval: ids differ outside a tolerance tie")
+    res["mind_vs_mips"] = dict(ranges=cc.n_ranges, ranges_processed=got.ranges_processed,
+                               ranges_skipped=cc.n_ranges - got.ranges_processed,
+                               candidates_scored=got.candidates_scored,
+                               exit_safe=got.exit_safe, build_s=out["build_s"],
+                               max_abs_err=float(np.max(np.abs(gv - wv))),
+                               ids_equal=bool((gi == wi).all()))
+    m = res["mind_vs_mips"]
+    log(f"arch mind retrieval_cand top-10 == anytime MIPS's safe top-10 over the same "
+        f"{mind['scores'].shape[0]} rows ({cc.n_ranges} k-means ranges, worker build "
+        f"{m['build_s']:.1f} s): "
+        f"ids equal {m['ids_equal']} (else tolerance ties), max |score err| "
+        f"{m['max_abs_err']:.3g}; the safe exit skipped {m['ranges_skipped']} of "
+        f"{cc.n_ranges} ranges ({m['candidates_scored']} candidates scored)")
+    return res
+
+
+def arch_ir(arrays, tables) -> dict:
+    """``ARCHS["anytime-ir"].build_step`` over the partitioned-IR index: each
+    shape's step == ``sharded_anytime_query`` at its budget, bitwise, with
+    one ``traverse`` launch a step."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serve.distributed_ir import sharded_anytime_query
+
+    arch = ARCHS["anytime-ir"]
+    M, nnz = arrays.docs.shape
+    cfg = dict(arch.model_config(True), n_queries=len(tables[0]), n_shards=M, nnz_loc=nnz,
+               nb_loc=arrays.blk_start.shape[1], r_loc=tables[0].shape[2],
+               b_width=tables[0].shape[3], s_pad=arrays.s_pad, k=arrays.k)
+    res = {}
+    for shape in arch.shapes():
+        step, _ = arch.build_step(cfg, shape)
+        reset_launches()
+        got = [t.cpu() for t in step(arrays, {"tables": tables})]
+        launches = read_launches()
+        check_launches(launches, {"traverse": 1}, f"anytime-ir {shape}")
+        budget = cfg["nnz_loc"] // 64 if shape == "serve_anytime" else 2**31 - 1
+        want = [t.cpu() for t in sharded_anytime_query(arrays, tables, None, budget)]
+        for label, g, w in zip(("vals", "ids", "ranges"), got, want):
+            check(g.dtype == w.dtype and g.tolist() == w.tolist(),
+                  f"anytime-ir {shape}: {label} != sharded_anytime_query's")
+        res[shape] = dict(budget=budget, launches=launches["traverse"],
+                          ranges=int(got[2]))
+    log(f"arch anytime-ir through the registry ({len(tables[0])} queries x {M} shards): "
+        f"serve_anytime (budget {res['serve_anytime']['budget']} postings a lane, "
+        f"{res['serve_anytime']['ranges']} lane-ranges) and serve_exhaustive "
+        f"({res['serve_exhaustive']['ranges']}) == sharded_anytime_query bitwise, one "
+        "traverse a step")
+    return res
+
+
+def arch_phase(dev, pool) -> dict:
+    """The architecture registry on the card: the reduced configs against the
+    CPU port, the LMs and the towers at published widths."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = dict(parity=reduced_parity(dev))
+    for name in LM_PLANS:
+        res[name] = lm_full(dev, name)
+    res["recsys"] = recsys_full(dev, pool)
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"arch phase {res['wall_s']:.1f} s")
+    return res
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3255,6 +3721,9 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     t1 = time.perf_counter()
     record["mips"] = mips_phase(jobs["mips"], dev)
     log(f"partitioned IR phase {t1 - t0:.1f} s, MIPS phase {time.perf_counter() - t1:.1f} s")
+    # The architecture registry: reduced configs against the CPU port, the
+    # LMs and the towers at published widths.
+    record["arch"] = arch_phase(dev, pool)
 
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
@@ -3467,7 +3936,8 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     kernels = []
     # The standalone kernels report their own path's launches (score_blocks);
     # range_step the serving window's, traverse the batch serving window's.
-    ir_launches = sum(record["ir"][f]["launches"] for f in ("unbudgeted", "budgeted"))
+    ir_launches = sum(record["ir"][f]["launches"] for f in ("unbudgeted", "budgeted")) + \
+        sum(r["launches"] for r in record["ir"]["arch"].values())
     path_launches = dict(blocks_launches, range_step=launches["range_step"],
                          traverse=batch_launches["traverse"]
                          + inflight_launches["traverse"] + sharded_launches["traverse"]
@@ -3483,7 +3953,8 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             "range_step": f"{launches[kname] / runs:.2f} launches/query on the serving "
                           "window",
             "traverse": f"{path_launches[kname]} launches on the batch, in-flight, "
-                        f"sharded and control windows and the partitioned-IR calls "
+                        f"sharded and control windows and the partitioned-IR and "
+                        f"anytime-ir calls "
                         f"({batch_launches['traverse']}, {inflight_launches['traverse']}, "
                         f"{sharded_launches['traverse']}, {control_launches}, "
                         f"{ir_launches})",

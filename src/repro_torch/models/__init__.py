@@ -1,1 +1,2 @@
-"""Model substrate: embedding lookups for recommendation models."""
+"""Model substrate: embedding lookups, layers, attention, MoE, the LM and the
+recommendation towers (serving); submodules are imported by name."""

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.range_daat import resolve_device
 from repro_torch.kernels.embedding_bag import ops
+from repro_torch.models.layers import tensor_from_numpy
 
 COMBINES = ("sum", "mean")
 
@@ -139,11 +140,7 @@ def table_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
     ``device="cpu"`` keeps the table on the CPU.
     """
     dev = resolve_device(device)
-    a = np.ascontiguousarray(arr)
-    if a.dtype == np.float32:
-        t = torch.from_numpy(a.copy())
-    elif a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
-        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    else:
+    a = np.asarray(arr)
+    if a.dtype != np.float32 and not (a.dtype.name == "bfloat16" and a.dtype.itemsize == 2):
         raise TypeError(f"table must be float32 or bfloat16, got {a.dtype}")
-    return t.to(dev)
+    return tensor_from_numpy(a, dev)

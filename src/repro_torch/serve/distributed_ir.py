@@ -51,8 +51,10 @@ __all__ = [
     "ShardedIndexArrays",
     "build_sharded_index",
     "merge_shard_topk",
+    "make_sharded_query_fn",
     "plan_queries",
     "sharded_anytime_query",
+    "sharded_query_specs",
 ]
 
 INT32_MAX = 2**31 - 1
@@ -216,18 +218,48 @@ def _ctx_devices(ctx) -> int:
     return int(getattr(ctx, "n_model", 1)) * int(getattr(ctx, "n_data", 1))
 
 
-def sharded_anytime_query(arrays, tables, ctx, budget: int = 2**31 - 1,
-                          impl: str | None = None):
-    """Every (query, shard) pair's anytime traversal, then the broker merge.
+def sharded_query_specs(
+    *, n_queries: int, n_shards: int, r_loc: int, b_width: int, nnz_loc: int,
+    nb_loc: int, s_pad: int, k: int, impact_dtype=torch.int32,
+):
+    """Meta-device tensors of the web-scale sharded index and its plan
+    tables (the reference's ShapeDtypeStructs): shapes and types, no
+    allocation. ``impact_dtype=torch.int8`` stores impacts at their native
+    8-bit width."""
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
 
-    ``tables`` are ``plan_queries``' [Q, M, R, B] tables; every lane gets
-    the postings budget ``budget``, safe stop and block pruning on. Returns
-    ``(vals [Q, k], ids [Q, k] global, ranges)`` on the arrays' device,
-    ``ranges`` the ranges processed summed over every query and shard (the
-    reference's ``psum``). One upload and, under ``impl="cuda"`` (the
-    default on the card), one ``traverse`` launch; ``impl="torch"`` is its
-    plain version. ``ctx`` is None or a one-device context; a context over
-    more devices raises ``NotImplementedError`` (ROADMAP A7).
+    arrays = ShardedIndexArrays(
+        docs=i32(n_shards, nnz_loc),
+        impacts=torch.empty((n_shards, nnz_loc), dtype=impact_dtype, device="meta"),
+        blk_start=i32(n_shards, nb_loc),
+        blk_len=i32(n_shards, nb_loc),
+        blk_maximp=i32(n_shards, nb_loc),
+        range_starts=i32(n_shards, r_loc),
+        doc_base=i32(n_shards),
+        s_pad=s_pad,
+        k=k,
+    )
+    tables = (
+        i32(n_queries, n_shards, r_loc, b_width),
+        i32(n_queries, n_shards, r_loc, b_width),
+        i32(n_queries, n_shards, r_loc),
+        i32(n_queries, n_shards, r_loc),
+    )
+    return arrays, tables
+
+
+def make_sharded_query_fn(ctx, *, s_pad: int, k: int, budget: int, impl: str | None = None):
+    """The sharded query step (the ``anytime-ir`` serve step):
+    ``step(arrays, tables) -> (vals [Q, k], ids [Q, k] global, ranges)``.
+
+    Every (query, shard) pair's anytime traversal with the postings budget
+    ``budget``, safe stop and block pruning on, then the broker merge. On
+    the arrays' device: one upload and, under ``impl="cuda"`` (the default
+    on the card), one ``traverse`` launch for the Q x M lanes;
+    ``impl="torch"`` is its plain version. ``ctx`` is None or a one-device
+    context; a context over more devices raises ``NotImplementedError``
+    (ROADMAP A7).
     """
     if _ctx_devices(ctx) != 1:
         raise NotImplementedError(
@@ -236,24 +268,38 @@ def sharded_anytime_query(arrays, tables, ctx, budget: int = 2**31 - 1,
             "yet, ROADMAP A7's mesh item; pass ctx=None to run every (query, shard) "
             "pair on the arrays' device"
         )
-    blk, rest, order, bounds = (np.asarray(t) for t in tables)
-    Q, M, R, B = blk.shape
-    k = arrays.k
-    dix = arrays.device_index()
-    dev = arrays.docs.device
-    if impl is None:
-        impl = "cuda" if dev.type == "cuda" else "torch"
-    n = Q * M
-    lanes = upload_int32(
-        (blk.reshape(n, R, B), rest.reshape(n, R, B), order.reshape(n, R),
-         bounds.reshape(n, R), lane_caps(np.full(n, budget, np.int64)),
-         lane_caps(np.full(n, INT32_MAX, np.int64)),
-         carry_buffer(batched_init_carry(n, k))),
-        dev,
-    )
-    out = traverse_lanes(dix, *lanes, s_pad=arrays.s_pad, k=k, impl=impl).view(
-        Q, M, 2 * k + 5)
-    ids = out[:, :, k + 2:2 * k + 2]
-    gids = torch.where(ids >= 0, ids + arrays.doc_base[None, :, None], -1)
-    out_v, out_i = merge_shard_topk(out[:, :, :k], gids, k)
-    return out_v, out_i, out[:, :, 2 * k + 2].sum()
+
+    def step(arrays: ShardedIndexArrays, tables):
+        blk, rest, order, bounds = (np.asarray(t) for t in tables)
+        Q, M, R, B = blk.shape
+        dix = arrays.device_index()
+        dev = arrays.docs.device
+        lane_impl = impl or ("cuda" if dev.type == "cuda" else "torch")
+        n = Q * M
+        lanes = upload_int32(
+            (blk.reshape(n, R, B), rest.reshape(n, R, B), order.reshape(n, R),
+             bounds.reshape(n, R), lane_caps(np.full(n, budget, np.int64)),
+             lane_caps(np.full(n, INT32_MAX, np.int64)),
+             carry_buffer(batched_init_carry(n, k))),
+            dev,
+        )
+        out = traverse_lanes(dix, *lanes, s_pad=s_pad, k=k, impl=lane_impl).view(
+            Q, M, 2 * k + 5)
+        ids = out[:, :, k + 2:2 * k + 2]
+        gids = torch.where(ids >= 0, ids + arrays.doc_base[None, :, None], -1)
+        out_v, out_i = merge_shard_topk(out[:, :, :k], gids, k)
+        return out_v, out_i, out[:, :, 2 * k + 2].sum()
+
+    return step
+
+
+def sharded_anytime_query(arrays, tables, ctx, budget: int = 2**31 - 1,
+                          impl: str | None = None):
+    """``make_sharded_query_fn``'s step at the arrays' ``s_pad`` and ``k``:
+    ``(vals [Q, k], ids [Q, k] global, ranges)`` on the arrays' device,
+    ``ranges`` the ranges processed summed over every query and shard (the
+    reference's ``psum``). ``tables`` are ``plan_queries``' [Q, M, R, B]
+    tables."""
+    step = make_sharded_query_fn(ctx, s_pad=arrays.s_pad, k=arrays.k, budget=budget,
+                                 impl=impl)
+    return step(arrays, tables)

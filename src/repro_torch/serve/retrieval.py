@@ -36,12 +36,12 @@ import torch
 
 from repro_torch.core.cluster import spherical_kmeans
 from repro_torch.core.range_daat import resolve_device
+from repro_torch.models.layers import topk_first
 
 __all__ = ["ClusteredCandidates", "MIPSResult", "anytime_mips", "build_clustered_candidates"]
 
 _NEG = -3.0e38  # float32 "minus infinity" of the reference (an empty slot's score)
 _INT32_MAX = 2**31 - 1
-_LOW = 2**32 - 1  # low half of a (score, position) key: LOW - pos ranks lower pos first
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,17 +123,6 @@ def _full_fp32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _topk_first(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Positions of the k largest float32 values of ``x`` [n], largest
-    first, ties by lower position: ``lax.top_k`` and ``argsort(-x)[:k]``
-    (stable). One int64 key per value: the float's order-preserving int32
-    image (total order, -0.0 below +0.0) above ``LOW - position``."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    pos = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
-    return torch.topk((ordered << 32) | (_LOW - pos), k).indices
-
-
 def anytime_mips(
     cc: ClusteredCandidates,
     q,  # [D] (or [J, D] multi-interest: max over J)
@@ -156,7 +145,7 @@ def anytime_mips(
         dim=0,
     )  # [R]
     R, C, _ = cc.emb.shape
-    order_t = _topk_first(bound, R)
+    order_t = topk_first(bound, R)[1]
     order = order_t.tolist()
     sorted_bound = bound[order_t].tolist()
     members = cc.members
@@ -179,12 +168,12 @@ def anytime_mips(
             scores = torch.amax(q2 @ cc.emb[r].T, dim=0)  # [C]
             valid = cc.ids[r] >= 0
             scores = torch.where(valid, scores, torch.full_like(scores, _NEG))
-            ci = _topk_first(scores, kk)
+            ci = topk_first(scores, kk)[1]
             cv = scores[ci]
             cand_ids = torch.where(cv > _NEG, cc.ids[r][ci], -1)
             mv = torch.cat([vals, cv])
             mi = torch.cat([ids, cand_ids])
-            sel = _topk_first(mv, k)
+            sel = topk_first(mv, k)[1]
             vals, ids = mv[sel], mi[sel]
             scored += members[r]
             i += 1

@@ -49,6 +49,11 @@ def test_port_modules_import_neither_jax_nor_reference():
         "          'health', 'reshard', 'replica', 'plane')}\n"
         "later |= {'repro_torch.serve', 'repro_torch.serve.distributed_ir',\n"
         "          'repro_torch.serve.retrieval'}\n"
+        "later |= {'repro_torch.configs.' + m for m in (\n"
+        "          'base', 'lm_archs', 'other_archs', 'anytime_ir', 'registry')}\n"
+        "later |= {'repro_torch.models.' + m for m in (\n"
+        "          'layers', 'attention', 'moe', 'transformer', 'recsys', 'gnn')}\n"
+        "later |= {'repro_torch.core.' + m for m in ('saat', 'boolean', 'bound_sum')}\n"
         "assert later <= set(names), sorted(later - set(names))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -169,6 +174,30 @@ def test_table_from_numpy_defaults_to_the_card(monkeypatch):
         table_from_numpy(table, device="cuda")
     t = table_from_numpy(table, device="cpu")
     assert t.device.type == "cpu" and t.tolist() == table.tolist()
+
+
+def test_arch_entry_points_default_to_the_card(monkeypatch):
+    """The registry's parameters, carried weights and decode caches go to
+    the card unless the caller asks for the CPU; the meta device allocates
+    nothing and needs no card."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.transformer import init_cache
+
+    lm, rec = ARCHS["qwen3-4b"], ARCHS["mind"]
+    lcfg, rcfg = lm.model_config(True), rec.model_config(True)
+    tree = {"item_emb": np.zeros((4, 2), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: lm.init_params(0, lcfg), lambda: rec.init_params(0, rcfg),
+                 lambda: rec.params_from_numpy(tree, rcfg),
+                 lambda: lm.make_batch(lcfg, "decode_32k"),
+                 lambda: init_cache(lcfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    p = lm.init_params(0, lcfg, device="cpu")
+    assert {t.device.type for t in p.parameters()} == {"cpu"}
+    assert {t.device.type for t in lm.param_shapes(lm.model_config()).parameters()} == {
+        "meta"}
+    assert rec.params_from_numpy(tree, rcfg, device="cpu")["item_emb"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("module", ["range_scorer", "embedding_bag"])

@@ -12,8 +12,13 @@ class methods; the control plane's ``ControlPlane`` (and its
 ``HealthLedger``; and the functions ``restack_shards``,
 ``build_sharded_index``, ``sharded_anytime_query``,
 ``build_clustered_candidates`` and ``anytime_mips``, pinned with
-``inspect.signature``. The port may append its own arguments after the
-reference's (``device``, ``impl``). ``interpret`` (Pallas's interpret
+``inspect.signature``; the model and registry surfaces too (``init_lm``,
+``lm_forward``, ``init_cache``, ``lm_decode_step``, ``gqa``, ``mla``,
+``moe_ffn``, ``init_rec``, ``rec_serve_scores``, ``rec_retrieval_scores``,
+``make_sharded_query_fn``, ``sharded_query_specs`` and the ``Arch``
+classes' methods). The port may append its own arguments after the
+reference's (``device``, ``impl``, ``rope``), and a dtype default is the
+same type in the port's framework. ``interpret`` (Pallas's interpret
 mode) is accepted and ignored; ``obs`` is a ``repro_torch.obs`` handle.
 """
 
@@ -25,9 +30,17 @@ import inspect
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from repro import control as jax_control
+from repro.configs import anytime_ir as jax_anytime_ir
+from repro.configs import base as jax_base
 from repro.core import clustered_index as jax_ci
 from repro.core import range_daat as jax_daat
+from repro.models import attention as jax_attention
+from repro.models import moe as jax_moe
+from repro.models import recsys as jax_recsys
+from repro.models import transformer as jax_transformer
 from repro.serve import distributed_ir as jax_ir
 from repro.serve import retrieval as jax_mips
 from repro.serving import batch_engine as jax_batch
@@ -35,9 +48,11 @@ from repro.serving import inflight as jax_inflight
 from repro.serving import microbatch as jax_microbatch
 from repro.serving import sharded as jax_sharded
 from repro_torch import control
+from repro_torch.configs import anytime_ir, base
 from repro_torch.core import clustered_index, range_daat
 from repro_torch.core.clustered_index import build_index
 from repro_torch.data.synth import make_corpus
+from repro_torch.models import attention, moe, recsys, transformer
 from repro_torch.obs import NOOP, Instrumentation
 from repro_torch.serve import distributed_ir, retrieval
 from repro_torch.serving import batch_engine, inflight, microbatch, sharded
@@ -80,7 +95,48 @@ FUNCTIONS = {
     "build_clustered_candidates": (jax_mips.build_clustered_candidates,
                                    retrieval.build_clustered_candidates, ("device",)),
     "anytime_mips": (jax_mips.anytime_mips, retrieval.anytime_mips, ()),
+    "make_sharded_query_fn": (jax_ir.make_sharded_query_fn,
+                              distributed_ir.make_sharded_query_fn, ("impl",)),
+    "sharded_query_specs": (jax_ir.sharded_query_specs, distributed_ir.sharded_query_specs,
+                            ()),
+    "init_lm": (jax_transformer.init_lm, transformer.init_lm, ("device",)),
+    "lm_forward": (jax_transformer.lm_forward, transformer.lm_forward, ("rope",)),
+    "init_cache": (jax_transformer.init_cache, transformer.init_cache, ("device",)),
+    "lm_decode_step": (jax_transformer.lm_decode_step, transformer.lm_decode_step,
+                       ("rope",)),
+    "gqa": (jax_attention.gqa, attention.gqa, ()),
+    "mla": (jax_attention.mla, attention.mla, ()),
+    "moe_ffn": (jax_moe.moe_ffn, moe.moe_ffn, ()),
+    "init_rec": (jax_recsys.init_rec, recsys.init_rec, ("device",)),
+    "rec_serve_scores": (jax_recsys.rec_serve_scores, recsys.rec_serve_scores, ()),
+    "rec_retrieval_scores": (jax_recsys.rec_retrieval_scores,
+                             recsys.rec_retrieval_scores, ()),
 }
+ARCH_CLASSES = {
+    "Arch": (jax_base.Arch, base.Arch),
+    "LMArch": (jax_base.LMArch, base.LMArch),
+    "GNNArch": (jax_base.GNNArch, base.GNNArch),
+    "RecArch": (jax_base.RecArch, base.RecArch),
+    "AnytimeIRArch": (jax_anytime_ir.AnytimeIRArch, anytime_ir.AnytimeIRArch),
+}
+ARCH_METHODS = ("__init__", "shapes", "model_config", "init_params", "param_shapes",
+                "input_specs", "make_batch", "build_step", "param_pspecs", "batch_pspecs",
+                "moment_dtype", "model_flops_per_token")
+ARCH_EXTRA = {"init_params": ("device",), "make_batch": ("device",)}
+
+
+def _default(d):
+    """A default, with a dtype as its name (``jnp.int32`` == ``torch.int32``)."""
+    if isinstance(d, torch.dtype):
+        return str(d).removeprefix("torch.")
+    if type(d).__name__ == "_ScalarMeta":
+        return jnp.dtype(d).name
+    return d
+
+
+def _params(fn) -> list[tuple]:
+    return [(p.name, p.kind, _default(p.default))
+            for p in inspect.signature(fn).parameters.values()]
 
 
 def _positional(cls) -> list[tuple[str, object]]:
@@ -140,13 +196,22 @@ def test_function_signature_is_the_references(name):
     """Every parameter of the reference's, by name, kind and default, in its
     order, then the port's own (``device``, ``impl``)."""
     ref_fn, port_fn, extra = FUNCTIONS[name]
-    want = [(p.name, p.kind, p.default)
-            for p in inspect.signature(ref_fn).parameters.values()]
-    got = [(p.name, p.kind, p.default)
-           for p in inspect.signature(port_fn).parameters.values()]
+    want, got = _params(ref_fn), _params(port_fn)
     assert got[:len(want)] == want, f"{name}: port {got}, reference {want}"
     assert [n for n, _, _ in got[len(want):]] == list(extra), name
     assert all(d is None for _, _, d in got[len(want):]), name
+
+
+@pytest.mark.parametrize("cls", sorted(ARCH_CLASSES))
+def test_arch_methods_are_the_references(cls):
+    """Each ``Arch`` class's methods take the reference's parameters in its
+    order (inherited ones included), then the port's own ``device``."""
+    ref_cls, port_cls = ARCH_CLASSES[cls]
+    for method in ARCH_METHODS:
+        want, got = _params(getattr(ref_cls, method)), _params(getattr(port_cls, method))
+        extra = [n for n, _, _ in got[len(want):]]
+        assert got[:len(want)] == want, f"{cls}.{method}: port {got}, reference {want}"
+        assert set(extra) <= set(ARCH_EXTRA.get(method, ())), f"{cls}.{method}: {extra}"
 
 
 def test_positional_engine_call_means_the_same(tiny_index):
