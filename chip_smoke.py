@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the whole smoke
     python3 chip_smoke.py --phases   # the range step's phase timer alone
+    python3 chip_smoke.py --train    # the train phase alone
 
 Drives the port (``src/repro_torch``) through its main path on the card and
 fails (non-zero exit, no result line) on any fault:
@@ -80,6 +81,25 @@ fails (non-zero exit, no result line) on any fault:
      examples/s; MIND's retrieval top-10 against anytime MIPS's safe top-10
      over the same rows and interests (k-means in a worker), the ranges its
      safe exit skipped;
+     then the train phase: (a) every ``train`` shape of the registry at
+     its reduced config (five LMs' ``train_4k``, four towers'
+     ``train_batch``, GraphSAGE's four shapes, through
+     ``Arch.build_step``) and deepseek-v3's LM at fp32, bf16 and int8
+     moments, 3 steps on the card against the CPU port from the same
+     weights and batches (float32, TF32 off: loss, lr and grad_norm
+     within rtol 1e-4 / atol 1e-5, the parameters likewise but for
+     gradient-noise elements, MoE ``topi`` exact at step 1); (b)
+     qwen3-4b whole at published widths (bfloat16, fp32 moments, remat)
+     through ``Trainer`` at ``train_4k`` 1 x 4,096: the loss of each of
+     2 + 4 steps, s a step, tokens/s, peak memory (``--train`` also
+     saves its 44 GB state through ``Checkpointer`` and restores it,
+     bytes and seconds); (c) resume and preemption through
+     ``Checkpointer`` at the reduced qwen3-4b with bf16 moments; (d)
+     GraphSAGE's four shapes at published sizes (graphs built in worker
+     processes, ``ogb_products`` 2,449,029 nodes and 61,860,352 edges)
+     and the four towers' ``train_batch`` at published configs (MIND
+     and BERT4Rec at cut batches, the cuts and reasons printed): ms a
+     step, losses, peak memory;
   4. scale phase (its index through ``build_index_cached`` under
      ``.cache/``, hit or miss printed, a hit checked with
      ``validate_artifact``) — 250,000 docs, 50,000 terms, ``clustered``, 32 ranges:
@@ -3222,6 +3242,7 @@ DECODE_STEPS = 5
 # and writes 12, the bfloat16 cast 6, the weighted sum reads 2.
 SCORE_BYTES = 40
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 on the tensor cores (data sheet)
 MIPS_CLUSTERS = 64  # MIND's candidates in anytime MIPS: k-means ranges
 REC_ITERS = {"serve_p99": 10, "serve_bulk": 2, "retrieval_cand": 3}
 
@@ -3640,6 +3661,468 @@ def arch_phase(dev, pool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_STEPS = 3  # steps of each reduced train shape, card against CPU
+TRAIN_MOMENTS = ("fp32", "bf16", "int8")  # on TRAIN_MOMENTS_LM, through make_train_step
+TRAIN_MOMENTS_LM = "deepseek-v3-671b"
+# Published widths; what is cut is listed under "reduced".
+TRAIN_FULL = dict(
+    arch="qwen3-4b", batch=1, seq=4096, warm=2, timed=4, moments="fp32",
+    reduced=["train_4k global batch 256 -> 1 (one sequence of 4,096 tokens a step)"])
+RESUME = dict(arch="qwen3-4b", moments="bf16", steps=4)  # reduced config, bf16 moments
+GNN_PUBLISHED = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+REC_TRAIN_BATCH = {  # train_batch at published configs; cuts listed with reasons
+    "bst": 65536, "mind": 32768, "autoint": 65536, "bert4rec": 16384}
+REC_TRAIN_CUTS = {
+    "mind": "train_batch 65,536 -> 32,768: the in-batch [B, B] float32 logits are "
+            "17.2 GB at 65,536, and logsumexp's backward and the gold column's gather "
+            "hold more of that size (out of memory at 72.5 GB allocated on an H100 "
+            "80GB)",
+    "bert4rec": "train_batch 65,536 -> 16,384: at 65,536 the two blocks' float32 "
+                "scores and probabilities (2 x [B, 2, 200, 200], 21 GB each) and the "
+                "sampled softmax's [B x 20, 4,097] float32 logits (21.5 GB, kept with "
+                "its concatenation) do not fit in 80 GB"}
+TRAIN_ITERS = 3  # timed steps of each published GraphSAGE shape and tower, after one
+
+
+def _close_updated(got, want, lr_sum: float, tol=ARCH_TOL) -> bool:
+    """Parameters after AdamW updates on the card against the CPU: within
+    ``tol``, except elements whose gradient lies within the two devices'
+    float32 difference of 0: their update ``lr (g / (|g| + eps) + wd p)``
+    may take either sign, bounded by lr (1 + wd |p|) on each side, so these
+    (at most 0.1% of a leaf) are held within 2.2 x the lr summed over the
+    steps taken."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float()
+    diff = (got - want).abs()
+    off = diff > tol[1] + tol[0] * want.abs()
+    return bool(torch.isfinite(got).all()) and float(off.float().mean()) <= 1e-3 and \
+        float(diff.max()) <= max(tol[1] + tol[0] * float(want.abs().max()), 2.2 * lr_sum)
+
+
+def _routes(calls) -> list:
+    return [c["topi"].tolist() for c in calls]
+
+
+def train_parity_case(dev, arch, cfg, shape, step, md: str, label: str) -> dict:
+    """``TRAIN_STEPS`` steps of ``step`` on the card and on the CPU from the
+    same parameters and batches: loss, lr and grad_norm within ``ARCH_TOL``,
+    the parameters after each step as ``_close_updated`` says, every MoE
+    call's ``topi`` equal at step 1. Under int8 moments each step starts
+    the card from the CPU's state (a moment one quantum apart changes later
+    updates by any amount, see tests/test_torch_train_archs.py), the stored
+    moments are held within one quantum, and elements whose stored second
+    moment decodes to 0 are left out of the parameter check."""
+    import torch
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.optim.adamw import AdamWConfig, _dq8, init_opt_state, is_q8_leaf
+
+    cpu = arch.init_params(0, cfg, device="cpu")
+    card = _card_copy(cpu, dev)
+    s_cpu = init_opt_state(cpu, AdamWConfig(moment_dtype=md))
+    s_card = init_opt_state(card, AdamWConfig(moment_dtype=md))
+    lr_sum, routed, worst = 0.0, 0, 0.0
+    for i in range(TRAIN_STEPS):
+        batch = arch.make_batch(arch.model_config(True), shape, seed=10 + i)
+        v0 = {}
+        if md == "int8":
+            leaves = param_leaves(cpu)
+            v0 = {n: _dq8(s, leaves[n]) == 0 for n, s in s_cpu["v"].items()}
+        with RoutingLog() as rc:
+            card, s_card, m_card = step(card, s_card, batch)
+        with RoutingLog() as rh:
+            cpu, s_cpu, m_cpu = step(cpu, s_cpu, batch)
+        ctx = f"train parity {label} step {i + 1}"
+        for k in ("loss", "lr", "grad_norm"):
+            check(_allclose(m_card[k], m_cpu[k]), f"{ctx}: {k} card {float(m_card[k])} != "
+                  f"CPU {float(m_cpu[k])}")
+        lr_sum += float(m_cpu["lr"])
+        if i == 0:
+            check(len(rc.calls) == len(rh.calls) and _routes(rc.calls) == _routes(rh.calls),
+                  f"{ctx}: MoE topi card != CPU")
+            routed += len(rc.calls)
+        want = param_leaves(cpu)
+        for n, g in param_leaves(card).items():
+            w = want[n]
+            if n in v0 and i:
+                g = torch.where(v0[n].to(dev), w.to(dev), g)
+            check(_close_updated(g, w, lr_sum if md != "int8" else float(m_cpu["lr"])),
+                  f"{ctx}: parameter {n} card != CPU")
+            worst = max(worst, float((g.float().cpu() - w.float()).abs().max()))
+        if md == "int8":
+            for mom in ("m", "v"):
+                for n, s in s_cpu[mom].items():
+                    q = s_card[mom][n]["q"].cpu().int() - s["q"].int() if is_q8_leaf(s) \
+                        else torch.zeros(1)
+                    check(int(q.abs().max()) <= 1, f"{ctx}: int8 {mom} {n} beyond one quantum")
+            with torch.no_grad():
+                for n, p in param_leaves(card).items():
+                    p.copy_(want[n])
+            s_card = {"m": {n: {k: t.to(dev) for k, t in s.items()}
+                            for n, s in s_cpu["m"].items()},
+                      "v": {n: {k: t.to(dev) for k, t in s.items()}
+                            for n, s in s_cpu["v"].items()},
+                      "step": s_cpu["step"].to(dev)}
+    return dict(steps=TRAIN_STEPS, moments=md, moe_calls_step1=routed,
+                loss=float(m_cpu["loss"]), max_abs_param_diff=worst)
+
+
+def train_parity(dev) -> dict:
+    """(a) Every ``train`` shape of the registry at its reduced config
+    through ``Arch.build_step``, card against CPU, float32, TF32 off; the
+    three moment dtypes on one LM through ``make_train_step``."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import make_train_step
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "train parity: TF32 is on")
+    res = {}
+    for name, arch in ARCHS.items():
+        for shape, info in arch.shapes().items():
+            if info.kind != "train":
+                continue
+            cfg = arch.model_config(True)
+            rcfg = arch._resolved(cfg, shape) if arch.family == "gnn" else cfg
+            step, _ = arch.build_step(cfg, shape)
+            res[f"{name} {shape}"] = train_parity_case(
+                dev, arch, rcfg, shape, step, arch.moment_dtype(cfg), f"{name} {shape}")
+    arch = ARCHS[TRAIN_MOMENTS_LM]
+    cfg = arch.model_config(True)
+    for md in TRAIN_MOMENTS:
+        step = make_train_step(lambda p, b: transformer.lm_loss(p, b["tokens"], cfg),
+                               AdamWConfig(moment_dtype=md))
+        res[f"{TRAIN_MOMENTS_LM} moments {md}"] = train_parity_case(
+            dev, arch, cfg, "train_4k", step, md, f"{TRAIN_MOMENTS_LM} {md} moments")
+    moe = sum(r["moe_calls_step1"] for r in res.values())
+    log(f"train parity: {len(res)} cases ({len(res) - len(TRAIN_MOMENTS)} train shapes "
+        f"through build_step, {TRAIN_MOMENTS_LM} at fp32/bf16/int8 moments), "
+        f"{TRAIN_STEPS} steps each, card == CPU port (loss, lr, grad_norm within rtol "
+        f"{ARCH_TOL[0]}, atol {ARCH_TOL[1]}; parameters likewise but for gradient-noise "
+        f"elements within 2.2 lr); MoE topi exact over {moe} routed calls at step 1; "
+        "largest parameter difference "
+        f"{max(r['max_abs_param_diff'] for r in res.values()):.3g}")
+    return res
+
+
+def _lm_trainer(dev, name: str, cfg, moments: str, total: int, ckpt=None, seq=None,
+                batch=None, params=None):
+    """A ``Trainer`` over ``lm_loss`` with random tokens from the step."""
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import transformer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = ARCHS[name]
+    if seq is None:
+        d = arch._dims(cfg, "train_4k")
+        batch, seq = d["batch"], d["seq"]
+
+    def data_fn(step):
+        rng = np.random.default_rng(QUERY_SEED + step)
+        return {"tokens": rng.integers(0, cfg.vocab, size=(batch, seq)).astype(np.int32)}
+
+    params = params if params is not None else arch.init_params(0, cfg, device=dev)
+    return Trainer(lambda p, b: transformer.lm_loss(p, b["tokens"], cfg), params,
+                   TrainerConfig(total_steps=total, log_every=1, checkpoint_every=2,
+                                 moment_dtype=moments, warmup=1), data_fn, ckpt)
+
+
+def train_full(dev) -> dict:
+    """(b) qwen3-4b whole at published widths (bfloat16, fp32 moments, remat
+    on), ``train_4k`` at batch 1 x 4,096 through ``Trainer``: the loss of
+    each step, s a step, tokens/s and peak memory over the timed steps."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+
+    plan = TRAIN_FULL
+    arch = ARCHS[plan["arch"]]
+    cfg = arch.model_config()
+    check(cfg.remat and cfg.dtype == torch.bfloat16, "train full: remat off or not bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = plan["warm"] + plan["timed"]
+    t0 = time.perf_counter()
+    tr = _lm_trainer(dev, plan["arch"], cfg, plan["moments"], steps, seq=plan["seq"],
+                     batch=plan["batch"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = tr.run(install_signal_handlers=False)
+    hist = out["history"]
+    check(out["exit"] == "completed" and len(hist) == steps,
+          f"train full: {out['exit']}, {len(hist)} steps")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(v) for v in losses), f"train full: a loss is not finite: {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) < 1.0,
+          f"train full: first loss {losses[0]} far from ln(vocab) {math.log(cfg.vocab)}")
+    timed = [h["time_s"] for h in hist[plan["warm"]:]]
+    s_step = float(np.median(timed))
+    tokens = plan["batch"] * plan["seq"]
+    # Floors of the step's three heaviest parts (no profile): every query
+    # chunk scores all S keys on every head in float32 (no causal skip),
+    # in the forward pass, the recompute and the backward pass at
+    # SCORE_BYTES a score each; the float32 products (QK^T in each pass, the
+    # backward's two for each forward one; the lm head's forward and
+    # backward); the bfloat16 matmuls, 2 + 2 + 4 FLOP a weight a token.
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    head = cfg.d_model * cfg.vocab
+    scores = cfg.n_layers * plan["batch"] * cfg.attn.n_heads * plan["seq"] ** 2
+    f32_flops = 8 * cfg.attn.head_dim * scores + 6 * plan["batch"] * (plan["seq"] - 1) * head
+    bf16_flops = 8 * (n_params - 2 * head) * tokens
+    res = dict(reduced=plan["reduced"], n_layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, params=sum(p.numel() for p in tr.params.parameters()),
+               moments=plan["moments"], batch=plan["batch"], seq=plan["seq"],
+               init_s=init_s, losses=losses, grad_norms=[h["grad_norm"] for h in hist],
+               step_s=[h["time_s"] for h in hist], s_per_step=s_step,
+               tokens_per_s=tokens / s_step,
+               max_memory_bytes=torch.cuda.max_memory_allocated(),
+               scores_per_pass=scores,
+               score_bytes_bound_s=3 * scores * SCORE_BYTES / HBM_BYTES_PER_S,
+               f32_flops=f32_flops, f32_flops_bound_s=f32_flops / FP32_FLOPS,
+               bf16_flops=bf16_flops, bf16_flops_bound_s=bf16_flops / BF16_FLOPS)
+    log(f"train full {plan['arch']} at published widths ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {res['params']} parameters, bfloat16, "
+        f"{plan['moments']} moments, remat on; reduced: {'; '.join(plan['reduced'])}): "
+        f"train_4k {plan['batch']} x {plan['seq']} through Trainer, losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f" (ln vocab {math.log(cfg.vocab):.4f}); steps "
+        + ", ".join(f"{t:.3f}" for t in res["step_s"])
+        + f" s; median of the {plan['timed']} timed {s_step:.3f} s = "
+        f"{res['tokens_per_s']:.0f} tokens/s; peak {res['max_memory_bytes'] / 2**30:.2f} GiB; "
+        f"floors: {scores} float32 scores a pass, {res['score_bytes_bound_s']:.3f} s by "
+        f"their bytes over three passes, {res['f32_flops_bound_s']:.3f} s by the float32 "
+        f"products, {res['bf16_flops_bound_s']:.3f} s by the bfloat16 matmuls")
+    return res, tr
+
+
+def checkpoint_roundtrip(tr, directory) -> dict:
+    """The full-width trainer's state saved through ``Checkpointer`` and
+    restored: bytes and seconds each way, every leaf equal bit for bit.
+    Skipped (and said so) when the disk lacks room."""
+    import shutil
+
+    import torch
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.train.checkpoint import Checkpointer
+
+    need = sum(p.numel() * p.element_size() for p in tr.params.parameters()) + sum(
+        m.numel() * m.element_size() for mom in ("m", "v")
+        for m in tr.opt_state[mom].values())
+    free = shutil.disk_usage(ROOT).free
+    if free < 1.2 * need:
+        log(f"train checkpoint at full width skipped: {free} B free on disk, the state is "
+            f"{need} B")
+        return dict(skipped=True, free_bytes=free, state_bytes=need)
+    shutil.rmtree(directory, ignore_errors=True)
+    ck = Checkpointer(str(directory), keep_last=1)
+    step = int(tr.opt_state["step"])
+    t0 = time.perf_counter()
+    state = tr._state()
+    host_s = time.perf_counter() - t0
+    ck.save(state, step=step, blocking=True)
+    save_s = time.perf_counter() - t0
+    del state
+    on_disk = _dir_bytes(directory)
+    t0 = time.perf_counter()
+    back = ck.restore(step, device="cpu")
+    read_s = time.perf_counter() - t0
+    from repro_torch.models.layers import tree_to_flat
+
+    flat = tree_to_flat(back["params"], tr.params.stacked)
+    same = all(torch.equal(flat[n].to(p.device), p) for n, p in param_leaves(tr.params).items())
+    m = tree_to_flat(back["opt_state"]["m"], tr.params.stacked)
+    same = same and all(torch.equal(m[n].to(t.device), t) for n, t in tr.opt_state["m"].items())
+    check(same, "train checkpoint at full width: a restored leaf differs")
+    del back, flat, m
+    shutil.rmtree(directory, ignore_errors=True)
+    res = dict(skipped=False, state_bytes=need, file_bytes=on_disk, host_copy_s=host_s,
+               save_s=save_s, restore_to_host_s=read_s,
+               save_gb_per_s=on_disk / save_s / 1e9, restore_gb_per_s=on_disk / read_s / 1e9)
+    log(f"train checkpoint at full width: {on_disk} B on disk ({need} B of state), save "
+        f"{save_s:.1f} s ({host_s:.1f} s of it the device-to-host copy) = "
+        f"{res['save_gb_per_s']:.2f} GB/s, restore to the host {read_s:.1f} s = "
+        f"{res['restore_gb_per_s']:.2f} GB/s; every parameter and first moment equal")
+    return res
+
+
+def resume_phase(dev, directory) -> dict:
+    """(c) A ``Trainer`` with a ``Checkpointer`` runs 4 steps (checkpoints
+    at 2 and 4); a second one, restored from step 2, runs steps 3-4 with
+    the uninterrupted run's losses; a preemption flag during step 3 leaves
+    a checkpoint of step 3 and exits ``preempted``. Reduced qwen3-4b,
+    bfloat16 moments (the ``V2`` path of the checkpoint)."""
+    import shutil
+    import signal
+
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.train.checkpoint import Checkpointer
+
+    name, md, steps = RESUME["arch"], RESUME["moments"], RESUME["steps"]
+    cfg = ARCHS[name].model_config(True)
+    shutil.rmtree(directory, ignore_errors=True)
+    u_dir, p_dir = directory / "run", directory / "preempt"
+    ck = Checkpointer(str(u_dir))
+    full = _lm_trainer(dev, name, cfg, md, steps, ck).run(install_signal_handlers=False)
+    check(ck.list_steps() == [2, 4], f"resume: checkpoints {ck.list_steps()}")
+    shutil.rmtree(u_dir / "step_00000004")
+    tr = _lm_trainer(dev, name, cfg, md, steps, Checkpointer(str(u_dir)))
+    resumed = tr.run(install_signal_handlers=False)
+    check([h["step"] for h in resumed["history"]] == [3, 4], "resume: did not start at 3")
+    check(all(t.dtype == torch.bfloat16 for t in tr.opt_state["m"].values()),
+          "resume: restored moments are not bfloat16")
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(resumed["history"], full["history"][2:])]
+    check(all(d <= ARCH_TOL[1] + ARCH_TOL[0] * abs(b["loss"])
+              for d, b in zip(diffs, full["history"][2:])),
+          f"resume: losses of steps 3-4 differ from the uninterrupted run by {diffs}")
+    pck = Checkpointer(str(p_dir))
+    pt = _lm_trainer(dev, name, cfg, md, steps, pck)
+    pt.cfg.checkpoint_every = 100
+    orig = pt.data_fn
+
+    def data_fn(step):
+        if step == 2:  # during the third step
+            pt._handle_preemption(signal.SIGTERM, None)
+        return orig(step)
+
+    pt.data_fn = data_fn
+    pout = pt.run(install_signal_handlers=False)
+    check(pout["exit"] == "preempted" and pout["last_step"] == 3 and pck.list_steps() == [3],
+          f"preemption: {pout['exit']} at {pout['last_step']}, checkpoints {pck.list_steps()}")
+    back = pck.restore(3, device="cpu")
+    check(int(back["opt_state"]["step"]) == 3, "preemption: checkpoint step != 3")
+    shutil.rmtree(directory, ignore_errors=True)
+    res = dict(arch=name, config="reduced", moments=md, uninterrupted=[
+        h["loss"] for h in full["history"]], resumed=[h["loss"] for h in resumed["history"]],
+        max_loss_diff=max(diffs), preempted_at=pout["last_step"])
+    log(f"train resume ({name} reduced, {md} moments, through Checkpointer): losses "
+        + ", ".join(f"{v:.6f}" for v in res["uninterrupted"]) + "; resumed from step 2: "
+        + ", ".join(f"{v:.6f}" for v in res["resumed"])
+        + f" (largest difference {max(diffs):.3g}); preempted during step 3 -> "
+        "checkpoint of step 3, exit preempted")
+    return res
+
+
+def build_gnn_batch(src: str, shape: str) -> dict:
+    """Worker: GraphSAGE's published ``make_batch`` for ``shape``."""
+    sys.path.insert(0, src)
+    from repro_torch.configs.registry import ARCHS
+
+    arch = ARCHS["graphsage-reddit"]
+    t0 = time.perf_counter()
+    batch = arch.make_batch(arch.model_config(), shape, seed=QUERY_SEED)
+    return dict(batch=batch, build_s=time.perf_counter() - t0)
+
+
+def _train_steps(dev, arch, cfg, step, batch) -> dict:
+    """One step, then ``TRAIN_ITERS`` timed steps on the card: ms a step, the
+    losses, peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = arch.init_params(0, cfg, device=dev)
+    state = init_opt_state(params, AdamWConfig())
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    losses, ms = [], []
+    for i in range(1 + TRAIN_ITERS):
+        (params, state, m), s = _sync_s(lambda: step(params, state, batch))
+        check(_finite(m["loss"]) and _finite(m["grad_norm"]),
+              f"{arch.name}: loss or grad_norm not finite")
+        losses.append(float(m["loss"]))
+        if i:
+            ms.append(s * 1e3)
+    out = dict(losses=losses, ms=ms, median_ms=float(np.median(ms)),
+               max_memory_bytes=torch.cuda.max_memory_allocated(),
+               param_bytes=sum(p.numel() * p.element_size() for p in params.parameters()))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_published(dev, jobs) -> dict:
+    """(d) GraphSAGE's four shapes and the four towers' ``train_batch`` at
+    published configs (cuts in ``REC_TRAIN_CUTS``): ms a step, peak memory.
+    The graphs come from worker processes."""
+    from repro_torch.configs.registry import ARCHS
+
+    res = {}
+    arch = ARCHS["graphsage-reddit"]
+    for shape in GNN_PUBLISHED:
+        out = jobs[shape].get()
+        cfg = arch._resolved(arch.model_config(), shape)
+        step, _ = arch.build_step(arch.model_config(), shape)
+        row = _train_steps(dev, arch, cfg, step, out["batch"])
+        row.update(build_s=out["build_s"], d_in=cfg.d_in, d_hidden=cfg.d_hidden,
+                   **{k: int(v.shape[0]) for k, v in out["batch"].items()
+                      if k in ("feats", "edges", "labels")})
+        res[f"graphsage {shape}"] = row
+        log(f"train graphsage-reddit {shape} (published: d_in {cfg.d_in}, hidden "
+            f"{cfg.d_hidden}, {row.get('feats')} nodes, {row.get('edges', '-')} edges; "
+            f"batch built in a worker in {row['build_s']:.1f} s): {row['median_ms']:.2f} ms "
+            f"a step, losses {', '.join(f'{v:.4f}' for v in row['losses'])}, peak "
+            f"{row['max_memory_bytes'] / 2**30:.2f} GiB")
+    for name, B in REC_TRAIN_BATCH.items():
+        arch = ARCHS[name]
+        cfg = arch.model_config()
+        step, _ = arch.build_step(cfg, "train_batch")
+        host = arch.make_batch(cfg, "train_batch", seed=QUERY_SEED)
+        host = {k: v[:B] for k, v in host.items()}
+        row = _train_steps(dev, arch, cfg, step, host)
+        row.update(batch=B, reduced=[REC_TRAIN_CUTS[name]] if name in REC_TRAIN_CUTS else [],
+                   examples_per_s=B / (row["median_ms"] / 1e3))
+        res[name] = row
+        log(f"train {name} train_batch (published config, batch {B}"
+            + (f"; reduced: {REC_TRAIN_CUTS[name]}" if name in REC_TRAIN_CUTS else "")
+            + f"): {row['median_ms']:.2f} ms a step = {row['examples_per_s']:.0f} "
+            f"examples/s, losses {', '.join(f'{v:.4f}' for v in row['losses'])}, peak "
+            f"{row['max_memory_bytes'] / 2**30:.2f} GiB")
+    return res
+
+
+def train_phase(dev, pool, full_checkpoint: bool = False) -> dict:
+    """Training on the card: (a) reduced parity against the CPU port, (b)
+    qwen3-4b at published widths (with ``full_checkpoint``, its 44 GB
+    state through a checkpoint and back: ~3.5 min of disk, so only
+    ``--train`` runs it), (c) resume and preemption, (d) GraphSAGE and the
+    towers at published configs. The published graphs are built in worker
+    processes meanwhile."""
+    import torch
+
+    t0 = time.perf_counter()
+    jobs = {s: pool.apply_async(build_gnn_batch, (str(SRC), s)) for s in GNN_PUBLISHED}
+    walls = {}
+    res = dict(parity=train_parity(dev))
+    walls["parity"] = time.perf_counter() - t0
+    full, tr = train_full(dev)
+    res["full"] = full
+    walls["full"] = time.perf_counter() - t0 - sum(walls.values())
+    if full_checkpoint:
+        res["full"]["checkpoint"] = checkpoint_roundtrip(tr, ROOT / ".cache" /
+                                                         "chip_smoke_ckpt")
+        walls["checkpoint"] = time.perf_counter() - t0 - sum(walls.values())
+    del tr
+    torch.cuda.empty_cache()
+    res["resume"] = resume_phase(dev, ROOT / ".cache" / "chip_smoke_resume")
+    walls["resume"] = time.perf_counter() - t0 - sum(walls.values())
+    res["published"] = train_published(dev, jobs)
+    walls["published"] = time.perf_counter() - t0 - sum(walls.values())
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    res["walls_s"] = walls
+    log(f"train phase {res['wall_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return res
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3724,6 +4207,9 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     # The architecture registry: reduced configs against the CPU port, the
     # LMs and the towers at published widths.
     record["arch"] = arch_phase(dev, pool)
+    # Training: reduced parity, qwen3-4b at published widths, resume, the
+    # published GraphSAGE and tower configs.
+    record["train"] = train_phase(dev, pool)
 
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
@@ -4061,6 +4547,24 @@ def run_phases(pool, dev=None, scale: dict = SCALE) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def run_train(pool, dev=None) -> None:
+    """``--train``: the train phase alone, with the full-width checkpoint
+    round trip (numbers also in ``chiprun_out/chip_smoke_train.json``)."""
+    import torch
+
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    record = dict(card=smi, train=train_phase(dev, pool, full_checkpoint=True))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_train.json").write_text(json.dumps(record, indent=1, default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main() -> int:
     try:
         import torch
@@ -4079,7 +4583,9 @@ def main() -> int:
     ctx = multiprocessing.get_context("spawn")
     pool = ctx.Pool(3)
     try:
-        (run_phases if "--phases" in sys.argv[1:] else run)(pool)
+        mode = {"--phases": run_phases, "--train": run_train}
+        flags = [a for a in sys.argv[1:] if a in mode]
+        (mode[flags[0]] if flags else run)(pool)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -10,17 +10,22 @@ architecture is an ``Arch`` with:
     shapes and types (no allocation);
   * ``make_batch(cfg, shape, seed)`` — the reference's numpy arrays from the
     same seed (the reference draws with numpy too);
-  * ``build_step(cfg, shape)`` — the serve step and its kind;
+  * ``build_step(cfg, shape)`` — the train or serve step and its kind; a
+    train step is ``trainer.make_train_step``'s ``(params, opt_state,
+    batch) -> (params, opt_state, metrics)`` over the reference's loss,
+    with the reference's ``AdamWConfig`` (the LM's moment dtype);
   * ``init_params(key, cfg, device)`` — random parameters (a generator's
     draws, not JAX's); ``param_shapes`` builds them on the meta device;
   * ``params_from_numpy(tree, cfg, device)`` — the reference's parameters
-    (``jax.tree.map(np.asarray, params)``) carried across bit for bit.
+    (``jax.tree.map(np.asarray, params)``) carried across bit for bit;
+    ``opt_state_from_numpy`` the same for an optimizer state, and
+    ``params_to_numpy``/``opt_state_to_numpy`` the way back, as the
+    reference's stacked numpy trees (bfloat16 as ``V2`` bits).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``. Steps take numpy or tensors and run on the parameters'
-device. Every ``train`` shape, ``GNNArch``'s model, ``lm_loss`` and
-``rec_train_loss`` wait for the training slice (ROADMAP A5b); the
-``*_pspecs`` functions and a sharding context wait for the mesh paths (A7).
+device. The ``*_pspecs`` functions and a sharding context wait for the mesh
+paths (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -31,18 +36,20 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.range_daat import resolve_device
+from repro_torch.data import graphs as G
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import params_from_tree
+from repro_torch.models.layers import params_from_tree, params_to_tree
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.trainer import (
+    make_train_step,
+    opt_state_from_tree,
+    opt_state_to_tree,
+)
 
 __all__ = ["ShapeInfo", "Arch", "LMArch", "GNNArch", "RecArch"]
-
-
-def needs_training(what: str):
-    raise NotImplementedError(
-        f"{what} is training (backward pass, optimizer, checkpoints): the training "
-        "slice, ROADMAP A5b")
 
 
 def needs_mesh(what: str):
@@ -70,6 +77,7 @@ class ShapeInfo:
 class Arch:
     name: str = ""
     family: str = ""
+    stacked: tuple[str, ...] = ()  # parameter segments the reference stacks [L, ...]
 
     def shapes(self) -> dict[str, ShapeInfo]:
         raise NotImplementedError
@@ -86,6 +94,19 @@ class Arch:
 
     def params_from_numpy(self, tree, cfg, device=None):
         raise NotImplementedError
+
+    def params_to_numpy(self, params, cfg=None):
+        """The parameters as the reference's stacked numpy tree."""
+        return params_to_tree(params)
+
+    def opt_state_from_numpy(self, tree, cfg=None, device=None):
+        """The reference's optimizer state (``init_opt_state``'s tree of
+        numpy arrays) as the port's, on ``device`` (None: the card)."""
+        return opt_state_from_tree(tree, self.stacked, resolve_device(device))
+
+    def opt_state_to_numpy(self, state, cfg=None):
+        """The optimizer state as the reference's stacked numpy tree."""
+        return opt_state_to_tree(state, self.stacked)
 
     def input_specs(self, cfg, shape: str):
         raise NotImplementedError
@@ -144,6 +165,7 @@ _LM_REDUCED_DIMS = {
 
 class LMArch(Arch):
     family = "lm"
+    stacked = tfm.STACKED
 
     def __init__(self, name: str, full_cfg: Callable[[], tfm.LMConfig],
                  reduced_cfg: Callable[[], tfm.LMConfig], moments: str = "fp32",
@@ -168,7 +190,7 @@ class LMArch(Arch):
     def params_from_numpy(self, tree, cfg, device=None):
         """``init_lm``'s tree: the stacked ``dense``/``moe`` segments become
         per-layer modules, the MTP head crosses too."""
-        return params_from_tree(tree, device, stacked=("dense", "moe"))
+        return params_from_tree(tree, device, stacked=self.stacked)
 
     def moment_dtype(self, cfg):
         return self._moments
@@ -214,15 +236,18 @@ class LMArch(Arch):
     variants = ("baseline", "split_kv")
 
     def build_step(self, cfg, shape, shard_ctx=None, variant: str = "baseline"):
-        """``prefill_32k``: ``prefill(params, batch) -> (logits [B, 1, V],
-        cache)``, chunks of ``min(4096, S)`` tokens through one cache (the
+        """``train_4k``: the train step over ``lm_loss``, with this arch's
+        moment dtype. ``prefill_32k``: ``prefill(params, batch) -> (logits
+        [B, 1, V], cache)``, chunks of ``min(4096, S)`` tokens through one cache (the
         reference's scan over chunks; ``variant="split_kv"`` without a mesh
         runs GQA as one chunk of S, as the reference does). ``decode_32k``
         (and ``long_500k``): ``decode(params, batch) -> (logits [B, 1, V],
         cache)``, the batch's cache updated in place."""
-        if self.shapes()[shape].kind == "train":
-            needs_training(f"{self.name} {shape}")
         _no_ctx(shard_ctx, f"{self.name} {shape}")
+        if shape == "train_4k":
+            def loss(p, b):
+                return tfm.lm_loss(p, b["tokens"], cfg)
+            return make_train_step(loss, AdamWConfig(moment_dtype=self._moments)), "train"
         impl = "split_kv" if variant == "split_kv" else "batch"
         ropes: dict = {}
 
@@ -337,10 +362,11 @@ class GNNArch(Arch):
         return dataclasses.replace(cfg, d_in=d["d"], n_classes=d["classes"])
 
     def init_params(self, key, cfg_shape, device=None):
-        needs_training(f"{self.name} (GraphSAGE's parameters)")
+        return gnn_mod.init_sage(key, cfg_shape, device)
 
     def params_from_numpy(self, tree, cfg, device=None):
-        needs_training(f"{self.name} (GraphSAGE's parameters)")
+        """``init_sage``'s tree; its list of layers becomes a ModuleList."""
+        return params_from_tree(tree, device)
 
     def input_specs(self, cfg, shape, variant: str = "baseline"):
         d = self._dims(cfg, shape)
@@ -384,10 +410,65 @@ class GNNArch(Arch):
         }
 
     def make_batch(self, cfg, shape, seed: int = 0):
-        needs_training(f"{self.name} {shape} (graphs from data/graphs.py)")
+        d = self._dims(cfg, shape)
+        if shape in ("full_graph_sm", "ogb_products"):
+            g = G.make_graph(d["nodes"], d["edges"] - 8, d["d"], d["classes"], seed)
+            edges = np.full((d["edges"], 2), -1, np.int32)
+            edges[: g.edges.shape[0]] = g.edges  # tail = -1 padding
+            return {"feats": g.feats, "edges": edges, "labels": g.labels}
+        if shape == "minibatch_lg":
+            g = G.make_graph(d["nodes"], max(d["edges2"], 4 * d["nodes"]), d["d"],
+                             d["classes"], seed)
+            ptr, nbrs = G.to_csr(g.n_nodes, g.edges)
+            rng = np.random.default_rng(seed)
+            batch = rng.choice(g.n_nodes, size=d["batch"], replace=False)
+            sub = G.sample_subgraph(ptr, nbrs, g.feats, g.labels, batch, (15, 10), seed)
+            feats = np.zeros((d["nodes"], d["d"]), np.float32)
+            feats[: sub["feats"].shape[0]] = sub["feats"][: d["nodes"]]
+
+            def pad(a, n):
+                out = np.full(n, -1, np.int32)
+                out[: min(len(a), n)] = a[:n]
+                return out
+            return {
+                "feats": feats,
+                "hop0_src": pad(sub["hops"][0][0], d["edges1"]),
+                "hop0_dst": pad(sub["hops"][0][1], d["edges1"]),
+                "hop1_src": pad(sub["hops"][1][0], d["edges2"]),
+                "hop1_dst": pad(sub["hops"][1][1], d["edges2"]),
+                "labels": sub["labels"],
+            }
+        feats, edges, gids, labels = G.make_molecule_batch(
+            d["batch"], d["n_nodes"], d["n_edges"], d["d"], d["classes"], seed
+        )
+        return {"feats": feats, "edges": edges, "graph_ids": gids, "labels": labels}
 
     def build_step(self, cfg, shape, shard_ctx=None, variant: str = "baseline"):
-        needs_training(f"{self.name} {shape}")
+        """The train step of a shape; ``variant="sharded"`` with a context
+        partitions the graph over a mesh (ROADMAP A7)."""
+        _no_ctx(shard_ctx, f"{self.name} {shape}")
+        rcfg = self._resolved(cfg, shape)
+
+        if shape in ("full_graph_sm", "ogb_products"):
+            def loss(p, b):
+                logits = gnn_mod.sage_forward(p, b["feats"], b["edges"], rcfg)
+                return gnn_mod.sage_loss(logits, b["labels"])
+        elif shape == "minibatch_lg":
+            def loss(p, b):
+                hops = [(b["hop0_src"], b["hop0_dst"]), (b["hop1_src"], b["hop1_dst"])]
+                logits = gnn_mod.sage_forward_sampled(
+                    p, b["feats"], hops, rcfg, b["labels"].shape[0]
+                )
+                return gnn_mod.sage_loss(logits, b["labels"])
+        else:
+            def loss(p, b):
+                logits = gnn_mod.sage_forward_graphs(
+                    p, b["feats"], b["edges"], b["graph_ids"],
+                    b["labels"].shape[0], rcfg,
+                )
+                return gnn_mod.sage_loss(logits, b["labels"])
+
+        return make_train_step(loss, AdamWConfig()), "train"
 
     def param_pspecs(self, cfg, params, variant: str = "baseline", ctx=None):
         needs_mesh(f"{self.name} param_pspecs")
@@ -496,11 +577,14 @@ class RecArch(Arch):
         return out
 
     def build_step(self, cfg, shape, shard_ctx=None):
-        """``serve_*``: ``serve(params, batch) -> [B]`` scores;
+        """``train_batch``: the train step over ``rec_train_loss``;
+        ``serve_*``: ``serve(params, batch) -> [B]`` scores;
         ``retrieval_cand``: ``retrieve(params, batch) -> [C]``."""
-        if shape == "train_batch":
-            needs_training(f"{self.name} {shape}")
         _no_ctx(shard_ctx, f"{self.name} {shape}")
+        if shape == "train_batch":
+            def loss(p, b):
+                return rec_mod.rec_train_loss(p, b, cfg)
+            return make_train_step(loss, AdamWConfig()), "train"
         if shape in ("serve_p99", "serve_bulk"):
             def serve(params, batch):
                 return rec_mod.rec_serve_scores(params, batch, cfg)

@@ -1,1 +1,1 @@
-"""Synthetic planted-topic corpora."""
+"""Synthetic planted-topic corpora and graphs."""

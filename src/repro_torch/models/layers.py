@@ -22,9 +22,26 @@ reference's way here:
 the draws are not JAX's, so the tests carry the reference's weights across
 with ``params_from_tree`` (float32 and ``ml_dtypes`` bfloat16 bit for bit).
 On the ``meta`` device the initializers allocate nothing.
+
+Training reads the same tree. Its leaves stay frozen (``requires_grad``
+off) for serving; ``trainable`` turns them on around a loss and its
+backward pass only. ``param_leaves`` lists them in the reference's
+flattening order (``jax.tree.leaves``: dict keys sorted, lists in order,
+the L layers of a stacked leaf together), the order of the optimizer's
+global norm; ``tree_to_flat`` and ``flat_to_tree`` carry a tree between the
+port's per-layer names (``dense.3.attn.wq``) and the reference's stacked
+layout (``dense/attn/wq[3]``), for checkpoints and for starting both
+packages from one state. Numpy has no bfloat16: a bfloat16 leaf crosses to
+numpy as a 2-byte void array of its bits (``V2``, what the reference's
+checkpoints hold), and a ``V2`` array comes back as bfloat16. The
+differentiated paths keep the reference's gradient at ties:
+``jnp.maximum`` splits it (0.5 each), as ``torch.maximum`` does and
+``torch.clamp`` does not, hence ``maximum``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -38,9 +55,15 @@ __all__ = [
     "apply_rope",
     "dense_init",
     "dot_f32",
+    "flat_to_tree",
     "gather_rows",
+    "host_array",
+    "is_bf16_bits",
     "make_generator",
+    "maximum",
+    "param_leaves",
     "params_from_tree",
+    "params_to_tree",
     "rms_norm",
     "rms_norm_init",
     "rope_freqs",
@@ -48,6 +71,8 @@ __all__ = [
     "swiglu_init",
     "tensor_from_numpy",
     "topk_first",
+    "trainable",
+    "tree_to_flat",
 ]
 
 _LOW = 2**32 - 1
@@ -58,7 +83,11 @@ class Params(nn.Module):
     nodes are children; ``p["w"]`` reads a child as the reference reads its
     dict, so the state-dict keys follow the reference's tree paths (a stacked
     ``[L, ...]`` leaf of the reference is layer ``i`` of an ``nn.ModuleList``:
-    ``dense.attn.wq[i]`` is ``dense.i.attn.wq``)."""
+    ``dense.attn.wq[i]`` is ``dense.i.attn.wq``). ``stacked`` names the
+    root's children that the reference stacks (the LM's ``dense`` and
+    ``moe`` segments)."""
+
+    stacked: tuple[str, ...] = ()
 
     def __init__(self, **children):
         super().__init__()
@@ -167,6 +196,11 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(g) * u) @ params["w_down"]
 
 
+def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.maximum(x, c)`` for a float ``x``, its gradient split at a tie."""
+    return torch.maximum(x, torch.tensor(c, dtype=x.dtype, device=x.device))
+
+
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with float32 products and sums, whatever the operands' type
     (the reference's ``preferred_element_type=jnp.float32``)."""
@@ -186,13 +220,34 @@ def topk_first(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(x, -1, idx), idx
 
 
+def is_bf16_bits(dtype: np.dtype) -> bool:
+    """``ml_dtypes`` bfloat16, or the 2-byte void a checkpoint stores it as."""
+    return dtype.itemsize == 2 and (dtype.name == "bfloat16" or dtype.kind == "V")
+
+
 def tensor_from_numpy(arr, device) -> torch.Tensor:
     """A numpy array of the JAX package as a tensor on ``device``, bit for
-    bit: ``ml_dtypes`` bfloat16 crosses as its 16-bit pattern."""
-    a = np.ascontiguousarray(arr)
-    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+    bit: ``ml_dtypes`` bfloat16 and a ``V2`` array cross as bfloat16 with
+    their 16-bit patterns. A tensor is moved as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    a = np.asarray(arr)
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    if is_bf16_bits(a.dtype):
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def host_array(t) -> np.ndarray:
+    """A snapshot of a tensor (or array) as a host numpy array, bfloat16 as
+    ``V2`` bits. A CPU tensor is copied too: training updates it in place."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
 
 
 def params_from_tree(tree, device, stacked: tuple[str, ...] = ()) -> Params:
@@ -214,6 +269,7 @@ def params_from_tree(tree, device, stacked: tuple[str, ...] = ()) -> Params:
         return nn.ModuleList([node(_index(t, i)) for i in range(n)])
 
     out = Params()
+    out.stacked = tuple(stacked)
     for name, child in tree.items():
         out[name] = unstack(child) if name in stacked else node(child)
     return out
@@ -229,3 +285,123 @@ def _leaves(t):
 
 def _index(t, i: int):
     return {k: _index(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+
+
+# ------------------------------------------------------------ training trees
+
+
+def _ref_key(name: str, stacked: tuple[str, ...]):
+    """A port name's place in the reference's tree: (path, layer), layer None
+    for a leaf that is not stacked. List indices are ints, so that sorting
+    keys gives ``jax.tree.leaves``' order."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] in stacked:
+        layer = int(parts[1])
+        parts = [parts[0], *parts[2:]]
+    return tuple(int(c) if c.isdigit() else c for c in parts), layer
+
+
+def _order(names, stacked) -> list[str]:
+    def key(n):
+        path, layer = _ref_key(n, stacked)
+        return path, -1 if layer is None else layer
+    return sorted(names, key=key)
+
+
+def param_leaves(params) -> dict[str, torch.Tensor]:
+    """Every leaf of a ``Params`` tree by name, in the reference's order."""
+    named = dict(params.named_parameters())
+    return {n: named[n] for n in _order(named, params.stacked)}
+
+
+@contextlib.contextmanager
+def trainable(params):
+    """The tree's leaves require gradients inside the block, and are frozen
+    again after it (serving never sees them differentiable)."""
+    leaves = list(params.parameters())
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def _is_q8(x) -> bool:
+    return isinstance(x, dict) and "q" in x and "scale" in x
+
+
+def _map_leaf(fn, leaf):
+    return {k: fn(v) for k, v in leaf.items()} if _is_q8(leaf) else fn(leaf)
+
+
+def flat_to_tree(flat: dict, stacked: tuple[str, ...] = ()) -> dict:
+    """Port-named leaves (tensors, or int8 moments ``{"q", "scale"}``) as the
+    reference's nested tree of host numpy arrays (``host_array``): the
+    layers of a stacked segment become one ``[L, ...]`` leaf, lists become
+    lists."""
+    root: dict = {}
+    layers: dict = {}
+    for name, value in flat.items():
+        path, layer = _ref_key(name, stacked)
+        if layer is None:
+            _put(root, path, _map_leaf(host_array, value))
+        else:
+            layers.setdefault(path, []).append((layer, value))
+    for path, items in layers.items():
+        items = [v for _, v in sorted(items, key=lambda lv: lv[0])]
+        if _is_q8(items[0]):
+            value = {k: np.stack([host_array(v[k]) for v in items]) for k in items[0]}
+        else:
+            value = np.stack([host_array(v) for v in items])
+        _put(root, path, value)
+    return _listify(root)
+
+
+def tree_to_flat(tree, stacked: tuple[str, ...] = ()) -> dict:
+    """The reference's nested tree as port-named leaves (the inverse of
+    ``flat_to_tree``): a stacked ``[L, ...]`` leaf becomes L layers' leaves;
+    an int8 moment ``{"q", "scale"}`` stays one leaf."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict) and not _is_q8(node):
+            for k, v in node.items():
+                walk(v, (*path, str(k)))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, (*path, str(i)))
+        elif path[0] in stacked:
+            first = node["q"] if _is_q8(node) else node
+            for i in range(first.shape[0]):
+                out[".".join((path[0], str(i), *path[1:]))] = _map_leaf(
+                    lambda a, i=i: a[i], node)
+        else:
+            out[".".join(path)] = node
+
+    walk(tree, ())
+    return out
+
+
+def _put(root: dict, path: tuple, value) -> None:
+    node = root
+    for c in path[:-1]:
+        node = node.setdefault(c, {})
+    node[path[-1]] = value
+
+
+def _listify(node):
+    """Dicts keyed by list indices (ints) become lists."""
+    if not isinstance(node, dict) or _is_q8(node):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_listify(node[i]) for i in range(len(node))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def params_to_tree(params) -> dict:
+    """A ``Params`` tree as the reference's nested numpy tree (the inverse of
+    ``params_from_tree``)."""
+    return flat_to_tree(param_leaves(params), params.stacked)

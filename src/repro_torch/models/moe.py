@@ -11,6 +11,12 @@ because one index that differs flips a whole expert's output:
     drops follow that rank);
   * dropped slots scatter into a trash row (``index_put_`` with
     ``accumulate=True``, as ``.at[].add``) and contribute nothing.
+
+Under autograd only the gathered top-k probabilities carry a gradient into
+the router: ``topk_first``'s integer keys are built from a view that
+carries none, and the dispatch indices are integers. The gradient reaches
+the experts through ``index_put_`` and the gather of their outputs, as
+``.at[].add`` and the gather do in the reference.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init, dot_f32, topk_first
+from repro_torch.models.layers import Params, dense_init, dot_f32, maximum, topk_first
 
 __all__ = ["MoEConfig", "init_moe", "moe_ffn"]
 
@@ -69,7 +75,7 @@ def _route(router_w, x, cfg: MoEConfig):
     logits = dot_f32(x, router_w)  # [T, E]
     probs = torch.softmax(logits, dim=-1)
     topv, topi = topk_first(probs, cfg.top_k)  # [T, k]
-    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    topv = topv / maximum(topv.sum(-1, keepdim=True), 1e-9)
     me = probs.mean(0)  # mean router prob per expert
     ce = F.one_hot(topi[:, 0], cfg.n_experts).to(torch.float32).mean(0)
     aux = cfg.n_experts * torch.sum(me * ce)

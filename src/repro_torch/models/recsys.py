@@ -18,8 +18,14 @@ score is independent: ``rec_serve_scores`` ``SERVE_CHUNK`` examples at a
 time (BERT4Rec's 262,144 x 2 heads x 200 x 200 float32 scores would be 84
 GB in one piece), ``rec_retrieval_scores`` ``CAND_CHUNK`` candidates at a
 time for the ranking towers (BST, AutoInt: one piece of AutoInt's
-1,000,000 candidates would need ~70 GB of activations). ``rec_train_loss`` waits for the training slice (ROADMAP
-A5b), ``rec_param_specs`` for the mesh paths (A7).
+1,000,000 candidates would need ~70 GB of activations).
+
+``rec_train_loss`` is the reference's in one piece (its gradient needs
+the whole batch): BCE for BST and AutoInt (``_bce``, whose ``max(z, 0)``
+keeps the reference's split gradient at z = 0), MIND's label-aware
+attention and in-batch softmax over the [B, B] logits, BERT4Rec's sampled
+softmax over 4,096 strided shared negatives and the gold column.
+``rec_param_specs`` waits for the mesh paths (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from repro_torch.models.layers import (
     dot_f32,
     gather_rows,
     make_generator,
+    maximum,
     rms_norm,
     rms_norm_init,
 )
@@ -304,9 +311,49 @@ def _serve_scores(p, feats: dict, cfg: RecConfig, shard_ctx):
     raise ValueError(cfg.arch)
 
 
+def _bce(logits, labels):
+    z = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    return torch.mean(maximum(z, 0.0) - z * y + torch.log1p(torch.exp(-torch.abs(z))))
+
+
 def rec_train_loss(p, batch: dict, cfg: RecConfig, shard_ctx=None):
-    raise NotImplementedError(
-        "rec_train_loss (BCE, in-batch and sampled softmax) is training, ROADMAP A5b")
+    if shard_ctx is not None:
+        raise NotImplementedError(
+            "rec_train_loss with a sharding context (row-sharded tables) is ROADMAP A7")
+    batch = _feats(p, batch)
+    if cfg.arch in ("bst", "autoint"):
+        return _bce(_serve_scores(p, batch, cfg, None), batch["label"])
+    if cfg.arch == "mind":
+        u = _mind_interests(p, batch["history"], cfg)  # [B, J, D]
+        t = _items(p, batch["target"])  # [B, D]
+        # Label-aware attention -> in-batch sampled softmax.
+        ui = (u @ t[:, :, None])[..., 0]  # [B, J]
+        att = torch.softmax(ui * 2.0, dim=-1)
+        user = (att[:, None, :] @ u)[:, 0]  # [B, D]
+        logits = (user @ t.T).to(torch.float32)  # [B, B] in-batch
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+        return torch.mean(lse - gold)
+    if cfg.arch == "bert4rec":
+        pos = batch["mask_positions"].long()
+        h = _bert4rec_hidden(p, batch["history"], cfg, pos)
+        B, M = pos.shape
+        hm = torch.gather(h, 1, pos[..., None].expand(B, M, h.shape[-1]))  # [B, M, D]
+        flat = hm.reshape(B * M, cfg.embed_dim)
+        labels = batch["mask_labels"].reshape(B * M)
+        # Sampled softmax over a shared negative set (BERT4Rec-style): 4096
+        # deterministic strided negatives and the gold column.
+        n_neg = min(4096, cfg.n_items)
+        neg_ids = torch.arange(n_neg, device=flat.device) * (cfg.n_items // n_neg)
+        neg_emb = gather_rows(p["item_emb"], neg_ids)  # [n_neg, D]
+        gold_emb = _items(p, labels)  # [BM, D]
+        neg_logits = dot_f32(flat, neg_emb.T)  # [BM, n_neg]
+        gold_logit = torch.sum(flat.to(torch.float32) * gold_emb.to(torch.float32), dim=-1)
+        lse = torch.logsumexp(torch.cat([neg_logits, gold_logit[:, None]], dim=1), dim=-1)
+        return torch.mean(lse - gold_logit)
+    raise ValueError(cfg.arch)
 
 
 def _ranking_scores(p, feats: dict, candidates, cfg: RecConfig, shard_ctx):

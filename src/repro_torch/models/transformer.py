@@ -1,24 +1,31 @@
 """Decoder-only transformer for the five LM architectures, on one device.
 
-The counterpart of the JAX package's ``models/transformer.py``, serving
-half:
+The counterpart of the JAX package's ``models/transformer.py``:
   * GQA (qwen3 qk-norm, qwen2.5 QKV-bias, deepseek-67b llama-style) or MLA
     (deepseek-v3) attention;
   * dense SwiGLU FFN, switching to MoE after ``n_dense_layers``;
-  * the MTP (multi-token prediction) head's parameters, carried although
-    serving never reads them;
+  * the MTP (multi-token prediction) auxiliary head (deepseek-v3), read by
+    ``lm_loss`` and carried, unread, by serving;
+  * chunked cross-entropy (``_chunked_xent``): logits never exceed
+    [chunk, vocab] float32, and a token count that is not a multiple of
+    ``loss_chunk`` runs as one chunk of all T tokens, as the reference does
+    (at ``train_4k``, T = 4,095);
   * per-layer KV caches (GQA) or compressed caches (MLA) for decode.
 
 The reference stacks every layer's leaves ``[L, ...]`` for ``lax.scan``;
 here a segment is an ``nn.ModuleList`` of layers and the scan a Python
-loop. A cache keeps the reference's stacked layout (``[L, B, Smax, ...]``
-per leaf) and is updated in place: ``lm_decode_step`` returns the cache it
-was given. ``rope`` (keyword-only, the port's own) passes a prebuilt
-``rope_freqs`` table, so that a step built once does not rebuild it per
-call.
+loop. ``cfg.remat`` is the reference's ``jax.checkpoint`` of the scan body:
+when the pass is differentiated, each layer runs under
+``torch.utils.checkpoint`` (``use_reentrant=False``), so only its input is
+kept and its activations are recomputed in the backward pass; serving runs
+the layers as they are. A cache keeps the reference's stacked layout
+(``[L, B, Smax, ...]`` per leaf) and is updated in place: ``lm_decode_step``
+returns the cache it was given. ``rope`` (keyword-only, the port's own)
+passes a prebuilt ``rope_freqs`` table, so that a step built once does not
+rebuild it per call.
 
-``lm_loss`` waits for the training slice (ROADMAP A5b); ``param_specs``,
-``cache_specs`` and ``param_specs_splitkv`` wait for the mesh paths (A7).
+``param_specs``, ``cache_specs`` and ``param_specs_splitkv`` wait for the
+mesh paths (ROADMAP A7), as does a sharding context.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.range_daat import resolve_device
@@ -47,6 +55,8 @@ from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
 
 __all__ = ["LMConfig", "init_lm", "lm_forward", "lm_loss", "init_cache", "lm_decode_step",
            "param_specs", "count_params"]
+
+STACKED = ("dense", "moe")  # the segments the reference stacks [L, ...] for lax.scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +123,7 @@ def init_lm(key, cfg: LMConfig, device=None):
         final_norm=rms_norm_init(cfg.d_model, cfg.dtype, dev),
         lm_head=dense_init(gen, cfg.d_model, cfg.vocab, cfg.dtype, device=dev),
     )
+    params.stacked = STACKED
     nd, nm = cfg.n_dense_total, cfg.n_moe_layers
     if nd:
         params["dense"] = nn.ModuleList([_init_layer(gen, cfg, False, dev) for _ in range(nd)])
@@ -151,15 +162,28 @@ def _layer_apply(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx):
 
 def _scan_segment(params_seg, x, rope, cfg, positions, use_moe, shard_ctx):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled() and x.requires_grad
     for layer in params_seg:
-        x, a = _layer_apply(layer, x, rope, cfg, positions, use_moe, shard_ctx)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer_apply, layer, x, rope, cfg, positions, use_moe, shard_ctx,
+                use_reentrant=False)
+        else:
+            x, a = _layer_apply(layer, x, rope, cfg, positions, use_moe, shard_ctx)
         aux = aux + a
     return x, aux
 
 
+def _no_ctx(shard_ctx, what: str) -> None:
+    if shard_ctx is not None:
+        raise NotImplementedError(
+            f"{what} with a sharding context (the mesh's tensor and expert "
+            "parallelism) is ROADMAP A7; pass shard_ctx=None")
+
+
 def lm_forward(params, tokens, cfg: LMConfig, shard_ctx=None, *, rope=None):
     """tokens [B, S] -> (hidden [B, S, d], aux_loss). Logits are computed by
-    the caller via lm_head."""
+    the loss (chunked) or by the caller via lm_head."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B, S = tokens.shape
@@ -177,10 +201,51 @@ def lm_forward(params, tokens, cfg: LMConfig, shard_ctx=None, *, rope=None):
     return rms_norm(x, params["final_norm"]), aux
 
 
+def _chunked_xent(h2d, head, labels, chunk: int):
+    """Mean CE over T tokens without materializing [T, V] logits."""
+    T, _ = h2d.shape
+    if T % chunk != 0:
+        chunk = T
+    tot = torch.zeros((), dtype=torch.float32, device=h2d.device)
+    for c0 in range(0, T, chunk):
+        logits = dot_f32(h2d[c0:c0 + chunk], head)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[c0:c0 + chunk, None].long())[:, 0]
+        tot = tot + torch.sum(lse - gold)
+    return tot / T
+
+
 def lm_loss(params, tokens, cfg: LMConfig, shard_ctx=None):
-    raise NotImplementedError(
-        "lm_loss (chunked cross-entropy with the MoE and MTP terms) is training, "
-        "ROADMAP A5b")
+    """Next-token CE (+ MoE aux + MTP aux). tokens [B, S] int32."""
+    _no_ctx(shard_ctx, "lm_loss")
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    B, S = tokens.shape
+    rope = rope_table(cfg, max(S, cfg.max_seq), dev)
+    h, aux = lm_forward(params, tokens, cfg, shard_ctx, rope=rope)
+    h_pred = h[:, :-1].reshape(B * (S - 1), cfg.d_model)
+    labels = tokens[:, 1:].reshape(B * (S - 1))
+    loss = _chunked_xent(h_pred, params["lm_head"], labels, cfg.loss_chunk)
+
+    if cfg.mtp and "mtp" in params:
+        # Predict token t+2 from (h_t, embed(token_{t+1})) through one block.
+        m = params["mtp"]
+        h_in = rms_norm(h[:, :-1], m["ln_h"])
+        e_in = rms_norm(gather_rows(params["embed"], tokens[:, 1:]), m["ln_e"])
+        z = torch.cat([h_in, e_in], -1) @ m["proj"]
+        z, _ = _layer_apply(
+            m["block"], z, rope, cfg, torch.arange(S - 1, device=dev), False, shard_ctx
+        )
+        z = rms_norm(z, m["final_norm"])
+        z_pred = z[:, :-1].reshape(B * (S - 2), cfg.d_model)
+        mtp_labels = tokens[:, 2:].reshape(B * (S - 2))
+        loss = loss + cfg.mtp_weight * _chunked_xent(
+            z_pred, params["lm_head"], mtp_labels, cfg.loss_chunk
+        )
+
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss
 
 
 # ------------------------------------------------------------------- decode

@@ -8,8 +8,8 @@ the meta device against the reference's ``eval_shape``, a stacked ``[L,
 ...]`` leaf against its L layers); ``count_params``,
 ``model_flops_per_token`` and the moment dtype; ``make_batch``'s arrays;
 the ``anytime-ir`` step against the reference's on a small built index
-(bitwise); and every ``train`` shape and mesh function raising, naming its
-ROADMAP item.
+(bitwise); every ``train`` shape building and taking a step, and every mesh
+function raising, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -261,20 +261,28 @@ def test_anytime_ir_params_are_meta_specs():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_train_shapes_and_mesh_functions_raise(name):
+    """Every ``train`` shape builds and takes a step on the CPU (its
+    parameters move, its state's step counts 1, its metrics are finite);
+    every mesh function raises naming A7."""
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
     arch = ARCHS[name]
     cfg = arch.model_config(True)
     for shape, info in arch.shapes().items():
         if info.kind == "train":
-            with pytest.raises(NotImplementedError, match="A5b"):
-                arch.build_step(cfg, shape)
-        elif arch.family != "ir":
+            step, kind = arch.build_step(cfg, shape)
+            assert kind == "train"
+            rcfg = arch._resolved(cfg, shape) if arch.family == "gnn" else cfg
+            params = arch.init_params(0, rcfg, device="cpu")
+            before = [p.clone() for p in params.parameters()]
+            state = init_opt_state(params, AdamWConfig(moment_dtype=arch.moment_dtype(cfg)))
+            params, state, metrics = step(params, state, arch.make_batch(cfg, shape, seed=1))
+            assert int(state["step"]) == 1
+            assert all(torch.isfinite(metrics[k]) for k in ("loss", "lr", "grad_norm"))
+            assert any(not torch.equal(a, b) for a, b in zip(before, params.parameters()))
+        if arch.family != "ir":
             with pytest.raises(NotImplementedError, match="A7"):
                 arch.build_step(cfg, shape, shard_ctx=object())
-    if arch.family == "gnn":
-        for fn in (lambda: arch.init_params(0, cfg), lambda: arch.make_batch(
-                cfg, "molecule"), lambda: arch.params_from_numpy({}, cfg)):
-            with pytest.raises(NotImplementedError, match="A5b"):
-                fn()
     with pytest.raises(NotImplementedError, match="A7"):
         arch.param_pspecs(cfg, None)
     with pytest.raises(NotImplementedError, match="A7"):

@@ -54,6 +54,10 @@ def test_port_modules_import_neither_jax_nor_reference():
         "later |= {'repro_torch.models.' + m for m in (\n"
         "          'layers', 'attention', 'moe', 'transformer', 'recsys', 'gnn')}\n"
         "later |= {'repro_torch.core.' + m for m in ('saat', 'boolean', 'bound_sum')}\n"
+        "later |= {'repro_torch.optim', 'repro_torch.train', 'repro_torch.launch.train',\n"
+        "          'repro_torch.data.graphs'} | {'repro_torch.optim.' + m for m in (\n"
+        "          'adamw', 'schedule', 'compression')} | {'repro_torch.train.' + m\n"
+        "          for m in ('trainer', 'checkpoint')}\n"
         "assert later <= set(names), sorted(later - set(names))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -225,3 +229,34 @@ def test_kernel_library_is_named_by_source_and_flags(monkeypatch, tmp_path, modu
     lib = tmp_path / f"lib{module}-{digest.hexdigest()[:16]}.so"
     lib.write_bytes(b"")
     assert kernel.build() == (lib, 0.0, "")
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``launch.train``, GraphSAGE's parameters, a checkpoint restore and a
+    ``Trainer`` over default parameters go to the card unless the caller
+    asks for the CPU."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gnn, lm = ARCHS["graphsage-reddit"], ARCHS["qwen3-4b"]
+    gcfg = gnn._resolved(gnn.model_config(True), "molecule")
+    ck = Checkpointer(str(tmp_path))
+    ck.save({"w": torch.ones(3)}, step=1, blocking=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: train.main(["--arch", "qwen3-4b", "--steps", "1"]),
+                 lambda: train.main(["--arch", "qwen3-4b", "--steps", "1", "--device",
+                                     "cuda"]),
+                 lambda: gnn.init_params(0, gcfg),
+                 lambda: gnn.params_from_numpy({"layers": []}, gcfg),
+                 lambda: ck.restore(1),
+                 lambda: lm.opt_state_from_numpy({"m": {}, "v": {}, "step": np.int32(0)}),
+                 lambda: Trainer(lambda p, b: None, lm.init_params(0, lm.model_config(True)),
+                                 TrainerConfig(), lambda s: {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    t = Trainer(lambda p, b: None, lm.init_params(0, lm.model_config(True), device="cpu"),
+                TrainerConfig(), lambda s: {})
+    assert t.device.type == "cpu" and t.opt_state["step"].device.type == "cpu"
+    assert ck.restore(1, device="cpu")["w"].device.type == "cpu"

@@ -94,8 +94,12 @@ def test_pieces_give_one_pieces_scores(name, towers, monkeypatch):
 def test_training_and_mesh_functions_raise(towers):
     cfg = ARCHS["bst"].model_config(True)
     _, pp = towers["bst"]
-    with pytest.raises(NotImplementedError, match="A5b"):
-        recsys.rec_train_loss(pp, {}, cfg)
+    # rec_train_loss is ported (tests/test_torch_train_archs.py holds it
+    # against the reference); its mesh form raises.
+    loss = recsys.rec_train_loss(pp, ARCHS["bst"].make_batch(cfg, "train_batch"), cfg)
+    assert loss.shape == () and torch.isfinite(loss)
+    with pytest.raises(NotImplementedError, match="A7"):
+        recsys.rec_train_loss(pp, {}, cfg, shard_ctx=object())
     with pytest.raises(NotImplementedError, match="A7"):
         recsys.rec_param_specs(pp, cfg)
     batch = ARCHS["bst"].make_batch(cfg, "serve_p99")
