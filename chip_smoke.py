@@ -154,7 +154,19 @@ fails (non-zero exit, no result line) on any fault:
      in-memory engines for 64 queries, unbudgeted and budgeted, with one
      ``range_step`` per range of the anytime loop and one ``traverse`` per
      query or chunk; stale and unverifiable shard artifacts refused;
-     ``repack`` int32 -> packed keeping fingerprint and results); then a
+     ``repack`` int32 -> packed keeping fingerprint and results); the mesh
+     phase (``torch.distributed`` ranks spawned here after the kernel
+     build, sharing the card through gloo: four ranks each loading its own
+     shard of that shard artifact, ``ShardedBatchEngine`` over the mesh for
+     64 queries unbudgeted, budgeted and with shard 1 starved, equal on
+     every ``ShardedResult`` field to the stacked engine on the card, one
+     ``traverse`` per rank and dispatch; ``ControlPlane(n_replicas=2)`` on
+     the 2 x 2 (data x shard) mesh over the preset, healthy, a batch of 3,
+     shard 1 down and up and a live reshard, equal to one replica; the
+     partitioned IR on a 2 x 4 context, 8 ranks, equal to one device; a
+     one-rank NCCL mesh; the backend, devices, wall times, the per-dispatch
+     split between the local ``traverse`` and the gather and merge, and
+     whether gloo takes card tensors); then a
      profiled serving window that splits a
      query's time between the device and the host (plan time per query
      apart), a profiled batch window (plan, dispatch, device and read ms
@@ -2320,7 +2332,8 @@ def chain_phase(job, dev) -> dict:
 
 
 def artifact_phase(index, queries, engine, dev, n: int = 64) -> dict:
-    """The scale index through ``index_io`` and back onto the card.
+    """The scale index through ``index_io`` and back onto the card (the
+    int8/packed artifact and its shard artifact stay for the mesh phase).
 
     ``save_index`` (int8, packed) and ``save_shards`` (S = ``SHARDS``, with
     the source fingerprint); ``Engine.from_artifact`` (eager load) and an
@@ -2492,7 +2505,8 @@ def artifact_phase(index, queries, engine, dev, n: int = 64) -> dict:
         f"every ShardedResult field ({out['sharded_chunks']} chunks, one traverse each); "
         f"stale and unverifiable shard artifacts refused; repack int32 -> packed "
         f"{out['repack_s']:.2f} s, fingerprint and results kept")
-    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    shutil.rmtree(packed, ignore_errors=True)
+    out["paths"] = dict(art=art, shards_art=shards_art)
     return out
 
 
@@ -3072,6 +3086,7 @@ def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
     output (values, global ids, ranges) to its plain path on the card
     (``impl="torch"``), unbudgeted and at a postings budget, and on the
     score lists to the merged per-shard exhaustive oracles."""
+    import numpy as np
     import torch
     from repro_torch.core.clustered_index import index_from_arrays
     from repro_torch.core.oracle import exhaustive_topk
@@ -3094,6 +3109,9 @@ def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
     plan_s = time.perf_counter() - t0
     res = dict(build_s=out["build_s"], plan_s=plan_s, shards=IR_SHARDS, ranges=IR_RANGES,
                s_pad=arrays.s_pad, nnz=int(arrays.docs.shape[1]))
+    # The mesh phase's 2 x 4 context runs on these arrays and tables.
+    _pickle(MESH_DIR / "ir_in.pkl", dict(stacked=out["stacked"], s_pad=out["s_pad"],
+                                         k=out["k"], tables=[np.asarray(t) for t in tables]))
     for label, budget in (("unbudgeted", 2**31 - 1), ("budgeted", IR_BUDGET)):
         reset_launches()
         got = [t.cpu() for t in sharded_anytime_query(arrays, tables, None, budget,
@@ -3129,6 +3147,500 @@ def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
         f"({res['budgeted']['ranges']} lane-ranges)")
     res["arch"] = arch_ir(arrays, tables)
     return res
+
+
+# ---------------------------------------------------------------- mesh phase
+
+MESH_DIR = ROOT / ".cache" / "chip_smoke_mesh"  # git-ignored; removed after
+MESH_TIMEOUT_S = 420  # a spawned group's limit, load and build included
+MESH_IR = (2, 4)  # the partitioned IR's (data, model) context: 8 ranks
+MESH_PLANE = (2, 2)  # the control plane's (replicas, shards) mesh on the preset
+MESH_STARVED = 128  # one block: the starved shard's postings budget
+
+
+def _pickle(path, obj) -> None:
+    import pickle
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def _unpickle(path):
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _count_plain_traverse():
+    """On the CPU (a rehearsal) count the plain traversal's outermost calls
+    as ``kernel.traverse`` launches, as the CPU rehearsals of the other
+    phases do."""
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    real = ref.traverse_ref
+
+    def counted(*a, **kw):
+        kernel.traverse.launches += 1
+        return real(*a, **kw)
+
+    ref.traverse_ref = counted
+
+
+def mesh_rank(case: str, rank: int, world: int, src: str, device: str | None) -> None:
+    """A spawned rank of the mesh phase: its process group (``file://``
+    under ``MESH_DIR``), the kernel library from the parent's build, then
+    ``case``; rank 0 writes what every rank saw to ``MESH_DIR/<case>.out``."""
+    sys.path.insert(0, src)
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.kernels.range_scorer import kernel
+
+    t0 = time.perf_counter()
+    rt = ms.init_mesh_group(device=device,
+                            init_method=f"file://{MESH_DIR / (case + '.init')}",
+                            rank=rank, world_size=world, timeout_s=MESH_TIMEOUT_S - 60)
+    if rt.device.type == "cuda":
+        _, build_s, _ = kernel.build()  # the parent's library: a cache hit
+    else:
+        build_s = 0.0
+        _count_plain_traverse()
+    job = _unpickle(MESH_DIR / f"{case}.in")
+    out = {"case": case, "backend": rt.backend, "staged": rt.staged,
+           "start_s": time.perf_counter() - t0}
+    sections = MESH_CASES[case](rt, job, out)
+    ranks = [None] * rt.world
+    dist.all_gather_object(ranks, dict(rank=rt.rank, device=str(rt.device),
+                                       build_s=build_s, launches=sections),
+                           group=rt.control)
+    if rt.rank == 0:
+        out["ranks"] = ranks
+        _pickle(MESH_DIR / f"{case}.out", out)
+    ms.close_mesh_group()
+
+
+def _section(rt, fn):
+    """Rank 0 drives ``fn()`` (its answers) while the other ranks execute;
+    then this rank's ``traverse`` launches in the section."""
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.kernels.range_scorer import kernel
+
+    kernel.traverse.launches = 0
+    res = None
+    if rt.rank == 0:
+        with ms.driving():
+            res = fn()
+    else:
+        ms.worker_loop()
+    return res, kernel.traverse.launches
+
+
+def _gloo_probe(rt, iters: int = 50) -> dict:
+    """Whether this build's gloo takes card tensors in ``all_gather``, and
+    the time of one gather of a dispatch's rows ([16, 2k+5] int32) staged
+    through the host (the port's way) and, where gloo takes them, direct."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((BATCH, 25), rt.rank, dtype=torch.int32, device=rt.device)
+
+    def gather(t):
+        parts = [torch.empty_like(t) for _ in range(rt.world)]
+        dist.all_gather(parts, t)
+        return parts
+
+    out = {}
+    for label, fn in (("staged", lambda: [p.to(rt.device) for p in gather(x.cpu())]),
+                      ("direct", lambda: gather(x))):
+        try:
+            parts = fn()
+            ok = [int(p[0, 0]) for p in parts] == list(range(rt.world))
+        except Exception as e:  # noqa: BLE001 - the finding is the error itself
+            out[label] = dict(ok=False, error=f"{type(e).__name__}: {str(e)[:300]}")
+            continue
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize()
+        out[label] = dict(ok=ok, ms=(time.perf_counter() - t0) * 1e3 / iters)
+    return out
+
+
+def _timed_mesh_steps(split: list):
+    """Time each ``ShardedEngine`` mesh step on this rank as (upload +
+    ``traverse`` ms, gather + merge ms): the host clock, with a device
+    synchronisation at the start, after the kernel and at the end.
+    Returns the function that undoes the wrapping."""
+    import torch
+    from repro_torch.serving import sharded
+
+    real_lanes, real_step = sharded.traverse_lanes, sharded.ShardedEngine._mesh_step
+    marks = []
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def lanes(*a, **kw):
+        out = real_lanes(*a, **kw)
+        sync()
+        marks.append(time.perf_counter())
+        return out
+
+    def step(self, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = real_step(self, *a, **kw)
+        sync()
+        t1 = marks.pop()
+        split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        return out
+
+    sharded.traverse_lanes, sharded.ShardedEngine._mesh_step = lanes, step
+
+    def undo():
+        sharded.traverse_lanes, sharded.ShardedEngine._mesh_step = real_lanes, real_step
+
+    return undo
+
+
+def mesh_case_serve(rt, job, out) -> list:
+    """Four ranks: the scale cell's four shards, each rank loading its own
+    from the shard artifact, then the 2 x 2 replica plane on the preset."""
+    from repro_torch.control import ControlPlane
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.serving import BucketSpec, ShardedBatchEngine, ShardedEngine
+
+    launches = []
+    out["gloo_cuda"] = _gloo_probe(rt)
+    t0 = time.perf_counter()
+    seng = ShardedEngine.from_artifact(job["art"], SHARDS, shards_path=job["shards_art"],
+                                       use_mesh=True, k=10, device=rt.device)
+    out["load_s"] = time.perf_counter() - t0
+    out["local_rows"] = int(seng.dix.impacts.shape[0])
+    split = []
+    pe = Engine.from_artifact(job["preset_art"], k=10, device=rt.device)
+    ms.register(pe)  # rank 0 builds the plane's engines on it while it drives
+
+    def sharded():
+        plans = [seng.plan(q) for q in job["queries"]]
+        sb = ShardedBatchEngine(seng, BucketSpec(max_batch=BATCH))
+        res = {}
+        for label, kw in (("unbudgeted", {}),
+                          ("budgeted", dict(budget_postings=job["budgets"])),
+                          ("starved", dict(budget_postings=job["starved"]))):
+            before, n_split = sb.batches_run, len(split)
+            t0 = time.perf_counter()
+            got = sb.run_batch(plans, **kw)
+            res[label] = dict(fields=[sharded_fields(r) for r in got],
+                              dispatches=sb.batches_run - before,
+                              wall_ms=(time.perf_counter() - t0) * 1e3,
+                              split=split[n_split:])
+        return res
+
+    undo = _timed_mesh_steps(split)
+    out["sharded"], n = _section(rt, sharded)
+    undo()
+    launches.append(n)
+
+    def plane():
+        import numpy as np
+
+        qs = job["preset_queries"]
+        p = ControlPlane(pe, n_shards=MESH_PLANE[1], n_replicas=MESH_PLANE[0],
+                         spec=BucketSpec(max_batch=BATCH), use_mesh=True)
+        check(p.stats()["replica_mesh"], "mesh plane: replica_mesh is False")
+        res = dict(dispatches=0)
+        res["healthy"] = _served_fields(p.replay(qs, batch_size=BATCH))
+        # A batch of 3 on 2 replica rows: one pad lane.
+        se, rep = p.sengine, p.replicas
+        plans = [se.plan(q) for q in qs[:3]]
+        w = max(se.shard_plan(pl)[0].shape[-1] for pl in plans)
+        tabs = [np.stack(t) for t in zip(*[se.shard_plan(pl, w) for pl in plans])]
+        caps = np.full((3, MESH_PLANE[1]), 2**31 - 1)
+        res["odd"] = rep.dispatch(*tabs, caps, caps).cpu().numpy().tolist()
+        res["odd_tables"] = (tabs, caps)
+        p.mark_down(1)
+        res["down"] = _served_fields(p.replay(qs[:32], batch_size=BATCH))
+        p.mark_up(1)
+        res["recovered"] = _served_fields(p.replay(qs[:32], batch_size=BATCH))
+        res["reshard"] = _live_reshard(p, qs)
+        res["after"] = _served_fields(p.replay(qs, batch_size=BATCH))
+        res["cuts"] = p.cuts.tolist()
+        res["replica_dispatches"] = p.replicas.dispatches
+        return res
+
+    out["plane"], n = _section(rt, plane)
+    launches.append(n)
+    return launches
+
+
+def _served_fields(served) -> list:
+    return [(s.rid, s.batch_size, sharded_fields(s.result))
+            for s in sorted(served, key=lambda s: s.rid)]
+
+
+def _live_reshard(plane, qs) -> tuple:
+    """The first boundary moved by one range, cut over between drains of
+    two queries each; (served, steps, cuts)."""
+    cuts = plane.cuts.copy()
+    cuts[1] += 1 if cuts[1] + 1 < cuts[2] else -1
+    task = plane.start_reshard(cuts)
+    served, qi = [], 0
+    while plane.reshard_task is not None or plane.pending:
+        for q in qs[qi % len(qs):qi % len(qs) + 2]:
+            plane.submit(q)
+        qi += 2
+        served.extend(plane.drain_once())
+    return _served_fields(served), task.steps_done, plane.cuts.tolist()
+
+
+def mesh_case_ir(rt, job, out) -> list:
+    """Eight ranks: the partitioned IR on a 2 x 4 (data x model) context;
+    every rank calls the step (SPMD) with the global arrays on the host,
+    each moving its own sub-index to its device."""
+    import torch
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.kernels.range_scorer import kernel
+    from repro_torch.serve.distributed_ir import ShardedIndexArrays, sharded_anytime_query
+
+    arrays = ShardedIndexArrays(**{f: torch.from_numpy(a) for f, a in job["stacked"].items()},
+                                s_pad=job["s_pad"], k=job["k"])
+    ctx = ms.ShardCtx(ms.make_mesh(MESH_IR, ("data", "model")))
+    kernel.traverse.launches = 0
+    res = {}
+    for label, budget in (("unbudgeted", 2**31 - 1), ("budgeted", IR_BUDGET)):
+        t0 = time.perf_counter()
+        v, i, r = sharded_anytime_query(arrays, job["tables"], ctx, budget)
+        res[label] = dict(vals=v.cpu().numpy(), ids=i.cpu().numpy(), ranges=int(r),
+                          wall_ms=(time.perf_counter() - t0) * 1e3)
+    out["ir"] = res
+    return [kernel.traverse.launches]
+
+
+def mesh_case_nccl(rt, job, out) -> list:
+    """One rank with its own card: NCCL, the preset's one shard on the mesh."""
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serving import BucketSpec, ShardedBatchEngine, ShardedEngine
+
+    pe = Engine.from_artifact(job["preset_art"], k=10, device=rt.device)
+    seng = ShardedEngine(pe, 1, use_mesh=True)
+    check(seng.mesh is not None, "nccl: the engine is not on the mesh")
+
+    def run():
+        sb = ShardedBatchEngine(seng, BucketSpec(max_batch=BATCH))
+        plans = [seng.plan(q) for q in job["preset_queries"]]
+        got = sb.run_batch(plans, budget_postings=job["preset_budgets"])
+        return dict(fields=[sharded_fields(r) for r in got], dispatches=sb.batches_run)
+
+    out["nccl"], n = _section(rt, run)
+    return [n]
+
+
+MESH_CASES = {"serve": mesh_case_serve, "ir": mesh_case_ir, "nccl": mesh_case_nccl}
+
+
+def spawn_mesh(case: str, world: int, job: dict, device: str | None = None) -> dict:
+    """Run ``case`` on ``world`` spawned ranks; rank 0's record. Every rank
+    is joined, or killed at ``MESH_TIMEOUT_S``."""
+    import multiprocessing as mp
+
+    for suffix in (".init", ".out"):
+        (MESH_DIR / f"{case}{suffix}").unlink(missing_ok=True)
+    _pickle(MESH_DIR / f"{case}.in", job)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(case, r, world, str(SRC), device))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not hung, f"mesh {case}: ranks {hung} still running after {MESH_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"mesh {case}: rank exit codes {codes}")
+    out = _unpickle(MESH_DIR / f"{case}.out")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(engine, queries, art: str, shards_art: str, preset_art: str, dev,
+               n: int = CONTROL_QUERIES, device: str | None = None) -> dict:
+    """The retrieval mesh on ``torch.distributed`` ranks that share the card
+    through gloo (host-staged collectives), plus a one-rank NCCL mesh.
+
+    (a) Four ranks, each loading its own shard of the scale cell's shard
+    artifact: ``ShardedBatchEngine`` over the mesh engine at batch ``BATCH``
+    for ``n`` queries, unbudgeted, budgeted and with shard 1 starved, equal
+    on every ``ShardedResult`` field to the parent's stacked
+    ``ShardedEngine`` on the card, one ``traverse`` launch per rank and
+    dispatch, the starved shard's exit reasons intact; then
+    ``ControlPlane(n_replicas=2)`` on the 2 x 2 (data x shard) mesh over
+    the preset: healthy, a batch of 3 over two replica rows, shard 1 down
+    and recovered, a live reshard, each equal to the single-replica plane
+    on the card. (b) Eight ranks: the partitioned IR on a 2 x 4 context
+    equal to the one-device ``sharded_anytime_query`` bitwise. (c) One
+    rank, NCCL. Logged: the backend, each rank's device, each group's
+    wall time, the per-dispatch split between the local ``traverse`` and
+    the gather and merge, and whether gloo takes card tensors directly.
+    """
+    import numpy as np
+    import torch
+    from repro_torch import index_io
+    from repro_torch.control import ControlPlane
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.serve.distributed_ir import ShardedIndexArrays, sharded_anytime_query
+    from repro_torch.serving import BucketSpec, ShardedBatchEngine, ShardedEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(23)
+    qs = list(queries[:n])
+    plans = [engine.plan(q) for q in qs]
+    budgets = rng.integers(200, 4000, size=len(qs))
+    starved = np.full((len(qs), SHARDS), 2**31 - 1, np.int64)
+    starved[:, 1] = MESH_STARVED
+    pe = Engine.from_artifact(preset_art, k=10, device=dev)
+    pqs = list(_unpickle(MESH_DIR / "preset_queries.pkl"))[:n]
+    pbudgets = rng.integers(100, 3000, size=len(pqs))
+    out = {}
+
+    # (a) the scale shards and the replica plane, four ranks.
+    got = spawn_mesh("serve", SHARDS, dict(art=art, shards_art=shards_art,
+                                          preset_art=preset_art, queries=qs,
+                                          budgets=budgets, starved=starved,
+                                          preset_queries=pqs), device=device)
+    bspec = BucketSpec(max_batch=BATCH)
+    stacked = ShardedBatchEngine(ShardedEngine(engine, SHARDS,
+                                               shards=index_io.load_shards(shards_art)),
+                                 bspec)
+    dispatches = 0
+    for label, kw in (("unbudgeted", {}), ("budgeted", dict(budget_postings=budgets)),
+                      ("starved", dict(budget_postings=starved))):
+        want = [sharded_fields(r) for r in stacked.run_batch(plans, **kw)]
+        mine = got["sharded"][label]
+        for i, (g, w) in enumerate(zip(mine["fields"], want)):
+            check(g == w, f"mesh sharded {label} query {i}: {g} != stacked {w}")
+        check(len(mine["fields"]) == len(want), f"mesh sharded {label}: lengths")
+        dispatches += mine["dispatches"]
+    starved_exits = sum(f[5][1] == "budget" for f in got["sharded"]["starved"]["fields"])
+    check(starved_exits > 0, "mesh sharded: no budget exit of the starved shard survived")
+    for r in got["ranks"]:
+        check(r["launches"][0] == dispatches,
+              f"mesh sharded: rank {r['rank']} launched traverse {r['launches'][0]} times "
+              f"over {dispatches} dispatches")
+    split = np.asarray([s for lb in ("unbudgeted", "budgeted", "starved")
+                        for s in got["sharded"][lb]["split"]])
+    out["sharded"] = dict(
+        dispatches=dispatches, starved_budget_exits=int(starved_exits),
+        load_s=got["load_s"], devices=[r["device"] for r in got["ranks"]],
+        build_s=[r["build_s"] for r in got["ranks"]], backend=got["backend"],
+        staged=got["staged"], gloo_cuda=got["gloo_cuda"], wall_s=got["wall_s"],
+        start_s=got["start_s"], local_rows=got["local_rows"],
+        traverse_ms=float(np.median(split[:, 0])), merge_ms=float(np.median(split[:, 1])),
+        traverse_ms_mean=float(split[:, 0].mean()), merge_ms_mean=float(split[:, 1].mean()),
+        window_ms={lb: got["sharded"][lb]["wall_ms"] for lb in
+                   ("unbudgeted", "budgeted", "starved")})
+    log(f"mesh (a): {SHARDS} ranks, {got['backend']}"
+        f"{' host-staged' if got['staged'] else ''} on "
+        f"{','.join(out['sharded']['devices'])}; each loaded its own shard "
+        f"({got['local_rows']} row on its device) in {got['load_s']:.2f} s, the "
+        f"kernel library from the parent's build ({out['sharded']['build_s']} s); "
+        f"{len(qs)} queries x 3 budget forms == the stacked ShardedEngine on every "
+        f"ShardedResult field ({dispatches} dispatches, one traverse per rank each; "
+        f"{starved_exits} budget exits of starved shard 1); per dispatch, median (mean): "
+        f"local upload + traverse {out['sharded']['traverse_ms']:.3f} "
+        f"({out['sharded']['traverse_ms_mean']:.3f}) ms, gather + merge "
+        f"{out['sharded']['merge_ms']:.3f} ({out['sharded']['merge_ms_mean']:.3f}) ms "
+        f"(host-staged gloo on one shared card, "
+        f"not a figure for a node with four cards); gloo on card tensors: "
+        f"{got['gloo_cuda']}")
+
+    single = ControlPlane(pe, n_shards=MESH_PLANE[1], n_replicas=MESH_PLANE[0],
+                          spec=bspec, use_mesh=False)
+    mp_ = got["plane"]
+    want = dict(healthy=_served_fields(single.replay(pqs, batch_size=BATCH)))
+    tabs, caps = mp_["odd_tables"]
+    want["odd"] = single.sengine.dispatch(*tabs, caps, caps).cpu().numpy().tolist()
+    single.mark_down(1)
+    want["down"] = _served_fields(single.replay(pqs[:32], batch_size=BATCH))
+    single.mark_up(1)
+    want["recovered"] = _served_fields(single.replay(pqs[:32], batch_size=BATCH))
+    want["reshard"] = _live_reshard(single, pqs)
+    want["after"] = _served_fields(single.replay(pqs, batch_size=BATCH))
+    for key in ("healthy", "odd", "down", "recovered", "reshard", "after"):
+        check(mp_[key] == want[key], f"mesh plane {key}: the 2 x 2 mesh != one replica")
+    check(any("down" in f[2][5] and not f[2][7] for f in mp_["down"]),
+          "mesh plane: no query served degraded while shard 1 was down")
+    for r in got["ranks"]:
+        check(r["launches"][1] > 0, f"mesh plane: rank {r['rank']} launched nothing")
+    out["plane"] = dict(cuts=mp_["cuts"], replica_dispatches=mp_["replica_dispatches"],
+                        launches=[r["launches"][1] for r in got["ranks"]])
+    log(f"mesh (a): ControlPlane({MESH_PLANE[1]} shards, {MESH_PLANE[0]} replicas) on the "
+        f"2 x 2 mesh over the preset == the single-replica plane on the card: healthy, "
+        f"a batch of 3 on two rows, shard 1 down and recovered, a live reshard to "
+        f"{mp_['cuts']} (every rank re-carved its shard); {mp_['replica_dispatches']} "
+        f"replica-mesh dispatches, traverse launches per rank "
+        f"{out['plane']['launches']}; group wall {got['wall_s']:.1f} s")
+
+    # (b) partitioned IR, eight ranks on a 2 x 4 context.
+    ir_job = _unpickle(MESH_DIR / "ir_in.pkl")
+    got = spawn_mesh("ir", MESH_IR[0] * MESH_IR[1], ir_job, device=device)
+    arrays = ShardedIndexArrays(**{f: torch.from_numpy(a)
+                                   for f, a in ir_job["stacked"].items()},
+                                s_pad=ir_job["s_pad"], k=ir_job["k"]).to(dev)
+    ties = 0
+    for label, budget in (("unbudgeted", 2**31 - 1), ("budgeted", IR_BUDGET)):
+        v, i, r = (t.cpu().numpy() for t in sharded_anytime_query(arrays, ir_job["tables"],
+                                                                    None, budget))
+        g = got["ir"][label]
+        check(g["vals"].tolist() == v.tolist() and g["ids"].tolist() == i.tolist()
+              and g["ranges"] == int(r), f"mesh ir {label}: the 2 x 4 context != one device")
+        ties += sum(len(row) - len(set(row)) for row in v.tolist())
+    for r in got["ranks"]:
+        check(r["launches"][0] == 2, f"mesh ir: rank {r['rank']} launched "
+              f"{r['launches'][0]} traverses over 2 calls")
+    out["ir"] = dict(wall_s=got["wall_s"], tied_slots=ties,
+                     call_ms={lb: got["ir"][lb]["wall_ms"] for lb in ("unbudgeted",
+                                                                       "budgeted")},
+                     launches=[r["launches"][0] for r in got["ranks"]])
+    log(f"mesh (b): partitioned IR on a {MESH_IR[0]} x {MESH_IR[1]} context, 8 ranks, "
+        f"{got['backend']}: == the one-device sharded_anytime_query on vals, ids and "
+        f"ranges, unbudgeted and at {IR_BUDGET} postings ({ties} tied score slots); one "
+        f"traverse per rank and call; calls {out['ir']['call_ms']} ms; group wall "
+        f"{got['wall_s']:.1f} s")
+
+    # (c) one rank, NCCL.
+    pplans = [pe.plan(q) for q in pqs]
+    got = spawn_mesh("nccl", 1, dict(preset_art=preset_art, preset_queries=pqs,
+                                     preset_budgets=pbudgets), device=device)
+    want = [sharded_fields(r) for r in ShardedBatchEngine(ShardedEngine(pe, 1), bspec)
+            .run_batch(pplans, budget_postings=pbudgets)]
+    check(got["nccl"]["fields"] == want, "mesh nccl: the one-rank mesh != stacked")
+    check(got["ranks"][0]["launches"][0] == got["nccl"]["dispatches"],
+          "mesh nccl: launches != dispatches")
+    out["nccl"] = dict(backend=got["backend"], wall_s=got["wall_s"],
+                       dispatches=got["nccl"]["dispatches"])
+    log(f"mesh (c): one rank, {got['backend']} on {got['ranks'][0]['device']}: "
+        f"{len(pqs)} budgeted preset queries == the stacked engine, one traverse per "
+        f"dispatch ({got['nccl']['dispatches']}); group wall {got['wall_s']:.1f} s")
+    out["launches"] = (dispatches * SHARDS + sum(out["plane"]["launches"])
+                       + sum(out["ir"]["launches"]) + out["nccl"]["dispatches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase {out['wall_s']:.1f} s, {out['launches']} traverse launches on "
+        f"its ranks")
+    return out
 
 
 def build_mips(src: str, spec: dict, seed: int = 0) -> dict:
@@ -4133,8 +4645,11 @@ def nvidia_smi() -> str:
 
 
 def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
+    import shutil
+
     import torch
 
+    from repro_torch import index_io
     from repro_torch.core.anytime import Reactive
     from repro_torch.core.range_daat import Engine
     from repro_torch.kernels.embedding_bag import kernel as bag_kernel
@@ -4190,6 +4705,10 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
         for n in SCORER_KERNELS) + ": parity ok (bitwise)")
 
     index, queries, builds = receive_index(jobs["preset"], "preset")
+    # The mesh phase's ranks load the preset from an artifact.
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    index_io.save_index(index, str(MESH_DIR / "preset"))
+    _pickle(MESH_DIR / "preset_queries.pkl", list(queries))
     record["preset"] = dict(build=builds, parity=four_way_parity(index, queries, "preset", dev))
     t0 = time.perf_counter()
     record["preset"]["telemetry"] = telemetry_parity(index, queries, dev)
@@ -4340,6 +4859,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     log(f"artifact phase {time.perf_counter() - t0:.1f} s; cold start from the artifact "
         f"{art['cold_start_s']:.2f} s against this run's host build of the same index "
         f"{builds['corpus_s'] + builds['index_s']:.1f} s (corpus and index)")
+    # The retrieval mesh: ranks spawned here share the card through gloo.
+    record["mesh"] = mesh_phase(engine, queries, art["paths"]["art"],
+                                art["paths"]["shards_art"], str(MESH_DIR / "preset"), dev)
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
 
     # Profiler sessions only after the serving window: opened before it,
     # they slowed its host time per range (PERF.md).
@@ -4427,7 +4951,7 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     path_launches = dict(blocks_launches, range_step=launches["range_step"],
                          traverse=batch_launches["traverse"]
                          + inflight_launches["traverse"] + sharded_launches["traverse"]
-                         + control_launches + ir_launches)
+                         + control_launches + ir_launches + record["mesh"]["launches"])
     replaces = {"scatter_accumulate": f"{TPU_SCORER}:47",
                 "unpack_locals": f"{TPU_SCORER}:107",
                 "range_step": f"{TPU_SCORER}:47 + {TPU_SCORER}:107",
@@ -4439,11 +4963,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             "range_step": f"{launches[kname] / runs:.2f} launches/query on the serving "
                           "window",
             "traverse": f"{path_launches[kname]} launches on the batch, in-flight, "
-                        f"sharded and control windows and the partitioned-IR and "
-                        f"anytime-ir calls "
+                        f"sharded and control windows, the partitioned-IR and "
+                        f"anytime-ir calls and the mesh phase's ranks "
                         f"({batch_launches['traverse']}, {inflight_launches['traverse']}, "
                         f"{sharded_launches['traverse']}, {control_launches}, "
-                        f"{ir_launches})",
+                        f"{ir_launches}, {record['mesh']['launches']})",
         }.get(kname, f"{path_launches[kname]} launches on score_blocks, 0 on the main "
                      "path")
         log(f"{kname} [{tm['shape']}]: {tm['ms'] * 1e3:.2f} us/call, plain "

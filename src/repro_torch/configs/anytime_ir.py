@@ -8,16 +8,18 @@ postings across shards, 256 topical ranges, 256-query batches, k=10.
 The serve step is ``serve/distributed_ir.make_sharded_query_fn``: per-shard
 anytime traversal (postings budget = the per-ISN SLA quantum) and the broker
 merge. On one card the Q x M (query, shard) lanes are one launch of the
-``traverse`` kernel; a context over more devices waits for the mesh paths
-(ROADMAP A7).
+``traverse`` kernel; with a ``ShardCtx`` over a data x model mesh of
+``torch.distributed`` ranks, each rank launches it over its own shard and
+query slice (``distributed.sharding``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import Arch, ShapeInfo, needs_mesh
+from repro_torch.configs.base import Arch, ShapeInfo
 from repro_torch.core.range_daat import resolve_device
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import tensor_from_numpy
 from repro_torch.serve import distributed_ir as dir_mod
 
@@ -91,7 +93,9 @@ class AnytimeIRArch(Arch):
     def build_step(self, cfg, shape, shard_ctx=None, variant: str = "baseline"):
         """``step(arrays, batch) -> (vals, ids, ranges)`` over
         ``batch["tables"]``; ``serve_anytime`` gives every lane the budget
-        ``nnz_loc // 64`` postings, ``serve_exhaustive`` none."""
+        ``nnz_loc // 64`` postings, ``serve_exhaustive`` none. ``shard_ctx``
+        None runs on the arrays' device; a multi-rank ``ShardCtx`` runs the
+        mesh step on every rank."""
         del variant  # the step is dtype-agnostic
         budget = 2**31 - 1 if shape == "serve_exhaustive" else cfg["nnz_loc"] // 64
         fn = dir_mod.make_sharded_query_fn(
@@ -104,7 +108,23 @@ class AnytimeIRArch(Arch):
         return step, "serve"
 
     def param_pspecs(self, cfg, params, variant: str = "baseline", ctx=None):
-        needs_mesh("anytime-ir param_pspecs")
+        """The index arrays split over ``model``, as the reference's."""
+        del variant, ctx
+        m = "model"
+        return dir_mod.ShardedIndexArrays(
+            docs=P(m, None), impacts=P(m, None), blk_start=P(m, None),
+            blk_len=P(m, None), blk_maximp=P(m, None), range_starts=P(m, None),
+            doc_base=P(m), s_pad=cfg["s_pad"], k=cfg["k"],
+        )
 
     def batch_pspecs(self, cfg, shape, ctx, variant: str = "baseline"):
-        needs_mesh("anytime-ir batch_pspecs")
+        """The plan tables: queries over the data axes, shards over ``model``."""
+        del variant
+        da = ctx.data_axes
+        m = ctx.model_axis
+        return {
+            "tables": (
+                P(da, m, None, None), P(da, m, None, None),
+                P(da, m, None), P(da, m, None),
+            )
+        }

@@ -1,8 +1,8 @@
-# Anytime serving control plane (DESIGN.md §9, §10), on one card: health-
-# ledger-driven degraded failover, online reshard with a staged live
-# cutover, replica groups (served through the sharded engine until the mesh
-# paths are ported), all above the port's serving engines, plus the durable
-# topology journal replayed across process restarts.
+# Anytime serving control plane (DESIGN.md §9, §10), on one card or a mesh of
+# torch.distributed ranks: health-ledger-driven degraded failover, online
+# reshard with a staged live cutover, replica groups over a (data x shard)
+# mesh, all above the port's serving engines, plus the durable topology
+# journal replayed across process restarts.
 from repro_torch.control.health import HealthEvent, HealthLedger  # noqa: F401
 from repro_torch.control.journal import JOURNAL_NAME, TopologyJournal  # noqa: F401
 from repro_torch.control.plane import ControlPlane  # noqa: F401

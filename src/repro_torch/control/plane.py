@@ -31,12 +31,18 @@ cooperating behaviours:
     and ``from_artifact(..., replay=True)`` reconstructs the journaled
     cuts + ledger in a fresh process (DESIGN.md §10).
 
-The port's plane is the reference's over the port's engines, on one card:
+The port's plane is the reference's over the port's engines. On one card
 every dispatch is one ``traverse`` launch over the stacked (query, shard)
-lanes of the live ``ShardedEngine``; a replica group serves through that
-engine (its mesh waits for ROADMAP A7), so ``stats()["replica_mesh"]`` is
-False. The journal is the reference's JSON, with the same fingerprint
-stamp, so either package's plane replays the other's.
+lanes of the live ``ShardedEngine``, and a replica group serves through
+that engine. With a ``torch.distributed`` process group up, the engines
+go on the mesh (``distributed.sharding``): one shard per rank, a replica
+group over a (data x shard) mesh (``stats()["replica_mesh"]`` True), one
+``traverse`` launch per rank and dispatch. The plane runs on rank 0 inside
+``driving()``: its dispatches, with the health ledger's down mask already
+folded into the budgets, go to every rank, and a live reshard's successor
+is built on every rank (each re-carves and uploads its own new shard at
+the cuts rank 0 sends). The journal is the reference's JSON, with the same
+fingerprint stamp, so either package's plane replays the other's.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from repro_torch.control.replica import ReplicaGroupEngine
 from repro_torch.control.reshard import ReshardPlanner, ReshardTask
 from repro_torch.core.clustered_index import range_postings_mass, shard_device_index
 from repro_torch.core.range_daat import Engine
+from repro_torch.distributed import sharding as mesh_lib
 from repro_torch.obs import NOOP
 from repro_torch.serving.bucketing import BucketSpec
 from repro_torch.serving.microbatch import MicroBatchServer, ShardedSlaBudgeter
@@ -76,11 +83,11 @@ class _PlaneServer(MicroBatchServer):
 class ControlPlane:
     """Replicated, reshardable, failure-tolerant anytime serving.
 
-    ``n_replicas > 1`` builds a ``ReplicaGroupEngine``, which serves
-    through the sharded engine on one card (``use_mesh`` as in
-    ``ShardedEngine``: None or False; True raises until the mesh is
-    ported). The engine's device (the card unless it was built with
-    ``device="cpu"``) is the plane's. ``budget_mode`` picks the
+    ``n_replicas > 1`` builds a ``ReplicaGroupEngine`` (``use_mesh`` as in
+    ``ShardedEngine``: None = the mesh when a process group of enough
+    ranks is up, True = require it, False = one device). The engine's
+    device (the card unless it was built with ``device="cpu"``) is the
+    plane's. ``budget_mode`` picks the
     ``ShardedSlaBudgeter`` allocation ("boundsum" default, "rate" for the
     §4 behaviour). ``sla_ms=inf`` serves unbudgeted (every query runs to
     safe/exhausted completion) — the mode the bitwise tests pin.
@@ -567,6 +574,9 @@ class ControlPlane:
         """
         task = self.reshard_task
         assert task is not None and task.ready
+        # The old layout's engines leave every rank's mesh registry.
+        mesh_lib.release(self.replicas)
+        mesh_lib.release(self.sengine)
         self.sengine = task.sengine
         self.bengine = task.bengine
         self.replicas = task.bengine.sengine if self.n_replicas > 1 else None

@@ -53,6 +53,7 @@ __all__ = [
     "QueryPlan",
     "Engine",
     "init_state",
+    "init_carry",
     "batched_init_carry",
     "carry_buffer",
     "carry_done",
@@ -217,6 +218,18 @@ class TraverseCarry(NamedTuple):
     state: TopKState
     exit_safe: np.ndarray | torch.Tensor
     exit_budget: np.ndarray | torch.Tensor
+
+
+def init_carry(k: int, device="cpu") -> TraverseCarry:
+    """A fresh single-query carry (cursor 0, empty heap, no exit flags):
+    0-d int32 cursor and bool flags and ``init_state``'s empty heap, on
+    ``device``."""
+    return TraverseCarry(
+        i=torch.zeros((), dtype=torch.int32, device=device),
+        state=init_state(k, device),
+        exit_safe=torch.zeros((), dtype=torch.bool, device=device),
+        exit_budget=torch.zeros((), dtype=torch.bool, device=device),
+    )
 
 
 def batched_init_carry(n: int, k: int, parked: bool = False) -> TraverseCarry:

@@ -28,6 +28,7 @@ __all__ = [
     "QueryLog",
     "make_corpus",
     "make_query_log",
+    "planted_qrels",
 ]
 
 
@@ -242,3 +243,37 @@ def make_query_log(
         take = rng.choice(top, size=lengths[i], replace=False, p=w)
         terms[i, : lengths[i]] = np.sort(take)
     return QueryLog(terms=terms, lengths=lengths, topic=topics)
+
+
+def planted_qrels(
+    corpus: Corpus, qlog: QueryLog, n_rel: int = 20
+) -> list[dict[int, float]]:
+    """Graded relevance from the generative structure (for RBP/AP).
+
+    A document is relevant to a query iff it shares the query's planted
+    topic AND carries high query-term mass; the top n_rel such docs get
+    graded gains (1.0 for the top half, 0.5 below). Computed from corpus
+    structure only, independent of any index or traversal code.
+    """
+    df = np.zeros(corpus.n_terms, dtype=np.int64)
+    np.add.at(df, corpus.doc_terms, 1)
+    idf = np.log(1.0 + corpus.n_docs / np.maximum(df, 1))
+    doc_of = np.repeat(np.arange(corpus.n_docs), np.diff(corpus.doc_ptr))
+
+    out: list[dict[int, float]] = []
+    for qi in range(qlog.n_queries):
+        terms = set(int(t) for t in qlog.terms[qi] if t >= 0)
+        mask = np.isin(corpus.doc_terms, list(terms))
+        mass = np.zeros(corpus.n_docs)
+        np.add.at(
+            mass, doc_of[mask],
+            corpus.doc_tfs[mask] * idf[corpus.doc_terms[mask]],
+        )
+        mass[corpus.doc_topic != qlog.topic[qi]] = 0.0  # same-topic constraint
+        top = np.argsort(-mass)[:n_rel]
+        top = top[mass[top] > 0]
+        grades = {}
+        for r, d in enumerate(top):
+            grades[int(d)] = 1.0 if r < max(1, len(top) // 2) else 0.5
+        out.append(grades)
+    return out

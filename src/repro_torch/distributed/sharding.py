@@ -1,0 +1,551 @@
+"""Meshes and sharding contexts on ``torch.distributed`` (DESIGN.md §4, §9).
+
+The counterpart of the JAX package's ``distributed/sharding.py``. A mesh is
+a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of an
+initialised process group, laid out row-major (rank ``r`` of a
+``(data, shard)`` mesh sits at ``divmod(r, n_shards)``), and every rank
+computes on its own device: its own card when the node has one per rank,
+else ``cuda:0`` (ranks that share one card), or the CPU when asked.
+
+``shard_map`` is the reference's ``shard_map`` restated for SPMD ranks:
+every rank calls the mapped function with the same global inputs; each
+takes its block of every input along the mesh axes its ``P`` spec names
+(``LOCAL`` passes an input that is already the rank's own, such as an
+index shard, through unsliced), runs the body, and ``all_gather``s every
+output along the axes its out-spec names, so every rank sees the global
+result, as in the reference. Inside the body ``all_gather``, ``psum``,
+``axis_index`` and ``axis_size`` name mesh axes, as ``jax.lax``'s do.
+
+The reference has one controller; ``torch.distributed`` runs one Python
+process per rank. Serving decisions come from the clock (the budgeter's
+alpha, micro-batching, the control plane's planner), so ranks that made
+them each for themselves would call different collectives and hang.
+Rank 0 therefore drives: inside ``driving()`` every call of a mesh
+engine's step (``mesh_call``) and every mesh engine built on rank 0
+(``announce``) is first broadcast to the other ranks, which execute what
+they receive in ``worker_loop`` until ``driving`` ends. Outside
+``driving()`` the same calls are plain SPMD: every rank makes them.
+
+Backends: NCCL when every rank has a card of its own; gloo when ranks share
+a card or run on the CPU. Gloo's collectives on card tensors are staged
+through the host here (``RankRuntime.staged``), one copy each way.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import importlib
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "ShardCtx",
+    "named",
+    "data_spec",
+    "shard_map",
+    "axis_size",
+    "replica_mesh",
+    "retrieval_mesh",
+    "LOCAL",
+    "NamedSharding",
+    "P",
+    "RankRuntime",
+    "all_gather",
+    "announce",
+    "axis_index",
+    "close_mesh_group",
+    "driving",
+    "init_mesh_group",
+    "make_mesh",
+    "mesh_call",
+    "mesh_world_size",
+    "psum",
+    "register",
+    "release",
+    "require_group",
+    "runtime",
+    "worker_loop",
+]
+
+
+class P(tuple):
+    """A partition spec: one entry per array dimension, each None
+    (replicated), a mesh axis name, or a tuple of axis names (the
+    dimension split over their product, the first the major one)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# The spec of an input that is already the rank's own block.
+LOCAL = "local"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec laid over a mesh (the reference's ``NamedSharding``)."""
+
+    mesh: object
+    spec: P
+
+
+# --------------------------------------------------------------------------
+# The process group
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RankRuntime:
+    """This rank's place in the process group and what it computes on."""
+
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+    control: object  # the gloo group carrying rank 0's messages
+    objects: dict = dataclasses.field(default_factory=dict)
+    meshes: dict = dataclasses.field(default_factory=dict)
+    next_id: int = 0
+    driving: bool = False
+
+    @property
+    def staged(self) -> bool:
+        """Gloo collectives on card tensors go through the host."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def describe(self) -> str:
+        """The backend, as a log line names it."""
+        return f"{self.backend}{' (host-staged)' if self.staged else ''}"
+
+
+_RT: RankRuntime | None = None
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def init_mesh_group(
+    device=None,
+    init_method: str | None = None,
+    rank: int | None = None,
+    world_size: int | None = None,
+    timeout_s: float = 600.0,
+) -> RankRuntime:
+    """Bring up (or adopt) the process group the meshes span.
+
+    ``rank`` and ``world_size`` default to the environment ``torchrun``
+    sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``);
+    ``init_method`` to ``env://`` (``MASTER_ADDR``/``MASTER_PORT``), or a
+    ``file://`` path. ``device="cpu"`` computes on the CPU; otherwise each
+    rank takes card ``LOCAL_RANK`` when the node has a card per local rank
+    and ``cuda:0`` when ranks must share it. The backend follows: NCCL for
+    a card per rank, gloo otherwise. Every rank calls this once.
+    """
+    global _RT
+    if _RT is not None:
+        return _RT
+    rank = _env_int("RANK", 0) if rank is None else rank
+    world = _env_int("WORLD_SIZE", 1) if world_size is None else world_size
+    local_rank = _env_int("LOCAL_RANK", rank)
+    local_world = _env_int("LOCAL_WORLD_SIZE", world)
+    if device is not None and torch.device(device).type == "cpu":
+        dev, own_card = torch.device("cpu"), False
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the mesh "
+                "on the CPU")
+        own_card = torch.cuda.device_count() >= local_world
+        dev = torch.device("cuda", local_rank if own_card else 0)
+        torch.cuda.set_device(dev)
+    backend = "nccl" if own_card else "gloo"
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=init_method or "env://", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    control = (dist.new_group(backend="gloo") if backend != "gloo"
+               else dist.group.WORLD)
+    _RT = RankRuntime(rank=dist.get_rank(), world=dist.get_world_size(),
+                      backend=backend, device=dev, control=control)
+    return _RT
+
+
+def close_mesh_group() -> None:
+    """Tear down the process group ``init_mesh_group`` brought up."""
+    global _RT
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _RT = None
+
+
+def runtime() -> RankRuntime | None:
+    """This rank's runtime, or None before ``init_mesh_group``."""
+    return _RT
+
+
+def mesh_world_size() -> int:
+    """Ranks a mesh may span: the process group's size, 1 without one."""
+    return _RT.world if _RT is not None else 1
+
+
+def require_group(what: str, need: int = 1) -> RankRuntime:
+    """This rank's runtime; raises ValueError without an initialised
+    process group of at least ``need`` ranks."""
+    if _RT is None:
+        raise ValueError(
+            f"{what} needs an initialised process group of {need} ranks "
+            "(init_mesh_group, under torchrun or with a file:// init_method); "
+            "without one, serve on the single-card stacked path")
+    if _RT.world < need:
+        raise ValueError(f"{what} needs {need} ranks, have {_RT.world}")
+    return _RT
+
+
+def make_mesh(shape: tuple, axis_names: tuple):
+    """A mesh of ``shape`` over ranks ``0..prod(shape)-1``, row-major, with
+    ``axis_names`` (the reference's ``jax.make_mesh``). Raises when the
+    process group is smaller than the mesh, or not initialised. Building
+    a mesh is collective: every rank builds the same meshes in one order
+    (each shape once; later calls reuse it)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+    rt = require_group(f"a {' x '.join(map(str, shape))} mesh", int(np.prod(shape)))
+    key = (shape, axis_names)
+    if key not in rt.meshes:
+        rt.meshes[key] = DeviceMesh(
+            "cuda" if rt.backend == "nccl" else "cpu",
+            torch.arange(int(np.prod(shape))).reshape(shape), mesh_dim_names=axis_names)
+    return rt.meshes[key]
+
+
+def retrieval_mesh(n_shards: int, axis: str = "shard"):
+    """1-D mesh for range-sharded retrieval (DESIGN.md §4): ranks
+    ``0..n_shards-1``, one shard each."""
+    return make_mesh((n_shards,), (axis,))
+
+
+def replica_mesh(
+    n_replicas: int,
+    n_shards: int,
+    data_axis: str = "data",
+    shard_axis: str = "shard",
+):
+    """2-D (data x shard) mesh for replicated shard groups (DESIGN.md §9).
+
+    Rows carry full index replicas (query parallelism over ``data_axis``),
+    columns carry range shards; needs ``n_replicas * n_shards`` ranks.
+    """
+    return make_mesh((n_replicas, n_shards), (data_axis, shard_axis))
+
+
+def _dim(mesh, name: str) -> int:
+    return list(mesh.mesh_dim_names).index(name)
+
+
+def _size(mesh, name: str) -> int:
+    return int(mesh.mesh.shape[_dim(mesh, name)])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Which mesh axes carry data parallelism and which carry model/TP/EP.
+
+    data_axes is ("pod", "data") on the multi-pod mesh, ("data",) otherwise.
+    """
+
+    mesh: object
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
+
+    @property
+    def n_model(self) -> int:
+        return _size(self.mesh, self.model_axis)
+
+    @property
+    def n_data(self) -> int:
+        n = 1
+        for a in self.data_axes:
+            n *= _size(self.mesh, a)
+        return n
+
+    def sharding(self, spec: P) -> NamedSharding:
+        return NamedSharding(self.mesh, spec)
+
+
+def named(ctx: ShardCtx | None, tree, specs):
+    """The reference's sharding constraint: a layout hint for XLA. Arrays
+    on a rank are already its own blocks, so the tree comes back as is."""
+    del ctx, specs
+    return tree
+
+
+def data_spec(ctx: ShardCtx, *trailing) -> P:
+    """Batch-sharded spec: first dim over all data axes."""
+    return P(ctx.data_axes, *trailing)
+
+
+# --------------------------------------------------------------------------
+# Collectives inside a mapped body
+# --------------------------------------------------------------------------
+
+_BOUND: list = []  # the meshes of the shard_map bodies running on this rank
+
+
+def _bound_mesh():
+    if not _BOUND:
+        raise RuntimeError("mesh collectives run inside a shard_map body")
+    return _BOUND[-1]
+
+
+def axis_size(name) -> int:
+    """Size of mesh axis ``name`` (a tuple: their product) in the body."""
+    mesh = _bound_mesh()
+    names = name if isinstance(name, tuple) else (name,)
+    return int(np.prod([_size(mesh, a) for a in names]))
+
+
+def axis_index(name: str) -> int:
+    """This rank's coordinate along mesh axis ``name`` in the body."""
+    mesh = _bound_mesh()
+    return int(mesh.get_coordinate()[_dim(mesh, name)])
+
+
+def _stage(x: torch.Tensor) -> torch.Tensor:
+    return x.cpu() if _RT.staged and x.is_cuda else x
+
+
+def all_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """[n_axis, *x.shape]: every rank's ``x`` along ``axis``, in axis order."""
+    mesh = _bound_mesh()
+    n = _size(mesh, axis)
+    src = _stage(x.contiguous())
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=mesh.get_group(axis))
+    return torch.stack(parts).to(x.device)
+
+
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` summed over mesh axis ``axis`` (a tuple: over each)."""
+    mesh = _bound_mesh()
+    y = _stage(x).clone()
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+    return y.to(x.device)
+
+
+# --------------------------------------------------------------------------
+# shard_map
+# --------------------------------------------------------------------------
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _block(x, spec: P, mesh, device):
+    """This rank's block of global ``x`` under ``spec``."""
+    coord = mesh.get_coordinate()
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        n, idx = 1, 0
+        for a in axes:  # row-major over the entry's axes
+            n, idx = n * _size(mesh, a), idx * _size(mesh, a) + coord[_dim(mesh, a)]
+        if x.shape[d] % n:
+            raise ValueError(
+                f"dimension {d} of size {x.shape[d]} does not split over {axes} ({n})")
+        b = x.shape[d] // n
+        sl = [slice(None)] * x.ndim
+        sl[d] = slice(idx * b, (idx + 1) * b)
+        x = x[tuple(sl)]
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return x
+
+
+def _map_in(x, spec, mesh, device):
+    if isinstance(spec, P):
+        return _block(x, spec, mesh, device)
+    if spec == LOCAL:
+        return x
+    if isinstance(spec, (tuple, list)):
+        parts = [_map_in(a, s, mesh, device) for a, s in zip(x, spec)]
+        return type(x)(*parts) if hasattr(x, "_fields") else type(x)(parts)
+    raise TypeError(f"in_spec {spec!r} is not a P, LOCAL or a tuple of them")
+
+
+def _gather_out(y, spec, mesh):
+    if isinstance(spec, (tuple, list)) and not isinstance(spec, P):
+        parts = [_gather_out(a, s, mesh) for a, s in zip(y, spec)]
+        return type(y)(*parts) if hasattr(y, "_fields") else type(y)(parts)
+    for d, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):  # minor axis first, then the major
+            g = all_gather(y, a)
+            y = torch.cat(list(g), dim=d)
+    return y
+
+
+def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None, check_vma=None):
+    """``f`` over the mesh, one block per rank (see the module docstring).
+
+    A rank outside ``mesh`` (a mesh over fewer ranks than the group)
+    returns None and takes part in nothing. ``axis_names`` and
+    ``check_vma`` are the reference's compiler options and are ignored:
+    every axis is manual here, and nothing is checked for replication.
+    """
+    del axis_names, check_vma
+
+    def mapped(*args):
+        if mesh.get_coordinate() is None:
+            return None
+        device = _RT.device
+        local = [_map_in(a, s, mesh, device) for a, s in zip(args, in_specs)]
+        _BOUND.append(mesh)
+        try:
+            out = f(*local)
+            return _gather_out(out, out_specs, mesh)
+        finally:
+            _BOUND.pop()
+
+    return mapped
+
+
+# --------------------------------------------------------------------------
+# Rank 0 drives, the other ranks execute
+# --------------------------------------------------------------------------
+
+
+class _Ref(int):
+    """A registered object in a message: its id on every rank."""
+
+
+def register(obj) -> int:
+    """Give ``obj`` the next id (once per object). Ids agree across ranks
+    as long as every rank registers the same objects in the same order:
+    in lockstep construction, or through ``announce`` while driving."""
+    rt = _RT
+    for i, o in rt.objects.items():
+        if o is obj:
+            return i
+    i, rt.next_id = rt.next_id, rt.next_id + 1
+    rt.objects[i] = obj
+    return i
+
+
+def _ref(obj):
+    for i, o in _RT.objects.items():
+        if o is obj:
+            return _Ref(i)
+    return obj
+
+
+def _send(msg) -> None:
+    dist.broadcast_object_list([msg], src=0, group=_RT.control)
+
+
+def _resolve(a):
+    return _RT.objects[int(a)] if isinstance(a, _Ref) else a
+
+
+def mesh_call(obj, method: str, *args, **kwargs):
+    """``obj.method(*args, **kwargs)`` on every rank of the mesh.
+
+    While rank 0 drives, the call is broadcast first and the other ranks
+    run it from ``worker_loop``; otherwise every rank makes the call
+    itself (SPMD). ``obj`` must be registered.
+    """
+    rt = _RT
+    if rt is not None and rt.driving:
+        ref = _ref(obj)
+        if not isinstance(ref, _Ref):
+            raise ValueError(f"{type(obj).__name__} is not registered on the mesh")
+        _send(("call", ref, method, args, kwargs))
+    return getattr(obj, method)(*args, **kwargs)
+
+
+def announce(factory, *args) -> None:
+    """While rank 0 drives, have every other rank call ``factory(*args)``
+    (a module-level function; registered objects among ``args`` arrive as
+    the receiving rank's own). Rank 0 calls this before it builds its own
+    counterpart, so any collective the construction makes lines up."""
+    rt = _RT
+    if rt is None or not rt.driving:
+        return
+    name = f"{factory.__module__}:{factory.__qualname__}"
+    _send(("new", name, tuple(_ref(a) for a in args)))
+
+
+def release(obj) -> None:
+    """Drop ``obj`` from the registry (while driving, on every rank)."""
+    rt = _RT
+    if rt is None:
+        return
+    ref = _ref(obj)
+    if not isinstance(ref, _Ref):
+        return
+    if rt.driving:
+        _send(("release", ref))
+    rt.objects.pop(int(ref), None)
+
+
+@contextlib.contextmanager
+def driving():
+    """Rank 0's serving section: mesh calls and constructions inside it
+    are sent to the other ranks (which run ``worker_loop``), and leaving it
+    stops them (leaving on an exception makes them raise). On a group of
+    one rank it only marks the section."""
+    rt = _RT
+    if rt is None or rt.rank != 0:
+        raise RuntimeError("driving() runs on rank 0 of an initialised group")
+    rt.driving = True
+    stop = ("stop",)
+    try:
+        yield rt
+    except BaseException:
+        stop = ("abort",)  # the other ranks raise too, instead of waiting
+        raise
+    finally:
+        rt.driving = False
+        if rt.world > 1:
+            _send(stop)
+
+
+def worker_loop() -> int:
+    """A rank other than 0: execute rank 0's messages until it stops
+    driving. Returns the number of messages executed."""
+    rt = _RT
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=rt.control)
+        msg = box[0]
+        kind = msg[0]
+        if kind == "stop":
+            return n
+        if kind == "abort":
+            raise RuntimeError("rank 0 stopped driving on an error")
+        if kind == "call":
+            _, ref, method, args, kwargs = msg
+            getattr(_resolve(ref), method)(*args, **kwargs)
+        elif kind == "new":
+            mod, qual = msg[1].split(":")
+            factory = importlib.import_module(mod)
+            for part in qual.split("."):
+                factory = getattr(factory, part)
+            factory(*(_resolve(a) for a in msg[2]))
+        elif kind == "release":
+            rt.objects.pop(int(msg[1]), None)
+        n += 1

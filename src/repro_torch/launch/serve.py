@@ -37,6 +37,16 @@ RBO against the exhaustive oracle:
     every drain, its alerts fed back into the plane, and the metrics
     snapshot is rewritten after every drain.
 
+Under ``torchrun --nproc-per-node S`` (``--mode sharded --shards S``) or
+``R x S`` ranks (``--mode control --shards S --replicas R``) the same two
+modes serve on a mesh of ``torch.distributed`` ranks
+(``repro_torch.distributed.sharding``): every rank builds the preset and
+its engine, rank 0 serves and prints the report and a ``mesh: <shape>
+<backend> on <devices>`` line, and the other ranks execute the steps it
+sends, one shard each (gloo when ranks share a card or run on the CPU,
+NCCL with a card per rank). Without a process group they serve on one
+card, as above.
+
 ``--trace out.jsonl`` records a per-query trace of the timed window (any
 mode, sample rate 1.0, DESIGN.md §13) for ``python -m repro_torch.obs
 report out.jsonl`` / ``... slo out.jsonl``; ``--metrics snap.json``
@@ -53,9 +63,11 @@ The index is built on the host each run; a saved index is served through
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.control import ControlPlane
 from repro_torch.core.anytime import (
@@ -66,6 +78,7 @@ from repro_torch.core.metrics import rbo
 from repro_torch.core.oracle import exhaustive_topk
 from repro_torch.core.range_daat import Engine
 from repro_torch.data.synth import Corpus, make_corpus, make_query_log
+from repro_torch.distributed import sharding as mesh_lib
 from repro_torch.obs import NOOP, Instrumentation, write_snapshot
 from repro_torch.obs.detect import DriftMonitor, default_serving_detectors
 from repro_torch.obs.slo import SloTracker, default_serving_slos
@@ -280,7 +293,8 @@ def serve_batch(
     if n_shards:
         seng = ShardedEngine(engine, n_shards)
         beng = ShardedBatchEngine(seng, spec)
-        extra = dict(shards=seng.n_shards, mass=seng.mass.tolist())
+        extra = dict(shards=seng.n_shards, mass=seng.mass.tolist(),
+                     mesh=seng.mesh is not None)
 
         def mk_budgeter(**kw):
             return ShardedSlaBudgeter(n_shards=seng.n_shards, **kw)
@@ -534,10 +548,12 @@ def main(argv=None):
     ap.add_argument("--quantum", type=int, default=1,
                     help="ranges per in-flight step (--mode inflight)")
     ap.add_argument("--shards", type=int, default=4,
-                    help="range shards on the card (--mode sharded, control)")
+                    help="range shards (--mode sharded, control): stacked on the "
+                         "card, or one per rank under torchrun")
     ap.add_argument("--replicas", type=int, default=1,
                     help="replica groups (--mode control; on one card they serve "
-                         "through the sharded engine)")
+                         "through the sharded engine, under torchrun over a "
+                         "replicas x shards mesh)")
     ap.add_argument("--sla-ms", type=float, default=None)
     ap.add_argument("--policy", default="reactive", choices=sorted(POLICIES))
     ap.add_argument("--alpha", type=float, default=1.0)
@@ -579,18 +595,46 @@ def main(argv=None):
 
 
 def _serve_mode(args, obs) -> dict:
-    """Build the preset, serve it in ``args.mode``, print the report."""
+    """Build the preset, serve it in ``args.mode``, print the report; under
+    ``torchrun`` (``WORLD_SIZE`` > 1), on the mesh with rank 0 driving."""
+    rt = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.mode not in ("sharded", "control"):
+            raise SystemExit(f"--mode {args.mode} serves on one card; the mesh "
+                             "modes are sharded and control")
+        rt = mesh_lib.init_mesh_group(device="cpu" if args.device == "cpu" else None)
     corpus, index = build_preset(args.n_docs, args.n_terms, args.strategy)
     log = make_query_log(corpus, n_queries=args.queries, seed=42)
-    engine = Engine(index, k=args.k, device=args.device)
+    engine = Engine(index, k=args.k, device=rt.device if rt else args.device)
     queries = [log.terms[i] for i in range(log.n_queries)]
+    if rt is None:
+        return _serve_on(args, obs, engine, queries)
+    mesh_lib.register(engine)  # rank 0's mesh engines are built on it too
+    devices = [None] * rt.world
+    torch.distributed.all_gather_object(devices, str(rt.device), group=rt.control)
+    if rt.rank != 0:
+        mesh_lib.worker_loop()
+        mesh_lib.close_mesh_group()
+        return {}
+    shape = ((args.replicas, args.shards) if args.mode == "control" and args.replicas > 1
+             else (args.shards,))
+    print(f"mesh: {'x'.join(map(str, shape))} {rt.describe()} on {','.join(devices)} "
+          f"({rt.world} ranks)")
+    with mesh_lib.driving():
+        stats = _serve_on(args, obs, engine, queries)
+    mesh_lib.close_mesh_group()
+    return stats
+
+
+def _serve_on(args, obs, engine, queries) -> dict:
     print(f"device={engine.device} impl={engine.impl} mode={args.mode}")
     if args.mode in ("batch", "sharded"):
         stats = serve_batch(engine, queries, args.batch_size, sla_ms=args.sla_ms,
                             n_shards=args.shards if args.mode == "sharded" else None,
                             obs=obs)
         if args.mode == "sharded":
-            print(f"sharded: {stats['shards']} range shards on {engine.device}, "
+            print(f"sharded: {stats['shards']} range shards "
+                  f"{'on the mesh' if stats['mesh'] else 'on ' + str(engine.device)}, "
                   f"mass={stats['mass']}")
         print(format_report(args.mode, stats))
         print(f"batch={stats['batch_size']}, {stats['batches']} dispatches, shapes "

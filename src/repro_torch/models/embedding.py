@@ -121,15 +121,45 @@ def embedding_bag_ragged(
 def sharded_field_lookup(table: torch.Tensor, ids: torch.Tensor, shard_ctx=None):
     """Field lookup: table[ids] with padding ids (< 0) reading zeros.
 
-    Only the unsharded lookup (``shard_ctx=None``) is ported; the row-sharded
-    branch waits for sharded serving.
+    With a ``ShardCtx`` the table is row-sharded over its ``model`` axis
+    in contiguous blocks (``P(model, None)``): every rank calls this with
+    the global table and ids, keeps its own row block, resolves the ids
+    that fall inside it (the others read zeros) and the sum over
+    ``model`` assembles the full rows, the reference's ``psum``. The id
+    stream is split over the data axes only when it divides evenly, and
+    replicated otherwise; every rank gets the whole [..., D] result.
     """
-    if shard_ctx is not None:
-        raise NotImplementedError(
-            "row-sharded sharded_field_lookup waits for sharded serving "
-            "(ROADMAP A7); pass shard_ctx=None"
-        )
-    return _gather(table, ids) * (ids >= 0)[..., None].to(table.dtype)
+    if shard_ctx is None:
+        return _gather(table, ids) * (ids >= 0)[..., None].to(table.dtype)
+    from repro_torch.distributed import sharding as mesh_lib
+
+    mesh_lib.require_group("sharded_field_lookup with a sharding context")
+    m_axis = shard_ctx.model_axis
+
+    def body(tbl_local, ids_local):
+        m = mesh_lib.axis_index(m_axis)
+        rows_per = tbl_local.shape[0]  # V / n_model (contiguous blocks)
+        owner = torch.where(ids_local >= 0, torch.div(ids_local, rows_per,
+                                                      rounding_mode="floor"), -1)
+        local_row = torch.clamp(ids_local - m * rows_per, 0, rows_per - 1)
+        rows = tbl_local[local_row]
+        rows = torch.where((owner == m)[..., None], rows, torch.zeros_like(rows))
+        return mesh_lib.psum(rows, m_axis)
+
+    shape = ids.shape
+    flat = ids.reshape(-1)
+    # Shard the id stream over data only when it divides; tiny id sets
+    # (e.g. batch-1 retrieval user features) are replicated instead.
+    da = tuple(shard_ctx.data_axes)
+    ids_spec = mesh_lib.P(da) if flat.shape[0] % shard_ctx.n_data == 0 else mesh_lib.P()
+    fn = mesh_lib.shard_map(
+        body,
+        mesh=shard_ctx.mesh,
+        in_specs=(mesh_lib.P(m_axis, None), ids_spec),
+        out_specs=mesh_lib.P(*ids_spec, None),
+    )
+    out = fn(table, flat)
+    return out.reshape(*shape, table.shape[1])
 
 
 def table_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:

@@ -182,6 +182,11 @@ def _items(p, ids):
 
 def _lookup_fields(p, fields, cfg: RecConfig, shard_ctx):
     """fields [B, F] per-field ids -> [B, F, D]; rows offset per field."""
+    if shard_ctx is not None:
+        # The row-sharded lookup itself runs on a mesh; a tower laid over
+        # one (its table's spec, its batch over data) is the model mesh.
+        raise NotImplementedError(
+            "a tower with a sharding context (row-sharded tables) is ROADMAP A7")
     offs = torch.arange(cfg.n_fields, dtype=fields.dtype, device=fields.device)
     gids = fields + offs[None, :] * cfg.field_vocab
     return sharded_field_lookup(p["field_emb"], gids, shard_ctx)

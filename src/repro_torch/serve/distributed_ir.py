@@ -14,15 +14,18 @@ instead of building per-node sub-indexes from a random document split):
   * the broker merge takes the global top-k of the gathered per-shard
     lists.
 
-The port's path is the reference's on one device: the M sub-indexes are
+Without a context (or with one over one device) the M sub-indexes are
 stacked shard-major ``[M, ...]`` on the card, and the Q x M (query, shard)
 lanes run as one launch of the ``traverse`` kernel (lane n reads shard
 n % M, ``core.range_daat.traverse_lanes``), followed by the local->global
-docid lift and the broker merge in plain torch on the device. The merge
-is the reference's ``argsort(-vals)[:, :k]``, a stable sort: tied scores
-keep their gathered (shard-major) position. A context spanning more than
-one device (the reference's ``shard_map`` over a mesh) waits for the
-mesh paths (ROADMAP A7).
+docid lift and the broker merge in plain torch on the device. With a
+``ShardCtx`` over a data x model mesh of ``torch.distributed`` ranks (the
+reference's ``shard_map``), the index is split over ``model`` and the
+queries over ``data``: each rank takes its shard and its Q_loc queries,
+launches ``traverse`` once over those lanes, ``all_gather``s the lifted
+lists over ``model`` and merges them, and the ranges processed are summed
+over the mesh. The merge is the reference's ``argsort(-vals)[:, :k]``, a
+stable sort: tied scores keep their gathered (shard-major) position.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from repro_torch.core.range_daat import (
     upload_int32,
 )
 from repro_torch.data.synth import Corpus
+from repro_torch.distributed import sharding as mesh_lib
+from repro_torch.distributed.sharding import P, shard_map
 
 __all__ = [
     "ShardedIndexArrays",
@@ -249,57 +254,112 @@ def sharded_query_specs(
     return arrays, tables
 
 
+def _lanes_out(dix, blk, rest, order, bounds, budget, k, s_pad, impl, dev):
+    """One upload and one ``traverse`` over the [Q, M, R, B] tables' Q x M
+    lanes (lane n reads shard n % M of ``dix``): [Q, M, 2k + 5] rows."""
+    Q, M, R, B = blk.shape
+    n = Q * M
+    lanes = upload_int32(
+        (blk.reshape(n, R, B), rest.reshape(n, R, B), order.reshape(n, R),
+         bounds.reshape(n, R), lane_caps(np.full(n, budget, np.int64)),
+         lane_caps(np.full(n, INT32_MAX, np.int64)),
+         carry_buffer(batched_init_carry(n, k))),
+        dev,
+    )
+    return traverse_lanes(dix, *lanes, s_pad=s_pad, k=k, impl=impl).view(Q, M, 2 * k + 5)
+
+
+def _array_tuple(arrays: "ShardedIndexArrays") -> tuple:
+    return (arrays.docs, arrays.impacts, arrays.blk_start, arrays.blk_len,
+            arrays.blk_maximp, arrays.range_starts)
+
+
 def make_sharded_query_fn(ctx, *, s_pad: int, k: int, budget: int, impl: str | None = None):
     """The sharded query step (the ``anytime-ir`` serve step):
     ``step(arrays, tables) -> (vals [Q, k], ids [Q, k] global, ranges)``.
 
     Every (query, shard) pair's anytime traversal with the postings budget
-    ``budget``, safe stop and block pruning on, then the broker merge. On
-    the arrays' device: one upload and, under ``impl="cuda"`` (the default
-    on the card), one ``traverse`` launch for the Q x M lanes;
-    ``impl="torch"`` is its plain version. ``ctx`` is None or a one-device
-    context; a context over more devices raises ``NotImplementedError``
-    (ROADMAP A7).
+    ``budget``, safe stop and block pruning on, then the broker merge.
+    ``ctx`` None (or a one-device context): on the arrays' device, one
+    upload and, under ``impl="cuda"`` (the default on the card), one
+    ``traverse`` launch for the Q x M lanes; ``impl="torch"`` is its plain
+    version. A ``ShardCtx`` over more ranks: every rank calls ``step`` with
+    the global arrays (on any device; each rank moves its own shard to its
+    device) and tables, and gets the global result; ``ranges`` is summed
+    over the whole mesh, so it is the one-device count.
     """
-    if _ctx_devices(ctx) != 1:
-        raise NotImplementedError(
-            f"a sharding context over {_ctx_devices(ctx)} devices (the reference's "
-            "shard_map over the mesh, serve/distributed_ir.py:213-270) is not ported "
-            "yet, ROADMAP A7's mesh item; pass ctx=None to run every (query, shard) "
-            "pair on the arrays' device"
-        )
+    if _ctx_devices(ctx) == 1:
+        def step(arrays: ShardedIndexArrays, tables):
+            blk, rest, order, bounds = (np.asarray(t) for t in tables)
+            dev = arrays.docs.device
+            lane_impl = impl or ("cuda" if dev.type == "cuda" else "torch")
+            out = _lanes_out(arrays.device_index(), blk, rest, order, bounds, budget,
+                             k, s_pad, lane_impl, dev)
+            ids = out[:, :, k + 2:2 * k + 2]
+            gids = torch.where(ids >= 0, ids + arrays.doc_base[None, :, None], -1)
+            out_v, out_i = merge_shard_topk(out[:, :, :k], gids, k)
+            return out_v, out_i, out[:, :, 2 * k + 2].sum()
 
-    def step(arrays: ShardedIndexArrays, tables):
-        blk, rest, order, bounds = (np.asarray(t) for t in tables)
-        Q, M, R, B = blk.shape
-        dix = arrays.device_index()
-        dev = arrays.docs.device
+        return step
+
+    mesh_lib.require_group("a sharding context over more than one device")
+    m_axis = ctx.model_axis
+    da = tuple(ctx.data_axes)
+
+    def body(arr_tuple, doc_base, blk, rest, order, bounds):
+        # Per-rank blocks: arrays [M_loc, ...] (M_loc = M / n_model shards,
+        # 1 when each rank holds one); tables [Q_loc, M_loc, R, B].
+        dev = doc_base.device
         lane_impl = impl or ("cuda" if dev.type == "cuda" else "torch")
-        n = Q * M
-        lanes = upload_int32(
-            (blk.reshape(n, R, B), rest.reshape(n, R, B), order.reshape(n, R),
-             bounds.reshape(n, R), lane_caps(np.full(n, budget, np.int64)),
-             lane_caps(np.full(n, INT32_MAX, np.int64)),
-             carry_buffer(batched_init_carry(n, k))),
-            dev,
+        docs, impacts, blk_start, blk_len, blk_maximp, range_starts = arr_tuple
+        m_loc = docs.shape[0]
+        dix = DeviceIndex(
+            docs=docs, impacts=impacts, blk_start=blk_start, blk_len=blk_len,
+            blk_maximp=blk_maximp,
+            bounds_dense=torch.zeros((m_loc, 1, 1), dtype=torch.int32, device=dev),
+            range_starts=range_starts, range_sizes=torch.zeros_like(range_starts),
         )
-        out = traverse_lanes(dix, *lanes, s_pad=s_pad, k=k, impl=lane_impl).view(
-            Q, M, 2 * k + 5)
+        out = _lanes_out(dix, blk, rest, order, bounds, budget, k, s_pad, lane_impl, dev)
+        q_loc = out.shape[0]
         ids = out[:, :, k + 2:2 * k + 2]
-        gids = torch.where(ids >= 0, ids + arrays.doc_base[None, :, None], -1)
-        out_v, out_i = merge_shard_topk(out[:, :, :k], gids, k)
-        return out_v, out_i, out[:, :, 2 * k + 2].sum()
+        gids = torch.where(ids >= 0, ids + doc_base[None, :, None], -1)
+        # Broker merge: the per-shard lists gathered shard-major, [Q_loc, M, k].
+        def gather(x):
+            return mesh_lib.all_gather(x.contiguous(), m_axis).transpose(0, 1).reshape(
+                q_loc, -1, k)
 
-    return step
+        out_v, out_i = merge_shard_topk(gather(out[:, :, :k]), gather(gids), k)
+        ranges = mesh_lib.psum(out[:, :, 2 * k + 2].sum().reshape(1), (m_axis,) + da)
+        return out_v, out_i, ranges[0]
+
+    fn = shard_map(
+        body,
+        mesh=ctx.mesh,
+        in_specs=(
+            tuple([P(m_axis, None)] * 6),
+            P(m_axis),
+            P(da, m_axis, None, None),
+            P(da, m_axis, None, None),
+            P(da, m_axis, None),
+            P(da, m_axis, None),
+        ),
+        out_specs=(P(da, None), P(da, None), P()),
+    )
+
+    def mesh_step(arrays: ShardedIndexArrays, tables):
+        return fn(_array_tuple(arrays), arrays.doc_base,
+                  *(np.asarray(t) for t in tables))
+
+    return mesh_step
 
 
 def sharded_anytime_query(arrays, tables, ctx, budget: int = 2**31 - 1,
                           impl: str | None = None):
     """``make_sharded_query_fn``'s step at the arrays' ``s_pad`` and ``k``:
-    ``(vals [Q, k], ids [Q, k] global, ranges)`` on the arrays' device,
-    ``ranges`` the ranges processed summed over every query and shard (the
-    reference's ``psum``). ``tables`` are ``plan_queries``' [Q, M, R, B]
-    tables."""
+    ``(vals [Q, k], ids [Q, k] global, ranges)`` on the arrays' device (on
+    a mesh, on every rank's), ``ranges`` the ranges processed summed over
+    every query and shard (the reference's ``psum``). ``tables`` are
+    ``plan_queries``' [Q, M, R, B] tables."""
     step = make_sharded_query_fn(ctx, s_pad=arrays.s_pad, k=arrays.k, budget=budget,
                                  impl=impl)
     return step(arrays, tables)

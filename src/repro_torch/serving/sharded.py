@@ -10,12 +10,20 @@ top-k under the heap's total order (score desc, docid asc), which makes
 the merged list *bitwise identical* to the single-device traversal
 whenever every shard runs its ranges to completion.
 
-The port's path is the reference's single-device one: the shards are
-stacked row by row into one ``DeviceIndex`` on the engine's card, and
-one launch of the ``traverse`` kernel serves every (query, shard) pair
-(lane n reads shard n % S, the reference's double vmap), followed by the
-local->global docid lift and the broker merge in plain torch on the
-device. The mesh path (one shard per card) is not ported yet.
+Two execution paths produce identical numbers:
+
+  * **stacked** — the shards are stacked row by row into one
+    ``DeviceIndex`` on the engine's card, and one launch of the
+    ``traverse`` kernel serves every (query, shard) pair (lane n reads
+    shard n % S, the reference's double vmap), followed by the
+    local->global docid lift and the broker merge in plain torch on the
+    device;
+  * **mesh** — one shard per rank of a ``torch.distributed`` process group
+    (``distributed.sharding``): rank s uploads shard s alone and launches
+    ``traverse`` over its own (query, shard s) lanes; the lifted heaps are
+    ``all_gather``ed over the ``shard`` axis in shard-major order and
+    merged as on the stacked path (``make_mesh_dispatch``). Rank 0 drives
+    (plans, budgets, results); the other ranks run the step it sends.
 
 Budgets are per (query, shard): a global postings budget is split
 proportionally to each shard's postings mass (``split_postings_budget``),
@@ -53,6 +61,8 @@ from repro_torch.core.range_daat import (
     traverse_lanes,
     upload_int32,
 )
+from repro_torch.distributed import sharding as mesh_lib
+from repro_torch.distributed.sharding import LOCAL, P, shard_map
 from repro_torch.kernels.range_scorer import kernel as scorer_kernel
 from repro_torch.obs import NOOP
 from repro_torch.obs.profiler import jit_cache_size
@@ -69,6 +79,7 @@ __all__ = [
     "ShardedBatchEngine",
     "ShardedResult",
     "apply_down_mask",
+    "make_mesh_dispatch",
     "sharded_batched_traverse",
     "shard_exit_reason",
     "split_outputs",
@@ -143,12 +154,89 @@ def sharded_batched_traverse(
         dix, *lanes, s_pad=s_pad, k=k, safe_stop=safe_stop, prune_blocks=prune_blocks,
         impl=impl, docs_format=docs_format, timer=timer,
     ).view(N, S, 2 * k + 5)
-    # Lift local docids to global, then broker-merge.
-    ids = out[:, :, k + 2:2 * k + 2]
-    gids = torch.where(ids >= 0, ids + doc_base[None, :, None], -1)
-    out_v, out_i = _merge_gathered(out[:, :, :k], gids, k)
-    return torch.cat([out_v, out_i] + [out[:, :, c] for c in (
-        k, k + 1, 2 * k + 2, 2 * k + 3, 2 * k + 4)], dim=1)
+    return _merge_rows(_lifted(out, doc_base[None, :, None], k), k)
+
+
+def _lifted(out: torch.Tensor, doc_base, k: int) -> torch.Tensor:
+    """Carry rows [..., 2k+5] as ``vals[k] | global ids[k] | postings |
+    blocks | ranges | exit_safe | exit_budget``: the local docids lifted
+    by ``doc_base`` (broadcast against [..., 1])."""
+    ids = out[..., k + 2:2 * k + 2]
+    gids = torch.where(ids >= 0, ids + doc_base, -1)
+    return torch.cat([out[..., :k], gids, out[..., k:k + 2], out[..., 2 * k + 2:]], dim=-1)
+
+
+def _merge_rows(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """[N, S, 2k+5] lifted rows (shard-major) -> the packed [N, 2k + 5S]
+    outputs: the broker-merged top-k, then each per-shard counter."""
+    out_v, out_i = _merge_gathered(rows[:, :, :k], rows[:, :, k:2 * k], k)
+    return torch.cat([out_v, out_i] + [rows[:, :, 2 * k + j] for j in range(5)], dim=1)
+
+
+def make_mesh_dispatch(
+    mesh,
+    axis: str,
+    *,
+    s_pad: int,
+    k: int,
+    safe_stop: bool,
+    prune_blocks: bool,
+    impl: str,
+    interpret: bool,
+    data_axis: str | None = None,
+    docs_format: str = "int32",
+):
+    """The (batch x shard) step with one shard per rank of ``mesh``.
+
+    Same input/output contract as ``sharded_batched_traverse`` (the
+    global [N, S, ...] host tables in, the packed [N, 2k + 5S] outputs on
+    every rank), through ``distributed.sharding.shard_map``: ``dix`` and
+    ``doc_base`` are the rank's own shard (``[1, ...]``, passed through),
+    the tables are sliced to the rank's shard column. Each rank uploads
+    its block in one copy and launches ``traverse`` once over its lanes;
+    the lifted rows are ``all_gather``ed over ``axis`` into [N, S, ...]
+    (shard-major, as the stacked lanes are) and broker-merged, and the
+    per-shard counters and flags come out as [N, S].
+
+    ``data_axis`` names a second mesh axis carrying query parallelism: the
+    batch dimension of every table, budget and output is split over it
+    while each rank's index is its shard column's (replicated across
+    replica rows), the replicated-shard-group layout of DESIGN.md §9; the
+    outputs are gathered back over it. ``interpret`` is accepted and
+    ignored.
+    """
+    del interpret
+
+    def body(dix, doc_base, blk, rest, order, bounds, budgets, maxr):
+        n = blk.shape[0]
+        lanes = upload_int32(
+            (blk[:, 0], rest[:, 0], order[:, 0], bounds[:, 0], lane_caps(budgets[:, 0]),
+             lane_caps(maxr[:, 0]), carry_buffer(batched_init_carry(n, k))),
+            doc_base.device,
+        )
+        out = traverse_lanes(
+            dix, *lanes, s_pad=s_pad, k=k, safe_stop=safe_stop,
+            prune_blocks=prune_blocks, impl=impl, docs_format=docs_format,
+        )
+        rows = mesh_lib.all_gather(_lifted(out, doc_base[0], k), axis)
+        return _merge_rows(rows.transpose(0, 1), k)
+
+    da = data_axis  # None -> every shard rank sees the whole batch (§4)
+    return shard_map(
+        body,
+        mesh=mesh,
+        in_specs=(
+            LOCAL,
+            LOCAL,
+            P(da, axis, None, None),
+            P(da, axis, None, None),
+            P(da, axis, None),
+            P(da, axis, None),
+            P(da, axis),
+            P(da, axis),
+        ),
+        out_specs=P(da),
+    )
 
 
 def split_outputs(buf, k: int, n_shards: int) -> tuple:
@@ -245,16 +333,19 @@ class ShardedEngine:
     """Range-sharded executor over a single built ``ClusteredIndex``.
 
     Wraps a single-device ``Engine`` (whose ``plan`` stays the global
-    planner) with ``n_shards`` shard-local indexes stacked on the engine's
-    device, at its impact dtype and docid format. ``use_mesh``: None or
-    False run every shard on that one device; True (one shard per card)
-    raises ``NotImplementedError`` until the mesh path is ported.
+    planner) with ``n_shards`` shard-local indexes at its impact dtype and
+    docid format. ``use_mesh``: None = auto (the mesh when a process group
+    of at least ``n_shards`` ranks is up, ``distributed.sharding``), True =
+    require the mesh (raises without one), False = the stacked path, every
+    shard on the engine's device. On the mesh, rank r uploads shard
+    r % n_shards alone (as ``[1, ...]`` leaves) and the retrieval mesh is
+    ranks ``0..n_shards-1`` over axis ``mesh_axis``; every rank builds the
+    engine, in lockstep or, while rank 0 drives, from rank 0's announce.
     ``shards`` is a preloaded shard list to use instead of re-partitioning.
-    The positional order is the reference's: ``mesh_axis`` names the mesh
-    axis of the unported mesh path and is ignored. ``obs`` is a
-    ``repro_torch.obs`` handle (None: ``NOOP``): per-query and per-shard
-    exit counters, and the profiler's split of each dispatch, whose device
-    time and transfer are read when ``_to_results`` reads the outputs.
+    ``obs`` is a ``repro_torch.obs`` handle (None: ``NOOP``): per-query
+    and per-shard exit counters, and the profiler's split of each
+    dispatch, whose device time (stacked path only) and transfer are read
+    when ``_to_results`` reads the outputs.
     """
 
     def __init__(
@@ -268,12 +359,6 @@ class ShardedEngine:
     ):
         self.obs = obs if obs is not None else NOOP
         self._pending_profile = None
-        if use_mesh:
-            raise NotImplementedError(
-                "use_mesh=True (one shard per card: make_mesh_dispatch and "
-                "distributed/sharding.py) is not ported yet, ROADMAP A7's mesh item; "
-                "use_mesh=None or False runs every shard on the engine's device"
-            )
         self.engine = engine
         self.k = engine.k
         self.s_pad = engine.s_pad
@@ -296,14 +381,28 @@ class ShardedEngine:
         self.doc_base_host = np.asarray(
             [sh.doc_base for sh in self.shards], np.int64
         )
+        if use_mesh is None:
+            use_mesh = self.n_shards > 1 and mesh_lib.mesh_world_size() >= self.n_shards
+        self.mesh = None
+        self._mesh_axis = mesh_axis
+        self._mesh_fns: dict = {}
+        local = self.shards
+        if use_mesh:
+            # Rank 0, while it drives, has the other ranks build theirs
+            # first, so the mesh's construction lines up on every rank.
+            mesh_lib.announce(_mesh_twin, engine, self.cuts, mesh_axis)
+            self.mesh = mesh_lib.retrieval_mesh(self.n_shards, mesh_axis)
+            rt = mesh_lib.runtime()
+            local = [self.shards[rt.rank % self.n_shards]]
+            mesh_lib.register(engine)
+            mesh_lib.register(self)
+        n_local = len(local)
 
-        def stack(field, pad=0, arrs=None):
+        def stack(field, pad=0, arrs=None, min_width=1):
             if arrs is None:
-                arrs = [
-                    np.asarray(getattr(sh, field), np.int32) for sh in self.shards
-                ]
-            w = max((a.shape[0] for a in arrs), default=1) or 1
-            out = np.full((self.n_shards, w), pad, arrs[0].dtype if arrs else np.int32)
+                arrs = [np.asarray(getattr(sh, field), np.int32) for sh in local]
+            w = max([a.shape[0] for a in arrs] + [min_width])
+            out = np.full((n_local, w), pad, arrs[0].dtype if arrs else np.int32)
             for s, a in enumerate(arrs):
                 out[s, : a.shape[0]] = a
             return torch.from_numpy(out).to(self.device)
@@ -321,12 +420,8 @@ class ShardedEngine:
             # [S, W] leaves pad with zero words / zero directory rows, which
             # decode to nothing because padded blocks are never addressed.
             # The words are the uint32 stream's bits held as int32.
-            packed = [
-                pack_docs(sh.docs, sh.blk_start, sh.blk_len)
-                for sh in self.shards
-            ]
-            docs_dev = torch.zeros((self.n_shards, 1), dtype=torch.int32,
-                                   device=self.device)
+            packed = [pack_docs(sh.docs, sh.blk_start, sh.blk_len) for sh in local]
+            docs_dev = torch.zeros((n_local, 1), dtype=torch.int32, device=self.device)
             pack_dev = dict(
                 pack_words=stack(
                     "words",
@@ -346,22 +441,21 @@ class ShardedEngine:
             docs=docs_dev,
             impacts=stack(
                 "impacts",
-                arrs=[
-                    pack_impacts(sh.impacts, self.impact_dtype)
-                    for sh in self.shards
-                ],
+                arrs=[pack_impacts(sh.impacts, self.impact_dtype) for sh in local],
             ),
             blk_start=stack("blk_start"),
             blk_len=stack("blk_len"),
             blk_maximp=stack("blk_maximp"),
-            bounds_dense=torch.zeros((self.n_shards, 1, 1), dtype=torch.int32,
+            bounds_dense=torch.zeros((n_local, 1, 1), dtype=torch.int32,
                                      device=self.device),
-            range_starts=stack("range_starts"),
-            range_sizes=stack("range_sizes"),
+            # A shard's padded order slots (up to R_max) name row r_loc,
+            # whose range start is read though its blocks are all -1.
+            range_starts=stack("range_starts", min_width=self.r_max),
+            range_sizes=stack("range_sizes", min_width=self.r_max),
             **pack_dev,
         )
-        self.doc_base = torch.from_numpy(self.doc_base_host.astype(np.int32)).to(
-            self.device)
+        self.doc_base = torch.from_numpy(
+            np.asarray([sh.doc_base for sh in local], np.int32)).to(self.device)
 
     @classmethod
     def from_artifact(
@@ -383,7 +477,9 @@ class ShardedEngine:
         the loaded (materialized) index, so a stale shard set cannot
         silently serve against a rebuilt *or extended* index.
         ``engine_kwargs`` (``device`` among them) pass through to
-        ``Engine.from_artifact``.
+        ``Engine.from_artifact``. With a process group up, every rank calls
+        this; the shard artifact is memory-mapped, so a rank on the mesh
+        reads only its own shard's arrays.
         """
         from repro_torch import index_io  # local: index_io sits above serving
 
@@ -406,7 +502,8 @@ class ShardedEngine:
                     f"{src}, but {path} has fingerprint "
                     f"{engine.index.fingerprint()} — rebuild the shards"
                 )
-            shards = index_io.load_shards(shards_path)
+            shards = index_io.load_shards(
+                shards_path, mmap=mesh_lib.runtime() is not None and use_mesh is not False)
         return cls(
             engine, n_shards, use_mesh=use_mesh, mesh_axis=mesh_axis,
             shards=shards,
@@ -493,7 +590,9 @@ class ShardedEngine:
     ) -> torch.Tensor:
         """Run one (batch x shard) step on stacked host tables (one upload,
         one ``traverse`` launch under ``impl="cuda"``); the packed outputs
-        of ``sharded_batched_traverse``, on the device."""
+        of ``sharded_batched_traverse``, on the device. On the mesh, the
+        step runs on every rank (``make_mesh_dispatch``: one upload and one
+        launch per rank) and the profiler records no device time."""
         prof = self.obs.profiler if self.obs.enabled else None
         timer = None
         if prof is not None:
@@ -501,14 +600,18 @@ class ShardedEngine:
             t_plan0 = clk()
             cache0 = jit_cache_size(scorer_kernel.traverse)
             t_disp0 = clk()
-            timer = DeviceTimer(self.device)
-        out = sharded_batched_traverse(
-            self.dix, self.doc_base, blk, rest, order, bounds,
-            np.asarray(budgets, np.int64), np.asarray(maxr, np.int64),
-            s_pad=self.s_pad, k=self.k, safe_stop=safe_stop,
-            prune_blocks=prune_blocks, impl=self.impl, docs_format=self.docs_format,
-            timer=timer,
-        )
+            timer = DeviceTimer(self.device) if self.mesh is None else None
+        budgets, maxr = np.asarray(budgets, np.int64), np.asarray(maxr, np.int64)
+        if self.mesh is not None:
+            out = mesh_lib.mesh_call(self, "_mesh_step", blk, rest, order, bounds,
+                                     budgets, maxr, safe_stop, prune_blocks)
+        else:
+            out = sharded_batched_traverse(
+                self.dix, self.doc_base, blk, rest, order, bounds, budgets, maxr,
+                s_pad=self.s_pad, k=self.k, safe_stop=safe_stop,
+                prune_blocks=prune_blocks, impl=self.impl, docs_format=self.docs_format,
+                timer=timer,
+            )
         if prof is not None:
             # Completed by _to_results once its read has waited for the
             # device: no sync of its own.
@@ -517,6 +620,19 @@ class ShardedEngine:
                 t_plan0, t_disp0, clk(),
             )
         return out
+
+    def _mesh_step(self, blk, rest, order, bounds, budgets, maxr, safe_stop,
+                   prune_blocks):
+        """This rank's part of one mesh dispatch (``make_mesh_dispatch``)."""
+        key = (safe_stop, prune_blocks)
+        if key not in self._mesh_fns:
+            self._mesh_fns[key] = make_mesh_dispatch(
+                self.mesh, self._mesh_axis, s_pad=self.s_pad, k=self.k,
+                safe_stop=safe_stop, prune_blocks=prune_blocks, impl=self.impl,
+                interpret=True, docs_format=self.docs_format,
+            )
+        return self._mesh_fns[key](self.dix, self.doc_base, blk, rest, order, bounds,
+                                   budgets, maxr)
 
     # ------------------------------------------------------------ execution
     def traverse(
@@ -572,7 +688,7 @@ class ShardedEngine:
                 cache_after=jit_cache_size(scorer_kernel.traverse),
                 plan_ms=(t_disp0 - t_plan0) * 1e3,
                 dispatch_ms=(t_dev0 - t_disp0) * 1e3,
-                device_ms=timer.ms(),
+                device_ms=timer.ms() if timer is not None else None,
                 transfer_ms=(t_xfer1 - t_dev0) * 1e3,
             )
             prof.record_hbm_once("sharded", self.dix._asdict())
@@ -652,6 +768,17 @@ class ShardedEngine:
                 self.obs.count("sharded_exact", exact=exact)
                 self.obs.observe("fidelity_bound", fb)
         return results
+
+
+def _mesh_twin(engine: Engine, cuts, mesh_axis: str) -> ShardedEngine:
+    """A rank's counterpart of the mesh engine rank 0 builds while it
+    drives: its shard carved from the engine's index at ``cuts``, array
+    for array the shard rank 0 holds for it (``restack_shards``' and
+    ``from_artifact``'s shards are the same carve)."""
+    cuts = np.asarray(cuts, np.int64)
+    return ShardedEngine(engine, int(cuts.shape[0] - 1), use_mesh=True,
+                         mesh_axis=mesh_axis,
+                         shards=shard_device_index(engine.index, cuts=cuts))
 
 
 class ShardedBatchEngine:

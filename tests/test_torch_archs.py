@@ -252,7 +252,9 @@ def test_anytime_ir_params_are_meta_specs():
     assert distributed_ir.sharded_query_specs(**i8)[0].impacts.dtype == torch.int8
     with pytest.raises(NotImplementedError):
         arch.make_batch(cfg, "serve_anytime")
-    with pytest.raises(NotImplementedError, match="A7"):
+    # A context over four devices runs on a mesh of ranks: without a
+    # process group it raises (tests/test_torch_mesh.py runs it on one).
+    with pytest.raises(ValueError, match="process group"):
         arch.build_step(cfg, "serve_anytime", shard_ctx=type("Ctx", (), {"n_model": 4})())
 
 
@@ -263,7 +265,8 @@ def test_anytime_ir_params_are_meta_specs():
 def test_train_shapes_and_mesh_functions_raise(name):
     """Every ``train`` shape builds and takes a step on the CPU (its
     parameters move, its state's step counts 1, its metrics are finite);
-    every mesh function raises naming A7."""
+    every mesh function of a model raises naming A7; ``anytime-ir``'s specs
+    are the reference's."""
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
     arch = ARCHS[name]
@@ -283,6 +286,20 @@ def test_train_shapes_and_mesh_functions_raise(name):
         if arch.family != "ir":
             with pytest.raises(NotImplementedError, match="A7"):
                 arch.build_step(cfg, shape, shard_ctx=object())
+    if arch.family == "ir":
+        from repro.configs.registry import ARCHS as JAX_ARCHS
+        from repro_torch.distributed.sharding import ShardCtx
+
+        want = JAX_ARCHS[name].param_pspecs(cfg, None)
+        got = arch.param_pspecs(cfg, None)
+        for f in ("docs", "impacts", "blk_start", "blk_len", "blk_maximp",
+                  "range_starts", "doc_base"):
+            assert tuple(getattr(got, f)) == tuple(getattr(want, f)), f
+        ctx = ShardCtx(mesh=None, data_axes=("pod", "data"))
+        tables = arch.batch_pspecs(cfg, "serve_anytime", ctx)["tables"]
+        assert [tuple(t) for t in tables] == [
+            (("pod", "data"), "model", None, None)] * 2 + [(("pod", "data"), "model", None)] * 2
+        return
     with pytest.raises(NotImplementedError, match="A7"):
         arch.param_pspecs(cfg, None)
     with pytest.raises(NotImplementedError, match="A7"):

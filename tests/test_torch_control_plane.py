@@ -623,7 +623,8 @@ def test_boundsum_budgets_improve_fidelity_on_skewed_index():
 
 def test_replica_group_fallback_matches_sharded_engine():
     """On one device the group serves through the wrapped engine unchanged;
-    the (data x shard) mesh waits for ROADMAP A7."""
+    the (data x shard) mesh needs the wrapped engine on a mesh
+    (``tests/test_torch_mesh.py`` runs it on one)."""
     pair = _small_setup(seed=17, n_ranges=6)
     se = ShardedEngine(pair.eng, 2)
     rep = ReplicaGroupEngine(se, 2, use_mesh=False)
@@ -641,7 +642,7 @@ def test_replica_group_fallback_matches_sharded_engine():
     assert ReplicaGroupEngine(se, 2).group_mesh is None  # auto, one device
     with pytest.raises(ValueError):
         ReplicaGroupEngine(se, 0)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="on the mesh"):
         ReplicaGroupEngine(se, 2, use_mesh=True)
 
 
@@ -649,7 +650,7 @@ def test_plane_with_replicas_serves_through_the_fallback():
     """``ControlPlane(..., n_replicas=2)`` on one device: ``replica_mesh``
     False, no replica-mesh dispatch, results and ``stats()`` the
     reference's; a degraded replica row reroutes through the single path
-    at full fidelity; ``use_mesh=True`` raises naming A7."""
+    at full fidelity; ``use_mesh=True`` without a process group raises."""
     pair = _small_setup(seed=7, n_ranges=6, n_queries=12)
     plane, ref = pair.planes(2, n_replicas=2)
     assert isinstance(plane.replicas, ReplicaGroupEngine)
@@ -664,7 +665,7 @@ def test_plane_with_replicas_serves_through_the_fallback():
     assert all(s.result.exact for s in served)
     assert plane.replicas.dispatches == 0
     _same_state(plane, ref, "degraded replica")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="process group"):
         ControlPlane(pair.eng, n_shards=2, n_replicas=2, use_mesh=True)
 
 

@@ -208,7 +208,9 @@ def test_sharded_field_lookup_unsharded_matches_jax(dtype, shape):
 
 
 def test_sharded_field_lookup_with_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
+    """The row-sharded lookup runs on a mesh of ranks
+    (``tests/test_torch_mesh.py``); outside a process group it raises."""
+    with pytest.raises(ValueError, match="process group"):
         temb.sharded_field_lookup(torch.ones(4, 2), torch.zeros(3, dtype=torch.int32),
                                   shard_ctx=object())
 

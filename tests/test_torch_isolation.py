@@ -54,6 +54,7 @@ def test_port_modules_import_neither_jax_nor_reference():
         "later |= {'repro_torch.models.' + m for m in (\n"
         "          'layers', 'attention', 'moe', 'transformer', 'recsys', 'gnn')}\n"
         "later |= {'repro_torch.core.' + m for m in ('saat', 'boolean', 'bound_sum')}\n"
+        "later |= {'repro_torch.distributed', 'repro_torch.distributed.sharding'}\n"
         "later |= {'repro_torch.optim', 'repro_torch.train', 'repro_torch.launch.train',\n"
         "          'repro_torch.data.graphs'} | {'repro_torch.optim.' + m for m in (\n"
         "          'adamw', 'schedule', 'compression')} | {'repro_torch.train.' + m\n"

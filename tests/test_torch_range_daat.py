@@ -23,10 +23,11 @@ from repro.core import range_daat as jax_daat
 from repro.core.clustered_index import build_index as jax_build_index
 from repro.data.synth import make_corpus as jax_make_corpus
 from repro.data.synth import make_query_log as jax_make_query_log
+from repro.data.synth import planted_qrels as jax_planted_qrels
 from repro.index_io import load_index, read_manifest
 from repro_torch.core import range_daat
 from repro_torch.core.clustered_index import INDEX_ARRAYS, build_index, index_from_arrays
-from repro_torch.data.synth import make_corpus, make_query_log
+from repro_torch.data.synth import make_corpus, make_query_log, planted_qrels
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_v1")
 
@@ -257,3 +258,28 @@ def test_engine_rejects_cuda_impl_on_cpu(index):
     with pytest.raises(ValueError, match="impl"):
         range_daat.Engine(pidx, device="cpu", impl="xla")
     assert range_daat.Engine(pidx, device="cpu").impl == "torch"
+
+
+def test_init_carry_is_the_references():
+    """A fresh single-query carry, field for field: 0-d cursor and flags,
+    an empty heap."""
+    for k in (1, 5, 10):
+        got, want = range_daat.init_carry(k), jax_daat.init_carry(k)
+        assert got._fields == want._fields and got.state._fields == want.state._fields
+        for g, w in [(got.i, want.i), (got.exit_safe, want.exit_safe),
+                     (got.exit_budget, want.exit_budget)] + list(zip(got.state, want.state)):
+            w = np.asarray(w)
+            assert g.shape == w.shape and str(g.dtype).removeprefix("torch.") == (
+                "bool" if w.dtype == bool else str(w.dtype))
+            assert _np(g).tolist() == w.tolist()
+
+
+@pytest.mark.parametrize("n_rel", [1, 5, 20])
+def test_planted_qrels_is_the_references(n_rel):
+    kw = dict(n_docs=500, n_terms=600, n_topics=5, mean_doc_len=40, seed=11)
+    corpus, jcorpus = make_corpus(**kw), jax_make_corpus(**kw)
+    got = planted_qrels(corpus, make_query_log(corpus, n_queries=9, seed=3), n_rel)
+    want = jax_planted_qrels(jcorpus, jax_make_query_log(jcorpus, n_queries=9, seed=3),
+                             n_rel)
+    assert got == want and any(got)
+    assert [list(g) for g in got] == [list(w) for w in want]  # the same order

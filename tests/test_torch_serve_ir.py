@@ -191,7 +191,8 @@ def test_multi_device_context_raises_naming_a7(four_shards):
         n_model, n_data = 4, 2
 
     _, port, terms = four_shards
-    with pytest.raises(NotImplementedError, match="A7"):
+    # The mesh path runs on ranks of a process group (tests/test_torch_mesh.py).
+    with pytest.raises(ValueError, match="process group"):
         distributed_ir.sharded_anytime_query(
             port[0], distributed_ir.plan_queries(port[1], terms), Ctx())
 

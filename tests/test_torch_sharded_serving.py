@@ -294,7 +294,7 @@ def test_sharded_engine_budget_splits_and_checks(setup):
         assert sharded.shard_exit_reason(*args) == jax_sharded.shard_exit_reason(*args)
     with pytest.raises(ValueError, match="per-shard budget"):
         pse.traverse(pse.plan(setup[2][0]), budget_postings=[1, 2])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="process group"):  # no mesh here
         sharded.ShardedEngine(pse.engine, 2, use_mesh=True)
     with pytest.raises(ValueError, match="preloaded shard count"):
         sharded.ShardedEngine(pse.engine, 2, shards=pse.shards)

@@ -16,7 +16,12 @@ class methods; the control plane's ``ControlPlane`` (and its
 ``lm_forward``, ``init_cache``, ``lm_decode_step``, ``gqa``, ``mla``,
 ``moe_ffn``, ``init_rec``, ``rec_serve_scores``, ``rec_retrieval_scores``,
 ``make_sharded_query_fn``, ``sharded_query_specs`` and the ``Arch``
-classes' methods). The port may append its own arguments after the
+classes' methods), and the mesh surface (``make_mesh_dispatch``,
+``distributed.sharding``'s meshes, ``shard_map`` and ``ShardCtx``). Every
+module the reference has is ported but ``analysis/*`` and
+``launch/{mesh,dryrun,roofline}.py``, and every ported module exports the
+reference's names (``__all__``) but the three ``*_pallas`` launchers,
+whose CUDA counterparts have their own names. The port may append its own arguments after the
 reference's (``device``, ``impl``, ``rope``), and a dtype default is the
 same type in the port's framework. ``interpret`` (Pallas's interpret
 mode) is accepted and ignored; ``obs`` is a ``repro_torch.obs`` handle.
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+from pathlib import Path
 
 import pytest
 import torch
@@ -37,6 +43,7 @@ from repro.configs import anytime_ir as jax_anytime_ir
 from repro.configs import base as jax_base
 from repro.core import clustered_index as jax_ci
 from repro.core import range_daat as jax_daat
+from repro.distributed import sharding as jax_sharding
 from repro.models import attention as jax_attention
 from repro.models import moe as jax_moe
 from repro.models import recsys as jax_recsys
@@ -52,6 +59,7 @@ from repro_torch.configs import anytime_ir, base
 from repro_torch.core import clustered_index, range_daat
 from repro_torch.core.clustered_index import build_index
 from repro_torch.data.synth import make_corpus
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, moe, recsys, transformer
 from repro_torch.obs import NOOP, Instrumentation
 from repro_torch.serve import distributed_ir, retrieval
@@ -111,6 +119,13 @@ FUNCTIONS = {
     "rec_serve_scores": (jax_recsys.rec_serve_scores, recsys.rec_serve_scores, ()),
     "rec_retrieval_scores": (jax_recsys.rec_retrieval_scores,
                              recsys.rec_retrieval_scores, ()),
+    "make_mesh_dispatch": (jax_sharded.make_mesh_dispatch, sharded.make_mesh_dispatch,
+                           ()),
+    "retrieval_mesh": (jax_sharding.retrieval_mesh, sharding.retrieval_mesh, ()),
+    "replica_mesh": (jax_sharding.replica_mesh, sharding.replica_mesh, ()),
+    "shard_map": (jax_sharding.shard_map, sharding.shard_map, ()),
+    "named": (jax_sharding.named, sharding.named, ()),
+    "data_spec": (jax_sharding.data_spec, sharding.data_spec, ()),
 }
 ARCH_CLASSES = {
     "Arch": (jax_base.Arch, base.Arch),
@@ -246,3 +261,62 @@ def test_obs_handle_is_not_ported_yet(tiny_index):
     assert (srv.obs, srv.clock) == (obs, obs.clock)
     isrv = inflight.InflightServer(beng, bud, 4, 1, None, obs)
     assert (isrv.obs, isrv.clock) == (obs, obs.clock)
+
+
+def test_shard_ctx_fields_are_the_references():
+    want = [(f.name, f.default) for f in dataclasses.fields(jax_sharding.ShardCtx)]
+    got = [(f.name, f.default) for f in dataclasses.fields(sharding.ShardCtx)]
+    assert got == want
+    assert [n for n in dir(jax_sharding.ShardCtx) if not n.startswith("_")] == [
+        n for n in dir(sharding.ShardCtx) if not n.startswith("_")]
+
+
+ROOT = Path(__file__).resolve().parents[1]
+# The reference's modules with no counterpart in the port, each a queue A
+# item of ROADMAP.md: the analyzer (A8) and the TPU launch tools (A9).
+UNPORTED_MODULES = {"analysis", "analysis.__main__", "analysis.baseline",
+                    "analysis.checkers", "analysis.model", "analysis.registry",
+                    "analysis.runner", "launch.mesh", "launch.dryrun", "launch.roofline"}
+# Pallas launchers whose CUDA counterparts carry other names (queue B).
+RENAMED = {"kernels.range_scorer.kernel": {"scatter_accumulate_pallas",
+                                           "unpack_locals_pallas"},
+           "kernels.embedding_bag.kernel": {"bag_reduce_pallas"}}
+
+
+def _modules(root: Path) -> set[str]:
+    out = set()
+    for path in root.rglob("*.py"):
+        parts = list(path.relative_to(root).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        if parts:
+            out.add(".".join(parts))
+    return out
+
+
+def test_every_reference_module_is_ported_but_the_named_ones():
+    """Module lists of ``src/repro`` and ``src/repro_torch`` (package
+    ``__init__`` files aside: the reference's packages are namespaces)."""
+    ref = _modules(ROOT / "src" / "repro")
+    port = _modules(ROOT / "src" / "repro_torch")
+    assert ref - port == UNPORTED_MODULES
+    assert UNPORTED_MODULES <= ref
+
+
+def _exports(name: str):
+    import importlib
+
+    return (getattr(importlib.import_module(f"repro.{name}"), "__all__", None),
+            getattr(importlib.import_module(f"repro_torch.{name}"), "__all__", None))
+
+
+@pytest.mark.parametrize("name", sorted(
+    _modules(ROOT / "src" / "repro") - UNPORTED_MODULES))
+def test_ported_module_exports_the_references_names(name):
+    """``__all__`` of every ported pair: the reference's names are all the
+    port's (the port may export more), the renamed launchers aside."""
+    ref, port = _exports(name)
+    if ref is None:
+        return
+    missing = set(ref) - set(port or ())
+    assert missing == RENAMED.get(name, set()), f"{name}: {sorted(missing)}"
