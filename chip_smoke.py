@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the whole smoke
     python3 chip_smoke.py --phases   # the range step's phase timer alone
     python3 chip_smoke.py --train    # the train phase alone
+    python3 chip_smoke.py --mesh-model  # the model mesh phase alone
 
 Drives the port (``src/repro_torch``) through its main path on the card and
 fails (non-zero exit, no result line) on any fault:
@@ -1994,6 +1995,7 @@ def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs) -> dic
         kernel_device_us=device_us(wrapper, "scatter_accumulate_kernel"),
         wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
         library_device_us=device_us(library),
+        library_fill_device_us=device_us(lib_acc.zero_),
         bytes=P * 8 + s_pad * 4,
     )
 
@@ -3152,7 +3154,7 @@ def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
 # ---------------------------------------------------------------- mesh phase
 
 MESH_DIR = ROOT / ".cache" / "chip_smoke_mesh"  # git-ignored; removed after
-MESH_TIMEOUT_S = 420  # a spawned group's limit, load and build included
+MESH_TIMEOUT_S = 600  # a spawned group's limit, load and build included
 MESH_IR = (2, 4)  # the partitioned IR's (data, model) context: 8 ranks
 MESH_PLANE = (2, 2)  # the control plane's (replicas, shards) mesh on the preset
 MESH_STARVED = 128  # one block: the starved shard's postings budget
@@ -3201,8 +3203,10 @@ def mesh_rank(case: str, rank: int, world: int, src: str, device: str | None) ->
     rt = ms.init_mesh_group(device=device,
                             init_method=f"file://{MESH_DIR / (case + '.init')}",
                             rank=rank, world_size=world, timeout_s=MESH_TIMEOUT_S - 60)
-    if rt.device.type == "cuda":
+    if rt.device.type == "cuda" and case in ("serve", "ir", "nccl"):
         _, build_s, _ = kernel.build()  # the parent's library: a cache hit
+    elif rt.device.type == "cuda":
+        build_s = 0.0  # the model paths run no kernel
     else:
         build_s = 0.0
         _count_plain_traverse()
@@ -4635,6 +4639,1251 @@ def train_phase(dev, pool, full_checkpoint: bool = False) -> dict:
     return res
 
 
+# ------------------------------------------------------- the model mesh phase
+
+MM_SEED = 7  # weights, caches and tokens of the model mesh phase, from seed
+MM_GROUP = 4  # ranks of each model-mesh group, sharing the one card
+# Published widths; what is cut is listed in each case's "reduced".
+MM_PLAN = dict(
+    full=True,
+    decode=dict(arch="qwen3-4b", cut={}, batch=8, cache=32768, pos=16384, steps=2,
+                mesh=(1, 4), f32=dict(n_layers=2),
+                reduced=["decode_32k batch 128 -> 8, as the arch phase",
+                         "the float32 check: depth 36 -> 2, one step"]),
+    mla=dict(arch="deepseek-v3-671b", cut=dict(n_layers=2, n_dense_layers=1), batch=4,
+             cache=32768, pos=16384, steps=2, chunk=128, mesh=(2, 2),
+             f32=dict(n_layers=1, n_dense_layers=1),
+             reduced=["depth 61 -> 2 layers (1 dense, 1 MoE), as the arch phase",
+                      "the float32 check: depth 1 (dense; float32 experts would not fit "
+                      "beside the comparator's), one step",
+                      "decode_32k batch 128 -> 4", "one prefill chunk of 4 x 128 (with "
+                      "no drops an expert's buffer holds every token)",
+                      "capacity_factor = n_experts / top_k (no drops: a drop depends "
+                      "on how many tokens a rank routes)"]),
+    train=dict(arch="qwen3-4b", cut=dict(n_layers=4), batch=2, seq=4096, steps=3,
+               after_batch=4, mesh=(2, 2), restore_mesh=(4, 1),
+               reduced=["depth 36 -> 4 layers", "train_4k global batch 256 -> 2 (the step "
+                        "after the restore: 4, so that it splits over 4 data ranks)"]),
+    gnn=dict(shape="ogb_products", steps=2, mesh=(4, 1),
+             reduced=["2 steps (the second's loss carries the first's update; a step "
+                      "is ~17 s of host-staged gloo)"]),
+    towers=dict(serve="serve_p99", train={"bst": 65536, "mind": 16384, "autoint": 65536,
+                                          "bert4rec": 4096}, mesh=(1, 4),
+                reduced=["train_batch: mind 65,536 -> 16,384 and bert4rec -> 4,096 (with "
+                         "data 1 every rank runs the whole batch's dense work on the one "
+                         "card)"]),
+    pod=dict(n=65536, rows=8, mesh=(2, 2), reduced=[]),
+)
+# (c)'s bounds lie between the sound readings and those of a planted
+# fault on the card (PERF.md): losses 9.1e-6 and 2.0e-4; leaf changes 0.16
+# (Adam's first steps flip the sign of an update where bfloat16 rounding
+# flips a near-zero gradient's) and 0.7-1.
+MM_TOL = dict(logits=LOGIT_TOL, f32=1e-4, loss=LOGIT_TOL, train_loss=4e-5, train_change=0.3,
+              towers=1e-4, pod=2e-2, topi_gap=1e-2)
+# Leaves of (c) compared after the steps; of the two vocabulary tables a
+# slice ("mid": embed's 2,048 rows about V / 2, where its ZeRO-1 rows
+# split between the two data ranks).
+MM_TRAIN_LEAVES = {"embed": "mid", "lm_head": (slice(None), slice(0, 2048)),
+                   "final_norm": (), "dense.0.attn.wq": (), "dense.3.ffn.w_down": ()}
+
+
+def _mm_train_leaves(leaves) -> dict:
+    """Copies on the host (training goes on in place)."""
+    import torch
+
+    def at(x, sl):
+        if sl == "mid":
+            sl = (slice(max(0, x.shape[0] // 2 - 1024), x.shape[0] // 2 + 1024),)
+        return x[sl]
+
+    return {n: at(leaves[n], sl).detach().to("cpu", torch.float32, copy=True)
+            for n, sl in MM_TRAIN_LEAVES.items() if n in leaves}
+
+
+def mm_plan_reduced() -> dict:
+    """The model mesh phase at the reduced configs, for a CPU rehearsal."""
+    return dict(
+        full=False,
+        decode=dict(MM_PLAN["decode"], batch=4, cache=64, pos=32),
+        mla=dict(MM_PLAN["mla"], cut={}, batch=4, cache=64, pos=32, chunk=16),
+        train=dict(MM_PLAN["train"], cut={}, batch=4, seq=64, after_batch=4),
+        gnn=dict(MM_PLAN["gnn"]),
+        towers=dict(MM_PLAN["towers"], train={"bst": 64, "mind": 64, "autoint": 64,
+                                              "bert4rec": 32}),
+        pod=dict(MM_PLAN["pod"], n=1024))
+
+
+def _mm_cfg(plan, case: str, f32: bool = False):
+    """The case's arch and config; with ``f32`` its float32 shallow cut."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import ARCHS
+
+    p = plan[case]
+    arch = ARCHS[p["arch"]]
+    cfg = dataclasses.replace(arch.model_config(not plan["full"]), **p["cut"])
+    if f32:
+        cfg = dataclasses.replace(cfg, **p["f32"], dtype=torch.float32)
+    if case == "mla" and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return arch, cfg
+
+
+def _mm_tokens(cfg, rows: int, cols: int, salt: int):
+    import numpy as np
+
+    return np.random.default_rng(MM_SEED + salt).integers(
+        0, cfg.vocab, size=(rows, cols)).astype(np.int32)
+
+
+_MM_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm", "ln_h", "ln_e")
+
+
+def _mm_rows(name: str, shape, dtype, lo: int, hi: int, dev):
+    """Rows [lo, hi) of leaf ``name``, drawn in fixed chunks of its leading
+    dim, each from a generator of its own: any rank draws the rows it keeps
+    and nothing more. N(0, 1 / shape[-2]) for a matrix (``dense_init``'s
+    scale), ones for a norm, zeros for a bias."""
+    import zlib
+
+    import torch
+
+    leaf = name.split(".")[-1]
+    if len(shape) == 1 and (leaf in _MM_NORMS or leaf.startswith("b")):
+        fill = 1.0 if leaf in _MM_NORMS else 0.0
+        return torch.full((hi - lo,), fill, dtype=dtype, device=dev)
+    row = 1
+    for d in shape[1:]:
+        row *= d
+    per = max(1, (1 << 26) // max(row, 1))  # 64 Mi values a chunk
+    std = 1.0 / (shape[-2] if len(shape) > 1 else shape[0]) ** 0.5
+    out = torch.empty((hi - lo, *shape[1:]), dtype=dtype, device=dev)
+    for k in range(lo // per, (hi + per - 1) // per):
+        a, b = k * per, min((k + 1) * per, shape[0])
+        g = torch.Generator(device=dev).manual_seed(
+            (MM_SEED * 1_000_003 + zlib.crc32(name.encode()) * 4099 + k) % (1 << 62))
+        x = torch.randn((b - a, *shape[1:]), generator=g, device=dev)
+        x.mul_(std)
+        s0, s1 = max(a, lo), min(b, hi)
+        out[s0 - lo:s1 - lo] = x[s0 - a:s1 - a].to(dtype)
+        del x
+    return out
+
+
+def mm_init(arch, cfg, dev, specs=None, mesh=None):
+    """The seed's parameters of ``arch`` at ``cfg``, leaf by leaf on
+    ``dev``: whole, or with ``specs`` and ``mesh`` this rank's blocks only
+    (a rank draws the leading-dim rows of its block and slices the rest)."""
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.models.layers import param_leaves
+
+    params = arch.param_shapes(cfg)
+    for name, meta in param_leaves(params).items():
+        lo, hi = 0, meta.shape[0] if meta.ndim else 1
+        spec = ms.spec_at(specs, name.split(".")) if specs is not None else ms.P()
+        lead = tuple(spec)[0] if len(tuple(spec)) else None
+        if lead is not None and meta.ndim:
+            idx, n = ms.mesh_coord(mesh, lead)
+            lo, hi = idx * meta.shape[0] // n, (idx + 1) * meta.shape[0] // n
+        x = _mm_rows(name, tuple(meta.shape), meta.dtype, lo, hi, dev) if meta.ndim else \
+            _mm_rows(name, (1,), meta.dtype, 0, 1, dev).reshape(())
+        if specs is not None and len(tuple(spec)) > 1:
+            x = ms.place(x, ms.P(None, *tuple(spec)[1:]), mesh, dev)
+        *mods, leaf = name.split(".")
+        owner = params
+        for m_ in mods:
+            owner = owner._modules[m_]
+        import torch
+
+        owner._parameters[leaf] = torch.nn.Parameter(x, requires_grad=False)
+    return params
+
+
+def _mm_cache(cfg, batch: int, length: int, rows, chunks, n_chunks: int, dev) -> dict:
+    """A random cache from seed: layer l's slots of chunk j of ``n_chunks``
+    drawn from a generator of their own, so that a rank holding chunk j of
+    rows ``rows`` holds the one-card cache's values there."""
+    import torch
+    from repro_torch.models import transformer
+
+    shapes = transformer.init_cache(cfg, batch, length, device="meta")
+    sc = length // n_chunks
+    out = {}
+    for si, (seg, leaves) in enumerate(shapes.items()):
+        out[seg] = {}
+        for li, (leaf, meta) in enumerate(leaves.items()):
+            L, _, _, *tail = meta.shape
+            buf = torch.empty((L, len(rows), sc * len(chunks), *tail), dtype=meta.dtype,
+                              device=dev)
+            for layer in range(L):
+                for k, j in enumerate(chunks):
+                    g = torch.Generator(device=dev).manual_seed(
+                        MM_SEED * 100003 + ((si * 8 + li) * 1024 + layer) * 64 + j)
+                    x = torch.randn((batch, sc, *tail), generator=g, device=dev)
+                    buf[layer, :, k * sc:(k + 1) * sc] = x[rows].to(meta.dtype)
+            out[seg][leaf] = buf
+    return out
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def _mm_peak(dev) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _mm_reset(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _mm_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _TopiLog:
+    """While open, every MoE call of the LM records the top-k experts of
+    its tokens and the gap between the k-th and the (k+1)-th router
+    probability (measurement only: one more routing product a call)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe, transformer
+        from repro_torch.models.layers import dot_f32
+
+        self._orig = {n: getattr(transformer, n) for n in ("moe_ffn", "moe_ffn_decode_ep_all")}
+
+        def wrap(fn):
+            def logged(params, x2d, cfg, *a, **kw):
+                probs = torch.softmax(dot_f32(x2d, params["router"]), dim=-1)
+                top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+                self.calls.append(dict(topi=moe._route(params["router"], x2d, cfg)[1].cpu(),
+                                       gap=((top[:, -2] - top[:, -1]) / top[:, -2]).cpu()))
+                return fn(params, x2d, cfg, *a, **kw)
+            return logged
+
+        for n, f in self._orig.items():
+            setattr(transformer, n, wrap(f))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        for n, f in self._orig.items():
+            setattr(transformer, n, f)
+
+
+def _mm_topi_compare(got_calls, want_calls) -> dict:
+    """Tokens whose top-k experts differ, and whether each lies within
+    ``MM_TOL["topi_gap"]`` of a tie on the one-card path."""
+    import torch
+
+    diff = near = total = 0
+    for g, w in zip(got_calls, want_calls):
+        bad = (torch.sort(g["topi"], -1).values != torch.sort(w["topi"], -1).values).any(-1)
+        diff += int(bad.sum())
+        near += int((bad & (w["gap"] <= MM_TOL["topi_gap"])).sum())
+        total += int(bad.numel())
+    return dict(tokens=total, differ=diff, differ_near_tie=near,
+                calls=(len(got_calls), len(want_calls)))
+
+
+# ---- the one-card comparators (the parent, before each group)
+
+
+def mm_ref_decode(dev, plan, case: str) -> dict:
+    """The one-card comparators of a decode case, over the seeded cache:
+    the same variant's step on a one-process mesh (``LocalMesh``: the
+    split-KV algorithm on the card, no sharding), and the batch decode
+    (another algorithm: its attention weights are rounded to bfloat16
+    before the weighted sum, the split path's are not). For ``mla`` also
+    the baseline prefill chunk, on a ``LocalMesh`` and plain."""
+    from repro_torch.distributed.sharding import LocalMesh, ShardCtx
+
+    p = plan[case]
+    arch, cfg = _mm_cfg(plan, case)
+    _mm_reset(dev)
+    params = mm_init(arch, cfg, dev)
+    n = p["mesh"][1]
+    cache = _mm_cache(cfg, p["batch"], p["cache"], list(range(p["batch"])), list(range(n)),
+                      n, dev)
+    span = slice(p["pos"], p["pos"] + p["steps"])
+    kept = {s: {k: v[:, :, span].clone() for k, v in leaves.items()}
+            for s, leaves in cache.items()}
+    local = ShardCtx(LocalMesh())
+    res = {}
+    for label, ctx, variant in (("same", local, "split_kv"), ("batch", None, "baseline")):
+        decode, _ = arch.build_step(cfg, "decode_32k", ctx, variant=variant)
+        row = dict(logits=[], ms=[])
+        with _TopiLog() as topi:
+            for i in range(p["steps"]):
+                batch = dict(tokens=_mm_tokens(cfg, p["batch"], 1, 10 + i), cache=cache,
+                             pos=p["pos"] + i)
+                t0 = time.perf_counter()
+                logits, cache = decode(params, batch)
+                _mm_sync(dev)
+                row["ms"].append((time.perf_counter() - t0) * 1e3)
+                row["logits"].append(logits.float().cpu())
+        row["topi"] = topi.calls
+        res[label] = row
+        for s, leaves in kept.items():  # the slots the steps wrote, as they were
+            for k, v in leaves.items():
+                cache[s][k][:, :, span] = v
+    if case == "mla":
+        toks = _mm_tokens(cfg, p["batch"], p["chunk"], 20)
+        for label, ctx in (("same", local), ("batch", None)):
+            prefill, _ = arch.build_step(cfg, "prefill_32k", ctx)
+            with _TopiLog() as topi:
+                t0 = time.perf_counter()
+                logits, _ = prefill(params, {"tokens": toks})
+                _mm_sync(dev)
+            res[label]["prefill"] = dict(logits=logits.float().cpu(), topi=topi.calls,
+                                         ms=(time.perf_counter() - t0) * 1e3)
+    res["peak"] = _mm_peak(dev)
+    del params, cache
+    res["f32"] = mm_ref_f32(dev, plan, case)
+    return res
+
+
+def mm_ref_f32(dev, plan, case: str):
+    """The float32 shallow cut's split-KV step on a one-process mesh, over
+    the seeded cache: its logits on the host. Only the sharding separates
+    the mesh's step from it, and in float32 that is the order of sums."""
+    from repro_torch.distributed.sharding import LocalMesh, ShardCtx
+
+    p = plan[case]
+    arch, cfg = _mm_cfg(plan, case, f32=True)
+    _mm_reset(dev)
+    params = mm_init(arch, cfg, dev)
+    n = p["mesh"][1]
+    cache = _mm_cache(cfg, p["batch"], p["cache"], list(range(p["batch"])), list(range(n)),
+                      n, dev)
+    decode, _ = arch.build_step(cfg, "decode_32k", ShardCtx(LocalMesh()), variant="split_kv")
+    logits, _ = decode(params, dict(tokens=_mm_tokens(cfg, p["batch"], 1, 10), cache=cache,
+                                    pos=p["pos"]))
+    out = logits.float().cpu()
+    del params, cache, logits
+    _mm_reset(dev)
+    return out
+
+
+def mm_ref_train(dev, plan) -> dict:
+    """The one-card train step on the same global batches, four steps (the
+    fourth the uninterrupted run's step after the save), the compared
+    leaves at the start too; then the same steps with a planted fault:
+    data rank 1 of the mesh never updating its ZeRO-1 part."""
+    import torch
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    p = plan["train"]
+    arch, cfg = _mm_cfg(plan, "train")
+    _mm_reset(dev)
+    params = mm_init(arch, cfg, dev)
+    state = init_opt_state(params, AdamWConfig(moment_dtype=arch.moment_dtype(cfg)))
+    step, _ = arch.build_step(cfg, "train_4k")
+    res = dict(loss=[], ms=[], leaves={0: _mm_train_leaves(param_leaves(params))})
+    for i in range(p["steps"] + 1):
+        rows = p["batch"] if i < p["steps"] else p["after_batch"]
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": _mm_tokens(cfg, rows, p["seq"],
+                                                                     30 + i)})
+        _mm_sync(dev)
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["loss"].append(float(m["loss"]))
+        if i >= p["steps"] - 1:
+            res["leaves"][i + 1] = _mm_train_leaves(param_leaves(params))
+    res["peak"] = _mm_peak(dev)
+    del params, state
+    _mm_reset(dev)
+    parts = _mm_zero1_part(arch, cfg, p["mesh"], 1)
+    params = mm_init(arch, cfg, dev)
+    state = init_opt_state(params, AdamWConfig(moment_dtype=arch.moment_dtype(cfg)))
+    fault = dict(loss=[])
+    for i in range(p["steps"]):
+        leaves = param_leaves(params)
+        kept = {n: leaves[n][sl].clone() for n, sl in parts.items()}
+        params, state, m = step(params, state, {"tokens": _mm_tokens(cfg, p["batch"], p["seq"],
+                                                                     30 + i)})
+        with torch.no_grad():
+            for n, sl in parts.items():
+                leaves[n][sl] = kept[n]
+        fault["loss"].append(float(m["loss"]))
+        del kept
+    fault["leaves"] = _mm_train_leaves(param_leaves(params))
+    res["fault"] = fault
+    del params, state
+    _mm_reset(dev)
+    return res
+
+
+def _mm_zero1_part(arch, cfg, mesh_shape, data_rank: int) -> dict:
+    """{parameter name: index} of the part that ``data_rank`` updates under
+    ZeRO-1 on a (data, model) mesh of ``mesh_shape``, by the reference's
+    ``zero1_state_specs``: a slice of the dim it shards over ``data``, or a
+    stacked segment's whole layer."""
+    from repro_torch.distributed.sharding import spec_at
+    from repro_torch.models.layers import _ref_key, param_leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train import trainer
+
+    shapes = arch.param_shapes(cfg)
+    nd = mesh_shape[0]
+    o = trainer.zero1_state_specs(arch.param_pspecs(cfg, None), shapes,
+                                  init_opt_state(shapes, AdamWConfig()), nd, ("data",),
+                                  dict(zip(("data", "model"), mesh_shape)))
+    out = {}
+    for name, meta in param_leaves(shapes).items():
+        path, layer = _ref_key(name, shapes.stacked)
+        spec = tuple(spec_at(o["m"], path))
+        j = next((i for i, e in enumerate(spec) if e == "data"), None)
+        if j is None:
+            continue
+        if layer is not None:
+            if j == 0:
+                if layer // (len(shapes[path[0]]) // nd) == data_rank:
+                    out[name] = (slice(None),)
+                continue
+            j -= 1
+        w = meta.shape[j] // nd
+        out[name] = (*(slice(None),) * j, slice(data_rank * w, (data_rank + 1) * w))
+    return out
+
+
+def mm_ref_gnn(dev, plan, graph) -> dict:
+    """GraphSAGE's one-card baseline step on the published graph,
+    and the sharded variant's inputs written for the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    p = plan["gnn"]
+    arch = ARCHS["graphsage-reddit"]
+    cfg = arch.model_config(not plan["full"])
+    rcfg = arch._resolved(cfg, p["shape"])
+    _mm_reset(dev)
+    params = arch.init_params(MM_SEED, rcfg, device=dev)
+    state = init_opt_state(params, AdamWConfig())
+    step, _ = arch.build_step(cfg, p["shape"])
+    batch = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in graph.items()}
+    res = dict(loss=[], ms=[])
+    for _ in range(p["steps"]):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        _mm_sync(dev)
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["loss"].append(float(m["loss"]))
+    res["params"] = {n: t.float().cpu() for n, t in params.named_parameters()}
+    res["peak"] = _mm_peak(dev)
+    del params, state
+    spec = arch.input_specs(cfg, p["shape"], "sharded")
+    t0 = time.perf_counter()
+    sharded = gnn.shard_graph(batch["feats"], batch["edges"], batch["labels"],
+                              p["mesh"][0], spec["feats"].shape[0], spec["edges"].shape[0],
+                              dev)
+    del batch
+    paths = {}
+    for k, v in sharded.items():
+        paths[k] = str(MESH_DIR / f"gnn_{k}.npy")
+        np.save(paths[k], v.cpu().numpy())
+    res["shard_s"] = time.perf_counter() - t0
+    res["paths"] = paths
+    del sharded
+    _mm_reset(dev)
+    return res
+
+
+def mm_ref_towers(dev, plan) -> dict:
+    """Each tower's one-card serve scores and training loss."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import recsys
+
+    p = plan["towers"]
+    res = {}
+    for name, rows in p["train"].items():
+        arch = ARCHS[name]
+        cfg = arch.model_config(not plan["full"])
+        _mm_reset(dev)
+        params = mm_init(arch, cfg, dev)
+        serve, _ = arch.build_step(cfg, p["serve"])
+        sb = arch.make_batch(cfg, p["serve"], seed=MM_SEED)
+        tb = {k: v[:rows] for k, v in arch.make_batch(cfg, "train_batch",
+                                                      seed=MM_SEED).items()}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            scores = serve(params, sb)
+            _mm_sync(dev)
+            serve_ms = (time.perf_counter() - t0) * 1e3
+            loss = float(recsys.rec_train_loss(params, tb, cfg))
+        res[name] = dict(scores=scores.float().cpu(), loss=loss, serve_ms=serve_ms,
+                         rows=rows, peak=_mm_peak(dev))
+        del params, scores
+    _mm_reset(dev)
+    return res
+
+
+def mm_ref_pod(dev, plan) -> dict:
+    """The mean of the two pods' float32 gradients of a linear model."""
+    import torch
+
+    p = plan["pod"]
+    w, batch = _mm_pod_inputs(p, dev)
+
+    def grad(rows):
+        wg = w.clone().requires_grad_(True)
+        loss = torch.mean((rows @ wg - 1.0) ** 2)
+        return torch.autograd.grad(loss, wg)[0]
+
+    half = p["rows"] // 2
+    return dict(mean=((grad(batch[:half]) + grad(batch[half:])) / 2).cpu())
+
+
+def _mm_pod_inputs(p, dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(MM_SEED)
+    return (torch.randn(p["n"], generator=g, device=dev) / p["n"] ** 0.5,
+            torch.randn((p["rows"], p["n"]), generator=g, device=dev))
+
+
+# ---- the ranks
+
+
+def _mm_log(rt, msg: str) -> None:
+    if rt.rank == 0:
+        log(f"mesh_model {msg}")
+
+
+def _mm_gloo_rate(rt, mb: int = 256) -> dict:
+    """GB/s of one host-staged gloo all_reduce of ``mb`` MB of bfloat16 on
+    the group (what a large collective costs ranks that share a card)."""
+    import torch
+    from repro_torch.distributed import sharding as ms
+
+    mesh = ms.make_mesh((rt.world,), ("all",))
+    x = torch.ones(mb * 2**19, dtype=torch.bfloat16, device=rt.device)
+    with ms.bound(mesh):
+        ms.psum(x[:1024], "all")
+        _mm_sync(rt.device)
+        t0 = time.perf_counter()
+        ms.psum(x, "all")
+        _mm_sync(rt.device)
+        s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ms.all_gather(x[: x.numel() // rt.world], "all")
+        _mm_sync(rt.device)
+        g = time.perf_counter() - t0
+    return dict(mb=mb, s=s, gb_per_s=mb * 2**20 / s / 1e9, all_gather_s=g)
+
+
+class _CommTimer:
+    """While open, the host seconds and bytes of this rank's mesh
+    collectives (``sharding``'s all_reduce, all_gather and root gather),
+    each timed from its call to its return (host staging included)."""
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding as ms
+
+        self.s, self.bytes, self.calls, self.kinds = 0.0, 0, 0, {}
+        self._orig = {n: getattr(ms, n) for n in ("_all_reduce", "all_gather")}
+
+        def wrap(fn, kind):
+            def timed(x, *a, **kw):
+                t0 = time.perf_counter()
+                out = fn(x, *a, **kw)
+                s = time.perf_counter() - t0
+                b = x.numel() * x.element_size()
+                self.s, self.bytes, self.calls = self.s + s, self.bytes + b, self.calls + 1
+                k = self.kinds.setdefault(kind, [0, 0.0, 0])
+                k[0], k[1], k[2] = k[0] + 1, k[1] + s, k[2] + b
+                return out
+            return timed
+
+        for n, f in self._orig.items():
+            setattr(ms, n, wrap(f, n.strip("_")))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding as ms
+
+        for n, f in self._orig.items():
+            setattr(ms, n, f)
+
+    def row(self) -> dict:
+        return dict(comm_s=self.s, comm_bytes=self.bytes, comm_calls=self.calls,
+                    comm_by_kind=self.kinds)
+
+
+def _mm_ranks(rt, fn) -> list:
+    """``fn()`` on every rank; every rank's result, in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * rt.world
+    dist.all_gather_object(out, fn(), group=rt.control)
+    return out
+
+
+def _mm_params(rt, arch, cfg, specs, mesh):
+    """This rank's blocks of the seed's parameters (``mm_init``)."""
+    return mm_init(arch, cfg, rt.device, specs, mesh)
+
+
+def _mm_bytes(tree) -> int:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_mm_bytes(v) for v in tree.values())
+    return sum(p.numel() * p.element_size() for p in tree.parameters())
+
+
+def _mm_decode_rank(rt, plan, case: str) -> dict:
+    from repro_torch.distributed import sharding as ms
+
+    p = plan[case]
+    arch, cfg = _mm_cfg(plan, case)
+    mesh = ms.make_mesh(p["mesh"], ("data", "model"))
+    ctx = ms.ShardCtx(mesh)
+    dr, nd = ms.mesh_coord(mesh, "data")
+    m, nm = ms.mesh_coord(mesh, "model")
+    _mm_reset(rt.device)
+    t0 = time.perf_counter()
+    specs = arch.param_pspecs(cfg, None, variant="split_kv", ctx=ctx)
+    params = _mm_params(rt, arch, cfg, specs, mesh)
+    bl = p["batch"] // nd
+    cache = _mm_cache(cfg, p["batch"], p["cache"], list(range(dr * bl, (dr + 1) * bl)), [m],
+                      nm, rt.device)
+    load_s = time.perf_counter() - t0
+    decode, _ = arch.build_step(cfg, "decode_32k", ctx, variant="split_kv")
+    res = dict(logits=[], ms=[], param_bytes=_mm_bytes(params), cache_bytes=_mm_bytes(cache),
+               load_s=load_s)
+    with _TopiLog() as topi:
+        for i in range(p["steps"]):
+            toks = ms.place(_mm_tokens(cfg, p["batch"], 1, 10 + i), ms.P("data", None), mesh)
+            t0 = time.perf_counter()
+            logits, cache = decode(params, dict(tokens=toks, cache=cache, pos=p["pos"] + i))
+            _mm_sync(rt.device)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["logits"].append(ms.gather(logits.float(), decode.out_specs[0], mesh, root=0))
+    res["topi"] = topi.calls
+    if case == "mla":
+        # A planted fault: the experts of rank 1 dropped (its block of the
+        # routed experts' w_down zeroed), step 1 again.
+        if rt.rank == 1:
+            for n, w in params.named_parameters():
+                if n.endswith("moe.w_down"):
+                    w.data.zero_()
+        toks = ms.place(_mm_tokens(cfg, p["batch"], 1, 10), ms.P("data", None), mesh)
+        logits, cache = decode(params, dict(tokens=toks, cache=cache, pos=p["pos"]))
+        res["experts_dropped"] = ms.gather(logits.float(), decode.out_specs[0], mesh, root=0)
+    del params, cache
+    res["f32"] = _mm_f32_rank(rt, plan, case, mesh, ctx)
+    if case == "mla":
+        _mm_reset(rt.device)
+        specs = arch.param_pspecs(cfg, None, variant="baseline", ctx=ctx)
+        params = _mm_params(rt, arch, cfg, specs, mesh)
+        prefill, _ = arch.build_step(cfg, "prefill_32k", ctx)
+        toks = ms.place(_mm_tokens(cfg, p["batch"], p["chunk"], 20), ms.P("data", None), mesh)
+        with _TopiLog() as topi:
+            t0 = time.perf_counter()
+            logits, _ = prefill(params, {"tokens": toks})
+            _mm_sync(rt.device)
+        res["prefill"] = dict(logits=ms.gather(logits.float(), prefill.out_specs[0], mesh,
+                                               root=0),
+                              topi=topi.calls, ms=(time.perf_counter() - t0) * 1e3,
+                              param_bytes=_mm_bytes(params))
+        del params
+    res["peak"] = _mm_peak(rt.device)
+    _mm_reset(rt.device)
+    return res
+
+
+def _mm_f32_rank(rt, plan, case: str, mesh, ctx) -> dict:
+    """The float32 shallow cut's split-KV step on the mesh (rank 0 gets the
+    logits): sound, then with a planted fault, model rank 0 holding the
+    slots of the next rank's chunk in place of its own (a KV slice in the
+    wrong place; rank 0's slots all lie before the step's position)."""
+    from repro_torch.distributed import sharding as ms
+
+    p = plan[case]
+    arch, cfg = _mm_cfg(plan, case, f32=True)
+    dr, nd = ms.mesh_coord(mesh, "data")
+    m, nm = ms.mesh_coord(mesh, "model")
+    _mm_reset(rt.device)
+    specs = arch.param_pspecs(cfg, None, variant="split_kv", ctx=ctx)
+    params = _mm_params(rt, arch, cfg, specs, mesh)
+    decode, _ = arch.build_step(cfg, "decode_32k", ctx, variant="split_kv")
+    bl = p["batch"] // nd
+    out = {}
+    for label, chunk in (("sound", m), ("fault", (m + 1) % nm if m == 0 else m)):
+        cache = _mm_cache(cfg, p["batch"], p["cache"], list(range(dr * bl, (dr + 1) * bl)),
+                          [chunk], nm, rt.device)
+        toks = ms.place(_mm_tokens(cfg, p["batch"], 1, 10), ms.P("data", None), mesh)
+        logits, cache = decode(params, dict(tokens=toks, cache=cache, pos=p["pos"]))
+        out[label] = ms.gather(logits.float(), decode.out_specs[0], mesh, root=0)
+        del cache, logits
+    del params
+    _mm_reset(rt.device)
+    return out
+
+
+def _mm_train_rank(rt, plan) -> dict:
+    """Three ZeRO-1 steps on the 2 x 2 mesh, the state saved (gathered on
+    rank 0), restored with ``shardings`` onto 4 x 1, one more step."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.models.layers import param_leaves, params_from_tree
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train import trainer
+    from repro_torch.train.checkpoint import Checkpointer
+
+    p = plan["train"]
+    arch, cfg = _mm_cfg(plan, "train")
+    opt = AdamWConfig(moment_dtype=arch.moment_dtype(cfg))
+    mesh = ms.make_mesh(p["mesh"], ("data", "model"))
+    ctx = ms.ShardCtx(mesh)
+    specs = arch.param_pspecs(cfg, None)
+    _mm_reset(rt.device)
+    params = _mm_params(rt, arch, cfg, specs, mesh)
+    state = trainer.init_zero1_state(params, opt, specs, ctx)
+    res = dict(loss=[], ms=[], param_bytes=_mm_bytes(params),
+               moment_bytes=_mm_bytes(state["m"]) + _mm_bytes(state["v"]))
+    step, _ = arch.build_step(cfg, "train_4k", ctx)
+    bspec = arch.batch_pspecs(cfg, "train_4k", ctx)
+    for i in range(p["steps"]):
+        batch = ms.place_tree({"tokens": _mm_tokens(cfg, p["batch"], p["seq"], 30 + i)}, bspec,
+                              mesh)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        _mm_sync(rt.device)
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["loss"].append(float(m["loss"]))
+        _mm_log(rt, f"train step {i + 1}: {res['ms'][-1]:.0f} ms")
+    res["peak"] = _mm_peak(rt.device)
+    # Save: the state gathered on rank 0's host, leaf by leaf.
+    t0 = time.perf_counter()
+    gp = ms.gather_tree(params, specs, mesh, root=0)
+    go = trainer.gather_opt_state(state, params, specs, ctx, opt.moment_dtype, root=0)
+    directory = MESH_DIR / "train_ckpt"
+    ck = Checkpointer(str(directory))
+    saved = None
+    if rt.rank == 0:
+        res["leaves"] = {p["steps"]: _mm_train_leaves(param_leaves(gp))}
+        saved = {"params": arch.params_to_numpy(gp), "opt_state": arch.opt_state_to_numpy(go)}
+        need = sum(a.nbytes for a in _mm_leaves(saved))
+        check(shutil.disk_usage(MESH_DIR).free > 1.1 * need,
+              f"mesh_model train: {need} B of state, {shutil.disk_usage(MESH_DIR).free} B "
+              "free on disk")
+        ck.save(saved, step=p["steps"], blocking=True)
+        res["state_bytes"] = need
+    del gp, go, params, state
+    _mm_reset(rt.device)
+    dist.barrier(group=rt.control)
+    res["save_s"] = time.perf_counter() - t0
+    _mm_log(rt, f"train save {res['save_s']:.1f} s")
+    # Restore onto 4 x 1 and take the fourth step there.
+    t0 = time.perf_counter()
+    mesh4 = ms.make_mesh(p["restore_mesh"], ("data", "model"))
+    ctx4 = ms.ShardCtx(mesh4)
+    shapes = arch.param_shapes(cfg)
+    o_specs = trainer.zero1_state_specs(specs, shapes, init_opt_state(shapes, opt),
+                                        ctx4.n_data, ctx4.data_axes,
+                                        dict(zip(mesh4.mesh_dim_names, p["restore_mesh"])))
+    named = _mm_named(ms, {"params": specs, "opt_state": o_specs}, mesh4)
+    tree = ck.restore(p["steps"], shardings=named)
+    params = params_from_tree(tree["params"], rt.device, stacked=arch.stacked)
+    state = trainer.opt_state_from_tree(tree["opt_state"], arch.stacked, rt.device,
+                                        specs=o_specs, mesh=mesh4)
+    del tree
+    res["restore_s"] = time.perf_counter() - t0
+    _mm_log(rt, f"train restore {res['restore_s']:.1f} s")
+    back = ms.gather_tree(params, specs, mesh4, root=0)
+    if rt.rank == 0:
+        want = _mm_leaves(saved["params"])
+        got = _mm_leaves(arch.params_to_numpy(back))
+        res["restore_exact"] = len(got) == len(want) and all(
+            a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(got, want))
+    del back, saved
+    step4, _ = arch.build_step(cfg, "train_4k", ctx4)
+    batch = ms.place_tree({"tokens": _mm_tokens(cfg, p["after_batch"], p["seq"],
+                                                30 + p["steps"])},
+                          arch.batch_pspecs(cfg, "train_4k", ctx4), mesh4)
+    t0 = time.perf_counter()
+    params, state, m = step4(params, state, batch)
+    _mm_sync(rt.device)
+    res["after"] = dict(loss=float(m["loss"]), ms=(time.perf_counter() - t0) * 1e3,
+                        param_bytes=_mm_bytes(params),
+                        moment_bytes=_mm_bytes(state["m"]) + _mm_bytes(state["v"]))
+    leaves = ms.gather_tree(params, specs, mesh4, root=0)
+    if leaves is not None:
+        res["leaves"][p["steps"] + 1] = _mm_train_leaves(param_leaves(leaves))
+    del params, state, leaves
+    res["peak"] = max(res["peak"], _mm_peak(rt.device))
+    _mm_reset(rt.device)
+    if rt.rank == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    return res
+
+
+def _mm_named(ms, specs, mesh):
+    if isinstance(specs, ms.P):
+        return ms.NamedSharding(mesh, specs)
+    if isinstance(specs, dict):
+        return {k: _mm_named(ms, v, mesh) for k, v in specs.items()}
+    return [_mm_named(ms, v, mesh) for v in specs]
+
+
+def _mm_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _mm_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [a for v in tree for a in _mm_leaves(v)]
+    return [tree]
+
+
+def _mm_gnn_rank(rt, plan, paths) -> dict:
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer
+
+    p = plan["gnn"]
+    arch = ARCHS["graphsage-reddit"]
+    cfg = arch.model_config(not plan["full"])
+    rcfg = arch._resolved(cfg, p["shape"])
+    mesh = ms.make_mesh(p["mesh"], ("data", "model"))
+    ctx = ms.ShardCtx(mesh)
+    specs = arch.param_pspecs(rcfg, None)
+    _mm_reset(rt.device)
+    t0 = time.perf_counter()
+    params = ms.place_tree(arch.init_params(MM_SEED, rcfg, device=rt.device), specs, mesh)
+    state = trainer.init_zero1_state(params, AdamWConfig(), specs, ctx)
+    bspec = arch.batch_pspecs(cfg, p["shape"], ctx, "sharded")
+    batch = {k: ms.place(np.load(path, mmap_mode="r"), bspec[k], mesh)
+             for k, path in paths.items()}
+    res = dict(loss=[], ms=[], load_s=time.perf_counter() - t0,
+               nodes=int(batch["feats"].shape[0]),
+               edges=int((batch["edges"][:, 0] >= 0).sum()))
+    step, _ = arch.build_step(cfg, p["shape"], ctx, variant="sharded")
+    for _ in range(p["steps"]):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        _mm_sync(rt.device)
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["loss"].append(float(m["loss"]))
+        _mm_log(rt, f"gnn step: {res['ms'][-1]:.0f} ms (load {res['load_s']:.1f} s)")
+    res["params"] = {n: t.float().cpu() for n, t in params.named_parameters()}
+    res["peak"] = _mm_peak(rt.device)
+    del params, state, batch
+    _mm_reset(rt.device)
+    return res
+
+
+def _mm_towers_rank(rt, plan) -> dict:
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.models import recsys
+
+    p = plan["towers"]
+    mesh = ms.make_mesh(p["mesh"], ("data", "model"))
+    ctx = ms.ShardCtx(mesh)
+    res = {}
+    for name, rows in p["train"].items():
+        arch = ARCHS[name]
+        cfg = arch.model_config(not plan["full"])
+        _mm_reset(rt.device)
+        specs = arch.param_pspecs(cfg, arch.param_shapes(cfg))
+        params = _mm_params(rt, arch, cfg, specs, mesh)
+        serve, _ = arch.build_step(cfg, p["serve"], ctx)
+        sb = ms.place_tree(arch.make_batch(cfg, p["serve"], seed=MM_SEED),
+                           arch.batch_pspecs(cfg, p["serve"], ctx), mesh)
+        tb = ms.place_tree({k: v[:rows] for k, v in arch.make_batch(
+            cfg, "train_batch", seed=MM_SEED).items()},
+            arch.batch_pspecs(cfg, "train_batch", ctx), mesh)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            scores = serve(params, sb)
+            _mm_sync(rt.device)
+            serve_ms = (time.perf_counter() - t0) * 1e3
+            loss = float(recsys.rec_train_loss(params, tb, cfg, ctx))
+        res[name] = dict(scores=ms.gather(scores.float(), serve.out_specs, mesh, root=0),
+                         loss=loss, serve_ms=serve_ms, param_bytes=_mm_bytes(params),
+                         peak=_mm_peak(rt.device))
+        del params, scores
+    _mm_reset(rt.device)
+    return res
+
+
+def _mm_pod_rank(rt, plan) -> dict:
+    import torch
+    from repro_torch.distributed import sharding as ms
+    from repro_torch.optim.compression import compress_psum_pod
+
+    p = plan["pod"]
+    mesh = ms.make_mesh(p["mesh"], ("pod", "data"))
+    w, batch = _mm_pod_inputs(p, rt.device)
+
+    def grad_fn(rows):
+        with torch.enable_grad():
+            wg = w.clone().requires_grad_(True)
+            return {"w": torch.autograd.grad(torch.mean((rows @ wg - 1.0) ** 2), wg)[0]}
+
+    err = {"w": torch.zeros((p["mesh"][0], p["n"]), device=rt.device)}
+    t0 = time.perf_counter()
+    grads, new_err = compress_psum_pod(grad_fn, mesh)(batch, err)
+    _mm_sync(rt.device)
+    return dict(grads=grads["w"].cpu(), err_shape=tuple(new_err["w"].shape),
+                err_max=float(new_err["w"].abs().max()), ms=(time.perf_counter() - t0) * 1e3)
+
+
+def mesh_case_model1(rt, job, out) -> list:
+    """(a) split-KV decode on 1 x 4, (c) the sharded train step and the
+    elastic restore, (d) sharded GraphSAGE on 4 x 1, (e) the towers on
+    1 x 4, in turn on one group of four ranks."""
+    plan = job["plan"]
+    walls = {}
+    out["gloo"] = _mm_gloo_rate(rt)
+    _mm_log(rt, f"gloo all_reduce of {out['gloo']['mb']} MB bfloat16 over {rt.world} ranks "
+                f"on one card: {out['gloo']['s']:.2f} s = {out['gloo']['gb_per_s']:.2f} GB/s; "
+                f"all_gather of {out['gloo']['mb'] // rt.world} MB a rank: "
+                f"{out['gloo']['all_gather_s']:.2f} s")
+    for key, fn in (("decode", lambda: _mm_decode_rank(rt, plan, "decode")),
+                    ("train", lambda: _mm_train_rank(rt, plan)),
+                    ("gnn", lambda: _mm_gnn_rank(rt, plan, job["gnn_paths"])),
+                    ("towers", lambda: _mm_towers_rank(rt, plan))):
+        t0 = time.perf_counter()
+        with _CommTimer() as comm:
+            res = fn()
+        res.update(comm.row())
+        out[key] = _mm_ranks(rt, lambda: res)
+        walls[key] = time.perf_counter() - t0
+        if rt.rank == 0:
+            log(f"mesh_model {key}: {walls[key]:.1f} s on the ranks, of which "
+                f"{res['comm_s']:.1f} s in {res['comm_calls']} collectives "
+                f"({res['comm_bytes'] / 1e9:.2f} GB sent by rank 0; by kind "
+                + ", ".join(f"{k} {v[0]} calls {v[1]:.1f} s {v[2] / 1e9:.2f} GB"
+                            for k, v in res["comm_by_kind"].items()) + ")")
+    out["walls"] = walls
+    return [_mm_launches()]
+
+
+def _mm_launches() -> int:
+    """Launches of the five kernels' wrappers on this rank (none of these
+    paths runs one)."""
+    from repro_torch.kernels.embedding_bag import kernel as bag
+
+    return sum(read_launches().values()) + bag.bag_reduce.launches
+
+
+def mesh_case_model2(rt, job, out) -> list:
+    """(b) deepseek-v3's split-KV decode and a prefill chunk on 2 x 2, (f)
+    the pod exchange on 2 x 2 (pod x data)."""
+    plan = job["plan"]
+    walls = {}
+    for key, fn in (("mla", lambda: _mm_decode_rank(rt, plan, "mla")),
+                    ("pod", lambda: _mm_pod_rank(rt, plan))):
+        t0 = time.perf_counter()
+        with _CommTimer() as comm:
+            res = fn()
+        res.update(comm.row())
+        out[key] = _mm_ranks(rt, lambda: res)
+        walls[key] = time.perf_counter() - t0
+        if rt.rank == 0:
+            log(f"mesh_model {key}: {walls[key]:.1f} s on the ranks, of which "
+                f"{res['comm_s']:.1f} s in {res['comm_calls']} collectives "
+                f"({res['comm_bytes'] / 1e9:.2f} GB sent by rank 0; by kind "
+                + ", ".join(f"{k} {v[0]} calls {v[1]:.1f} s {v[2] / 1e9:.2f} GB"
+                            for k, v in res["comm_by_kind"].items()) + ")")
+    out["walls"] = walls
+    return [_mm_launches()]
+
+
+MESH_CASES.update(model1=mesh_case_model1, model2=mesh_case_model2)
+
+
+def _mm_gib(b) -> str:
+    return f"{b / 2**30:.2f}"
+
+
+def mesh_model_phase(dev, pool, plan=MM_PLAN, device: str | None = None) -> dict:
+    """The model and training paths over a mesh (ROADMAP A7) on ranks that
+    share the card through host-staged gloo, so their times are not a
+    figure for a node with four cards. Each one-card comparator runs first
+    here, its results moved to the host and its memory freed; then one
+    group of four ranks runs (a), (c), (d), (e) in turn and another (b) and
+    (f). Every case is checked against its bound (``MM_TOL``); no kernel
+    runs on these paths."""
+    t_phase = time.perf_counter()
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    graph_job = pool.apply_async(build_gnn_batch_for, (str(SRC), plan["gnn"]["shape"],
+                                                       plan["full"]))
+    smi = nvidia_smi() if dev.type == "cuda" else "cpu"
+    res = dict(card=smi, plan={k: v for k, v in plan.items()})
+    t0 = time.perf_counter()
+    ref = {}
+    for key, fn in (("decode", lambda: mm_ref_decode(dev, plan, "decode")),
+                    ("train", lambda: mm_ref_train(dev, plan)),
+                    ("towers", lambda: mm_ref_towers(dev, plan))):
+        t1 = time.perf_counter()
+        ref[key] = fn()
+        log(f"mesh_model one-card {key}: {time.perf_counter() - t1:.1f} s")
+    graph = graph_job.get()
+    import numpy as np
+
+    ref["gnn"] = mm_ref_gnn(dev, plan, {k: np.load(p, mmap_mode="r")
+                                        for k, p in graph["paths"].items()})
+    ref["gnn"]["build_s"] = graph["build_s"]
+    for p in graph["paths"].values():
+        Path(p).unlink(missing_ok=True)
+    res["ref1_s"] = time.perf_counter() - t0
+    got1 = spawn_mesh("model1", MM_GROUP, dict(plan=plan, gnn_paths=ref["gnn"]["paths"]),
+                      device=device)
+    t0 = time.perf_counter()
+    ref["mla"] = mm_ref_decode(dev, plan, "mla")
+    ref["pod"] = mm_ref_pod(dev, plan)
+    res["ref2_s"] = time.perf_counter() - t0
+    got2 = spawn_mesh("model2", MM_GROUP, dict(plan=plan), device=device)
+    for path in ref["gnn"]["paths"].values():
+        Path(path).unlink(missing_ok=True)
+    res["cases"] = cases = mm_checks(plan, ref, got1, got2)
+    res["launches"] = sum(sum(r["launches"]) for g in (got1, got2) for r in g["ranks"])
+    log(f"mesh_model launches of the five kernels on its ranks: {res['launches']} (no "
+        "kernel runs on these paths)")
+    check(res["launches"] == 0, f"mesh_model: {res['launches']} kernel launches")
+    res["walls"] = dict(group1=got1["wall_s"], group2=got2["wall_s"], **got1["walls"],
+                        **got2["walls"])
+    res["wall_s"] = time.perf_counter() - t_phase
+    failed = [k for k, c in cases.items() if not c["pass"]]
+    log(f"mesh_model phase {res['wall_s']:.1f} s (comparators {res['ref1_s']:.1f} + "
+        f"{res['ref2_s']:.1f} s, groups {got1['wall_s']:.1f} + {got2['wall_s']:.1f} s); card "
+        f"{smi}; ranks share the card through host-staged gloo: no time here is a figure "
+        f"for a node with four cards")
+    check(not failed, f"mesh_model: cases {failed} failed")
+    return res
+
+
+def build_gnn_batch_for(src: str, shape: str, full: bool) -> dict:
+    """Worker: GraphSAGE's ``make_batch`` at published (or reduced) size,
+    written to ``MESH_DIR`` as ``.npy`` files (a 62M-edge graph would take
+    longer through the pool's pipe); their paths."""
+    import numpy as np
+
+    sys.path.insert(0, src)
+    from repro_torch.configs.registry import ARCHS
+
+    arch = ARCHS["graphsage-reddit"]
+    t0 = time.perf_counter()
+    batch = arch.make_batch(arch.model_config(not full), shape, seed=MM_SEED)
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for k, v in batch.items():
+        paths[k] = str(MESH_DIR / f"graph_{k}.npy")
+        np.save(paths[k], v)
+    return dict(paths=paths, build_s=time.perf_counter() - t0)
+
+
+def mm_checks(plan, ref, got1, got2) -> dict:
+    """Every case's pass, largest relative error against its bound, per-rank
+    peak memory and step times; logged, one line a case."""
+    cases = {}
+
+    def f32_check(key, got, want) -> str:
+        """The float32 shallow cut's reading and its planted fault's: the
+        sound one within ``MM_TOL["f32"]``, the fault beyond it."""
+        sound, fault = _rel_l2(got["sound"], want), _rel_l2(got["fault"], want)
+        ok = sound <= MM_TOL["f32"] < fault
+        cases[key]["f32"] = dict(sound=sound, fault=fault, bound=MM_TOL["f32"], pass_=ok)
+        cases[key]["pass"] = cases[key]["pass"] and ok
+        log(f"mesh_model {key}: float32 shallow cut {'pass' if ok else 'FAIL'}: sound "
+            f"{sound:.3g} <= {MM_TOL['f32']:g} < planted fault (a KV slice in the wrong "
+            f"place) {fault:.3g}")
+        return ok
+
+    def row(key, errs, bound, ranks, ms, extra=""):
+        worst = max(errs.values()) if errs else 0.0
+        ok = worst <= bound and all(v == v for v in errs.values())
+        peaks = [r.get("peak", 0) for r in ranks]
+        cases[key] = {"pass": ok, "errors": errs, "bound": bound, "worst": worst,
+                      "peak_bytes": peaks, "step_ms": ms}
+        log(f"mesh_model {key}: {'pass' if ok else 'FAIL'}; largest relative error "
+            f"{worst:.3g} against {bound:g} ({', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+            f"); per-rank peak {', '.join(_mm_gib(b) for b in peaks)} GiB; step wall "
+            f"{', '.join(f'{t:.1f}' for t in ms)} ms{extra}")
+        return ok
+
+    d, r = got1["decode"], ref["decode"]
+    same, base = r["same"], r["batch"]
+    errs = {f"logits step {i + 1}": _rel_l2(d[0]["logits"][i], same["logits"][i])
+            for i in range(len(same["logits"]))}
+    gap = [(_rel_l2(d[0]["logits"][i], base["logits"][i]),
+            _rel_l2(same["logits"][i], base["logits"][i])) for i in range(len(base["logits"]))]
+    key = "(a) qwen3-4b split_kv decode_32k on 1 x 4"
+    row(key, errs, MM_TOL["logits"], d, d[0]["ms"],
+        f"; against the one-card batch decode (another algorithm) "
+        f"{', '.join(f'{g:.4f}' for g, _ in gap)}, the one-card split-KV against it "
+        f"{', '.join(f'{s:.4f}' for _, s in gap)}; one card split-KV "
+        f"{', '.join(f'{t:.1f}' for t in same['ms'])}, batch "
+        f"{', '.join(f'{t:.1f}' for t in base['ms'])} ms a step; per rank "
+        f"{_mm_gib(d[0]['param_bytes'])} GiB of weights, {_mm_gib(d[0]['cache_bytes'])} GiB "
+        f"of cache; one-card peak {_mm_gib(r['peak'])} GiB")
+    cases[key]["against_batch"] = gap
+    f32_check(key, d[0]["f32"], r["f32"])
+
+    t, r = got1["train"], ref["train"]
+    key = "(c) qwen3-4b train_4k ZeRO-1 on 2 x 2, restore onto 4 x 1"
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    errs = {f"loss step {i + 1}": rel(t[0]["loss"][i], r["loss"][i])
+            for i in range(len(t[0]["loss"]))}
+    errs[f"loss step {len(t[0]['loss']) + 1} (4 x 1)"] = rel(t[0]["after"]["loss"],
+                                                             r["loss"][-1])
+    init = r["leaves"][0]
+    changes = {f"{n} change after step {s}": _mm_change_err(v, r["leaves"][s][n], init[n])
+               for s, leaves in t[0]["leaves"].items() for n, v in leaves.items()}
+    # The planted fault (data rank 1 never updating its ZeRO-1 part), on
+    # the one-card path: the readings the gates must see beyond their bounds.
+    f, s3 = r["fault"], plan["train"]["steps"]
+    fault = dict(loss=max(rel(f["loss"][i], r["loss"][i]) for i in range(len(f["loss"]))),
+                 changes={n: _mm_change_err(v, r["leaves"][s3][n], init[n])
+                          for n, v in f["leaves"].items()})
+    fault["change"] = max(fault["changes"].values())
+    ok = row(key, errs, MM_TOL["train_loss"], t, t[0]["ms"] + [t[0]["after"]["ms"]],
+             f"; one card {', '.join(f'{x:.1f}' for x in r['ms'])} ms a step; per rank "
+             f"parameters {', '.join(_mm_gib(x['param_bytes']) for x in t)} GiB, moments "
+             f"{', '.join(_mm_gib(x['moment_bytes']) for x in t)} GiB (on 4 x 1: "
+             f"{', '.join(_mm_gib(x['after']['param_bytes']) for x in t)} and "
+             f"{', '.join(_mm_gib(x['after']['moment_bytes']) for x in t)} GiB); state "
+             f"{_mm_gib(t[0].get('state_bytes', 0))} GiB saved in {t[0]['save_s']:.1f} s, "
+             f"restored in {t[0]['restore_s']:.1f} s, exact {t[0]['restore_exact']}")
+    worst = max(changes.values())
+    ok_change = worst <= MM_TOL["train_change"] and all(v == v for v in changes.values())
+    ok_power = fault["loss"] > MM_TOL["train_loss"] and fault["change"] > MM_TOL["train_change"]
+    log(f"mesh_model {key}: parameter changes since the start against the one card's "
+        f"{'pass' if ok_change else 'FAIL'}; largest {worst:.3g} against "
+        f"{MM_TOL['train_change']:g} ({', '.join(f'{k} {v:.3g}' for k, v in changes.items())}"
+        f"); planted fault (data rank 1's ZeRO-1 part never updated, one card) "
+        f"{'beyond' if ok_power else 'NOT beyond'} both bounds: loss {fault['loss']:.3g}, "
+        f"change {fault['change']:.3g} ("
+        + ", ".join(f"{n} {v:.3g}" for n, v in fault["changes"].items()) + ")")
+    cases[key].update(changes=changes, fault=fault, change_bound=MM_TOL["train_change"])
+    cases[key]["pass"] = ok and ok_change and ok_power and t[0]["restore_exact"]
+
+    g, r = got1["gnn"], ref["gnn"]
+    errs = {f"loss step {i + 1}": abs(g[0]["loss"][i] - r["loss"][i]) / abs(r["loss"][i])
+            for i in range(len(r["loss"]))}
+    for n, v in g[0]["params"].items():
+        errs[n] = _rel_l2(v, r["params"][n])
+    row("(d) graphsage ogb_products sharded on 4 x 1", errs, MM_TOL["loss"], g, g[0]["ms"],
+        f"; one card {', '.join(f'{x:.1f}' for x in r['ms'])} ms a step, peak "
+        f"{_mm_gib(r['peak'])} GiB; {g[0]['nodes']} nodes and {g[0]['edges']} edges a rank; "
+        f"graph built in {r['build_s']:.1f} s, sharded in {r['shard_s']:.1f} s")
+
+    w, r = got1["towers"], ref["towers"]
+    errs = {}
+    for name in r:
+        errs[f"{name} serve"] = _rel_l2(w[0][name]["scores"], r[name]["scores"])
+        errs[f"{name} loss"] = abs(w[0][name]["loss"] - r[name]["loss"]) / abs(r[name]["loss"])
+    row("(e) the towers on 1 x 4 (row-sharded tables)", errs, MM_TOL["towers"],
+        [dict(peak=max(x[n]["peak"] for n in r)) for x in w],
+        [w[0][n]["serve_ms"] for n in r],
+        "; serve ms by tower " + ", ".join(f"{n} {w[0][n]['serve_ms']:.1f} (one card "
+                                           f"{r[n]['serve_ms']:.1f})" for n in r)
+        + "; per rank table bytes " + ", ".join(f"{n} {_mm_gib(w[0][n]['param_bytes'])} GiB"
+                                                for n in r))
+
+    b, r = got2["mla"], ref["mla"]
+    same, base = r["same"], r["batch"]
+    errs = {f"logits step {i + 1}": _rel_l2(b[0]["logits"][i], same["logits"][i])
+            for i in range(len(same["logits"]))}
+    errs["prefill chunk logits"] = _rel_l2(b[0]["prefill"]["logits"],
+                                           same["prefill"]["logits"])
+    gap = [_rel_l2(b[0]["logits"][i], base["logits"][i]) for i in range(len(base["logits"]))]
+    gap.append(_rel_l2(b[0]["prefill"]["logits"], base["prefill"]["logits"]))
+    nm = plan["mla"]["mesh"][1]
+    topi = dict(decode=_mm_topi_compare(_mm_concat_topi(b, nm, "decode"), same["topi"]),
+                prefill=_mm_topi_compare(_mm_concat_topi(b, nm, "prefill"),
+                                         same["prefill"]["topi"]))
+    topi_batch = dict(
+        decode=_mm_topi_compare(_mm_concat_topi(b, nm, "decode"), base["topi"]),
+        prefill=_mm_topi_compare(_mm_concat_topi(b, nm, "prefill"), base["prefill"]["topi"]))
+    key = "(b) deepseek-v3 split_kv decode and a baseline prefill chunk on 2 x 2"
+    ok = row(key, errs, MM_TOL["logits"], b, b[0]["ms"] + [b[0]["prefill"]["ms"]],
+             f"; one card {', '.join(f'{x:.1f}' for x in same['ms'])} ms a step (split-KV), "
+             f"{', '.join(f'{x:.1f}' for x in base['ms'])} (batch), chunk "
+             f"{same['prefill']['ms']:.1f} ms; topi: {topi}; against the one-card batch path "
+             f"(another algorithm) logits {', '.join(f'{g:.4f}' for g in gap)}, topi "
+             f"{topi_batch}; per rank weights {_mm_gib(b[0]['param_bytes'])} GiB (split) "
+             f"and {_mm_gib(b[0]['prefill']['param_bytes'])} GiB (baseline)")
+    cases[key].update(topi=topi, topi_batch=topi_batch, against_batch=gap)
+    dropped = _rel_l2(b[0]["experts_dropped"], same["logits"][0])
+    cases[key]["experts_dropped"] = dropped
+    log(f"mesh_model {key}: planted fault (rank 1's routed experts dropped) step 1 logits "
+        f"{dropped:.3g} against the bound {MM_TOL['logits']:g}")
+    cases[key]["pass"] = ok and dropped > MM_TOL["logits"] and all(
+        t["differ"] == t["differ_near_tie"] and t["calls"][0] == t["calls"][1]
+        for t in topi.values())
+    f32_check(key, b[0]["f32"], r["f32"])
+
+    f, r = got2["pod"], ref["pod"]
+    errs = {"mean gradient": float((f[0]["grads"] - r["mean"]).abs().max()
+                                   / r["mean"].abs().max())}
+    ok = row("(f) compress_psum_pod on 2 x 2 (pod x data)", errs, MM_TOL["pod"],
+             [dict(peak=0) for _ in f], [x["ms"] for x in f],
+             f"; error buffers {f[0]['err_shape']}, max {f[0]['err_max']:.3g}")
+    cases["(f) compress_psum_pod on 2 x 2 (pod x data)"]["pass"] = (
+        ok and f[0]["err_shape"] == (plan["pod"]["mesh"][0], plan["pod"]["n"])
+        and f[0]["err_max"] > 0)
+    return cases
+
+
+def _mm_change_err(got, want, init) -> float:
+    """Relative L2 of a leaf's change since ``init`` against the one card's
+    change; where the one card's is 0 (a bfloat16 norm weight at 1.0 does
+    not move by 3 x lr), 0 if the mesh's is 0 too, else 1."""
+    import torch
+
+    d = torch.linalg.vector_norm((want - init).double())
+    if d == 0:
+        return float(not torch.equal(got, want))
+    return _rel_l2(got - init, want - init)
+
+
+def _mm_concat_topi(ranks, n_model: int, which: str) -> list:
+    """Each MoE call's routing of the mesh's tokens, in the one-card
+    order: the rows of model rank 0 of every data row, in data order."""
+    import torch
+
+    calls = [r["topi"] if which == "decode" else r["prefill"]["topi"]
+             for i, r in enumerate(ranks) if i % n_model == 0]
+    return [dict(topi=torch.cat([p["topi"] for p in parts]),
+                 gap=torch.cat([p["gap"] for p in parts])) for parts in zip(*calls)]
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4729,6 +5978,7 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     # Training: reduced parity, qwen3-4b at published widths, resume, the
     # published GraphSAGE and tower configs.
     record["train"] = train_phase(dev, pool)
+    record["mesh_model"] = mesh_model_phase(dev, pool)
 
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
@@ -4974,7 +6224,11 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             f"{tm['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
             f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bytes']} B), {per_query}; "
             f"device-only: kernel {tm['kernel_device_us']:.2f} us, wrapper "
-            f"{tm['wrapper_device_us']:.2f} us, plain {tm['plain_device_us']:.2f} us")
+            f"{tm['wrapper_device_us']:.2f} us, plain {tm['plain_device_us']:.2f} us"
+            + ("" if tm["library_device_us"] is None else
+               f", library {tm['library_device_us']:.2f} us"
+               + (f" (of which its zero fill {tm['library_fill_device_us']:.2f} us)"
+                  if "library_fill_device_us" in tm else "")))
         kernels.append({
             "name": kname, "route": "cuda", "source": CU_SOURCE,
             "replaces": replaces[kname],
@@ -5089,6 +6343,25 @@ def run_train(pool, dev=None) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def run_mesh_model(pool, dev=None) -> None:
+    """``--mesh-model``: the model mesh phase alone (numbers also in
+    ``chiprun_out/chip_smoke_mesh_model.json``)."""
+    import torch
+
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    record = dict(card=smi, mesh_model=mesh_model_phase(dev, pool))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_mesh_model.json").write_text(json.dumps(record, indent=1,
+                                                                    default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main() -> int:
     try:
         import torch
@@ -5107,7 +6380,7 @@ def main() -> int:
     ctx = multiprocessing.get_context("spawn")
     pool = ctx.Pool(3)
     try:
-        mode = {"--phases": run_phases, "--train": run_train}
+        mode = {"--phases": run_phases, "--train": run_train, "--mesh-model": run_mesh_model}
         flags = [a for a in sys.argv[1:] if a in mode]
         (mode[flags[0]] if flags else run)(pool)
     except SmokeError as e:

@@ -24,8 +24,16 @@ architecture is an ``Arch`` with:
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``. Steps take numpy or tensors and run on the parameters'
-device. The ``*_pspecs`` functions and a sharding context wait for the mesh
-paths (ROADMAP A7).
+device.
+
+On a mesh: ``param_pspecs``/``batch_pspecs`` are the reference's specs (a
+tree of ``P`` in its stacked layout), ``distributed.sharding.place_tree``
+places the parameters and the batch with them, and ``build_step(...,
+shard_ctx)`` gives the SPMD step every rank calls on placed trees. A train
+step also takes an optimizer state placed by ``zero1_state_specs``
+(``trainer.init_zero1_state``/``place_opt_state``); a serve step's outputs
+are placed as its ``out_specs`` attribute says (``gather_tree`` with them
+gives the global arrays).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from repro_torch.core.range_daat import resolve_device
 from repro_torch.data import graphs as G
+from repro_torch.distributed.sharding import P, bound, mesh_coord, psum
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tfm
@@ -50,16 +59,6 @@ from repro_torch.train.trainer import (
 )
 
 __all__ = ["ShapeInfo", "Arch", "LMArch", "GNNArch", "RecArch"]
-
-
-def needs_mesh(what: str):
-    raise NotImplementedError(
-        f"{what} lays the arrays out over a device mesh; the mesh paths are ROADMAP A7")
-
-
-def _no_ctx(shard_ctx, what: str) -> None:
-    if shard_ctx is not None:
-        needs_mesh(f"{what} with a sharding context")
 
 
 def _meta(shape, dtype=torch.int32) -> torch.Tensor:
@@ -118,10 +117,10 @@ class Arch:
         raise NotImplementedError
 
     def param_pspecs(self, cfg, params):
-        needs_mesh(f"{self.name} param_pspecs")
+        raise NotImplementedError
 
     def batch_pspecs(self, cfg, shape: str, ctx):
-        needs_mesh(f"{self.name} batch_pspecs")
+        raise NotImplementedError
 
     def moment_dtype(self, cfg) -> str:
         return "fp32"
@@ -174,8 +173,8 @@ class LMArch(Arch):
         self._full = full_cfg
         self._reduced = reduced_cfg
         self._moments = moments
-        # FSDP-style parameter sharding over the data axis on the reference's
-        # mesh; read by the mesh paths (A7), not on one device.
+        # FSDP-style parameter sharding over the data axis, which the
+        # reference's dry-run reads (launch/dryrun, ROADMAP A9).
         self.fsdp = fsdp
 
     def shapes(self):
@@ -239,15 +238,22 @@ class LMArch(Arch):
         """``train_4k``: the train step over ``lm_loss``, with this arch's
         moment dtype. ``prefill_32k``: ``prefill(params, batch) -> (logits
         [B, 1, V], cache)``, chunks of ``min(4096, S)`` tokens through one cache (the
-        reference's scan over chunks; ``variant="split_kv"`` without a mesh
-        runs GQA as one chunk of S, as the reference does). ``decode_32k``
-        (and ``long_500k``): ``decode(params, batch) -> (logits [B, 1, V],
-        cache)``, the batch's cache updated in place."""
-        _no_ctx(shard_ctx, f"{self.name} {shape}")
+        reference's scan over chunks; ``variant="split_kv"`` runs GQA in chunks of
+        S / n_model, one per model rank's slice, and without a mesh as one chunk of
+        S, as the reference does). ``decode_32k`` (and ``long_500k``):
+        ``decode(params, batch) -> (logits [B, 1, V], cache)``, the batch's cache
+        updated in place. With ``shard_ctx`` every step runs on placed trees
+        (``param_pspecs``/``batch_pspecs`` of the same variant); a serve step's
+        ``out_specs`` is its outputs' layout (the logits' rows over data and
+        vocab over model, the cache by ``cache_specs``)."""
         if shape == "train_4k":
             def loss(p, b):
-                return tfm.lm_loss(p, b["tokens"], cfg)
-            return make_train_step(loss, AdamWConfig(moment_dtype=self._moments)), "train"
+                return tfm.lm_loss(p, b["tokens"], cfg, shard_ctx)
+            opt = AdamWConfig(moment_dtype=self._moments)
+            if shard_ctx is None:
+                return make_train_step(loss, opt), "train"
+            return make_train_step(loss, opt, shard_ctx=shard_ctx,
+                                   param_specs=self.param_pspecs(cfg, None)), "train"
         impl = "split_kv" if variant == "split_kv" else "batch"
         ropes: dict = {}
 
@@ -256,14 +262,21 @@ class LMArch(Arch):
                 ropes[dev] = tfm.rope_table(cfg, cfg.max_seq, dev)
             return ropes[dev]
 
+        out_specs = None
+        if shard_ctx is not None:
+            out_specs = (tfm.logits_spec(shard_ctx), tfm.cache_specs(
+                cfg, shard_ctx.data_axes, "split" if impl == "split_kv" else "batch"))
+
         if shape == "prefill_32k":
             def prefill(params, batch):
                 dev = params["embed"].device
                 tokens = torch.as_tensor(batch["tokens"], device=dev)
                 B, S = tokens.shape
-                cache = tfm.init_cache(cfg, B, S, device=dev)
+                n_model = shard_ctx.n_model if shard_ctx is not None else 1
+                split = impl == "split_kv" and shard_ctx is not None
+                cache = tfm.init_cache(cfg, B, S // n_model if split else S, device=dev)
                 if impl == "split_kv" and not isinstance(cfg.attn, tfm.MLAConfig):
-                    ch = S  # one model rank: the chunk is the whole sequence
+                    ch = S // n_model  # one chunk per model rank's slice
                 else:
                     ch = min(4096, S)
                 if S % ch:
@@ -271,25 +284,44 @@ class LMArch(Arch):
                 logits = None
                 for c0 in range(0, S, ch):
                     logits, cache = tfm.lm_decode_step(
-                        params, tokens[:, c0:c0 + ch], cache, c0, cfg, None,
+                        params, tokens[:, c0:c0 + ch], cache, c0, cfg, shard_ctx,
                         logits_last_only=True, decode_impl=impl, rope=rope_on(dev),
                     )
                 return logits, cache
+            prefill.out_specs = out_specs
             return prefill, "serve"
 
         def decode(params, batch):
             return tfm.lm_decode_step(
-                params, batch["tokens"], batch["cache"], int(batch["pos"]), cfg, None,
+                params, batch["tokens"], batch["cache"], int(batch["pos"]), cfg, shard_ctx,
                 logits_last_only=True, decode_impl=impl,
                 rope=rope_on(params["embed"].device),
             )
+        decode.out_specs = out_specs
         return decode, "serve"
 
     def param_pspecs(self, cfg, params, variant: str = "baseline", ctx=None):
-        needs_mesh(f"{self.name} param_pspecs")
+        del params
+        if variant == "split_kv":
+            ep_grid_ok = bool(
+                cfg.moe is not None
+                and ctx is not None
+                and cfg.moe.n_experts
+                % (mesh_coord(ctx.mesh, "data")[1] * ctx.n_model) == 0
+            )
+            return tfm.param_specs_splitkv(cfg, ep_grid_ok=ep_grid_ok)
+        return tfm.param_specs(cfg)
 
     def batch_pspecs(self, cfg, shape, ctx, variant: str = "baseline"):
-        needs_mesh(f"{self.name} batch_pspecs")
+        da = ctx.data_axes
+        if shape in ("train_4k", "prefill_32k"):
+            return {"tokens": P(da, None)}
+        layout = "split" if variant == "split_kv" else "batch"
+        return {
+            "tokens": P(da, None),
+            "cache": tfm.cache_specs(cfg, da, layout),
+            "pos": P(),
+        }
 
 
 # --------------------------------------------------------------------- GNN
@@ -443,13 +475,50 @@ class GNNArch(Arch):
         )
         return {"feats": feats, "edges": edges, "graph_ids": gids, "labels": labels}
 
+    def sharded_batch(self, cfg, shape, n_shards: int, seed: int = 0, device=None):
+        """The ``variant="sharded"`` inputs of a full-graph shape
+        (``input_specs(cfg, shape, "sharded")``): ``make_batch``'s graph with
+        its nodes padded to a multiple of 512, the first hop's mean aggregate
+        ``agg0``, and the edges binned by their destination's block over
+        ``n_shards`` data ranks (``gnn.shard_graph``), on ``device`` (None:
+        the card)."""
+        b = self.make_batch(cfg, shape, seed)
+        spec = self.input_specs(cfg, shape, "sharded")
+        return gnn_mod.shard_graph(b["feats"], b["edges"], b["labels"], n_shards,
+                                   spec["feats"].shape[0], spec["edges"].shape[0], device)
+
     def build_step(self, cfg, shape, shard_ctx=None, variant: str = "baseline"):
-        """The train step of a shape; ``variant="sharded"`` with a context
-        partitions the graph over a mesh (ROADMAP A7)."""
-        _no_ctx(shard_ctx, f"{self.name} {shape}")
+        """The train step of a shape. With a context: ``variant="sharded"``
+        (full-graph shapes) partitions the nodes and edges over the data
+        axes (``sage_forward_sharded`` on ``sharded_batch``'s inputs); the
+        baseline keeps the nodes replicated and the edges sharded as
+        ``batch_pspecs`` places them: each rank aggregates its edges'
+        messages and a ``psum`` over the data axes completes the sums."""
         rcfg = self._resolved(cfg, shape)
+        specs = None if shard_ctx is None else gnn_mod.sage_param_specs(rcfg)
+
+        def train(loss):
+            return make_train_step(loss, AdamWConfig(), shard_ctx=shard_ctx,
+                                   param_specs=specs), "train"
 
         if shape in ("full_graph_sm", "ogb_products"):
+            if variant == "sharded" and shard_ctx is not None:
+                n_nodes = self._pad512(self._dims(cfg, shape)["nodes"])
+                da = tuple(shard_ctx.data_axes)
+
+                def loss(p, b):
+                    logits = gnn_mod.sage_forward_sharded(
+                        p, b["feats"], b["agg0"], b["edges"], rcfg, n_nodes, shard_ctx)
+                    labels = torch.as_tensor(b["labels"], device=logits.device)
+                    mask = labels >= 0
+                    per = gnn_mod.sage_loss_per_node(logits, labels.clamp(min=0))
+                    with bound(shard_ctx.mesh):
+                        num = psum(torch.sum(per * mask), da)
+                        den = psum(mask.sum().to(torch.float32), da)
+                    return num / torch.clamp(den, min=1.0)
+
+                return train(loss)
+
             def loss(p, b):
                 logits = gnn_mod.sage_forward(p, b["feats"], b["edges"], rcfg)
                 return gnn_mod.sage_loss(logits, b["labels"])
@@ -468,13 +537,33 @@ class GNNArch(Arch):
                 )
                 return gnn_mod.sage_loss(logits, b["labels"])
 
-        return make_train_step(loss, AdamWConfig()), "train"
+        if shard_ctx is None:
+            return make_train_step(loss, AdamWConfig()), "train"
+        return train(gnn_mod.edge_sharded(loss, shard_ctx))
 
     def param_pspecs(self, cfg, params, variant: str = "baseline", ctx=None):
-        needs_mesh(f"{self.name} param_pspecs")
+        del params, variant, ctx
+        return gnn_mod.sage_param_specs(cfg)
 
     def batch_pspecs(self, cfg, shape, ctx, variant: str = "baseline"):
-        needs_mesh(f"{self.name} batch_pspecs")
+        da = ctx.data_axes
+        if shape in ("full_graph_sm", "ogb_products"):
+            if variant == "sharded":
+                return {
+                    "feats": P(da, None),
+                    "agg0": P(da, None),
+                    "edges": P(da, None),
+                    "labels": P(da),
+                }
+            return {"feats": P(), "edges": P(da, None), "labels": P()}
+        if shape == "minibatch_lg":
+            return {
+                "feats": P(),
+                "hop0_src": P(da), "hop0_dst": P(da),
+                "hop1_src": P(da), "hop1_dst": P(da),
+                "labels": P(),
+            }
+        return {"feats": P(), "edges": P(da, None), "graph_ids": P(), "labels": P()}
 
 
 # ------------------------------------------------------------------ RecSys
@@ -579,18 +668,43 @@ class RecArch(Arch):
     def build_step(self, cfg, shape, shard_ctx=None):
         """``train_batch``: the train step over ``rec_train_loss``;
         ``serve_*``: ``serve(params, batch) -> [B]`` scores;
-        ``retrieval_cand``: ``retrieve(params, batch) -> [C]``."""
-        _no_ctx(shard_ctx, f"{self.name} {shape}")
+        ``retrieval_cand``: ``retrieve(params, batch) -> [C]``. With a
+        context every step runs on placed trees (``param_pspecs``,
+        ``batch_pspecs``); the scores are this rank's rows (``out_specs``)."""
         if shape == "train_batch":
             def loss(p, b):
-                return rec_mod.rec_train_loss(p, b, cfg)
-            return make_train_step(loss, AdamWConfig()), "train"
+                return rec_mod.rec_train_loss(p, b, cfg, shard_ctx)
+            if shard_ctx is None:
+                return make_train_step(loss, AdamWConfig()), "train"
+            return make_train_step(loss, AdamWConfig(), shard_ctx=shard_ctx,
+                                   param_specs=self.param_pspecs(cfg, self.param_shapes(cfg))
+                                   ), "train"
+        out_specs = None if shard_ctx is None else P(shard_ctx.data_axes)
         if shape in ("serve_p99", "serve_bulk"):
             def serve(params, batch):
-                return rec_mod.rec_serve_scores(params, batch, cfg)
+                return rec_mod.rec_serve_scores(params, batch, cfg, shard_ctx)
+            serve.out_specs = out_specs
             return serve, "serve"
 
         def retrieve(params, batch):
             feats = {k: v for k, v in batch.items() if k != "candidates"}
-            return rec_mod.rec_retrieval_scores(params, feats, batch["candidates"], cfg)
+            return rec_mod.rec_retrieval_scores(params, feats, batch["candidates"], cfg,
+                                                shard_ctx)
+        retrieve.out_specs = out_specs
         return retrieve, "serve"
+
+    def param_pspecs(self, cfg, params):
+        return rec_mod.rec_param_specs(params, cfg)
+
+    def batch_pspecs(self, cfg, shape, ctx):
+        da = ctx.data_axes
+        specs = self.input_specs(cfg, shape)
+        out = {}
+        for k, sp in specs.items():
+            if k == "candidates":
+                out[k] = P(da)  # candidates sharded; the user side is batch-1
+            elif len(sp.shape) >= 1 and sp.shape[0] > 1:
+                out[k] = P(da, *([None] * (len(sp.shape) - 1)))
+            else:
+                out[k] = P(*([None] * len(sp.shape)))
+        return out

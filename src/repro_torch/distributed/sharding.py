@@ -26,6 +26,22 @@ engine's step (``mesh_call``) and every mesh engine built on rank 0
 they receive in ``worker_loop`` until ``driving`` ends. Outside
 ``driving()`` the same calls are plain SPMD: every rank makes them.
 
+Placed trees (the model paths, DESIGN.md §5). ``place_tree`` is the
+reference's ``jax.device_put(tree, NamedSharding(mesh, spec))``: each rank
+keeps only its block of every leaf, on its own device; ``gather_tree`` is
+its inverse, the global arrays on every rank. A model entry point given a
+sharding context takes placed trees (parameters by ``param_pspecs``, a
+batch by ``batch_pspecs``) and returns placed outputs: every product is
+lowered as its operands' specs imply (a column-sharded weight gives the
+rank's columns, a row-sharded one a partial product and a ``psum``), and
+no rank assembles a sharded weight. ``bound(mesh)`` lets such code call the
+collectives outside a ``shard_map`` body. Under autograd ``psum`` passes
+its gradient through unchanged and ``sum_grads`` sums it over an axis
+(the two halves of a tensor-parallel region), and ``all_gather_tiled``
+scatters the summed gradient back to the blocks; so each rank's backward
+pass gives its share of the gradient, and a train step sums the shares
+over the data axes.
+
 Backends: NCCL when every rank has a card of its own; gloo when ranks share
 a card or run on the CPU. Gloo's collectives on card tensors are staged
 through the host here (``RankRuntime.staged``), one copy each way.
@@ -34,6 +50,7 @@ through the host here (``RankRuntime.staged``), one copy each way.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import datetime
 import importlib
@@ -52,23 +69,34 @@ __all__ = [
     "replica_mesh",
     "retrieval_mesh",
     "LOCAL",
+    "LocalMesh",
     "NamedSharding",
     "P",
     "RankRuntime",
     "all_gather",
+    "all_gather_tiled",
     "announce",
     "axis_index",
+    "bound",
     "close_mesh_group",
     "driving",
+    "gather",
+    "gather_tree",
     "init_mesh_group",
     "make_mesh",
     "mesh_call",
+    "mesh_coord",
     "mesh_world_size",
+    "place",
+    "place_tree",
+    "pmax",
     "psum",
     "register",
     "release",
     "require_group",
     "runtime",
+    "spec_at",
+    "sum_grads",
     "worker_loop",
 ]
 
@@ -76,10 +104,13 @@ __all__ = [
 class P(tuple):
     """A partition spec: one entry per array dimension, each None
     (replicated), a mesh axis name, or a tuple of axis names (the
-    dimension split over their product, the first the major one)."""
+    dimension split over their product, the first the major one). One
+    axis in a tuple is stored as that axis, as ``PartitionSpec`` does."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        return super().__new__(cls, (
+            (p[0] if len(p) == 1 else tuple(p)) if isinstance(p, (tuple, list)) else p
+            for p in parts))
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
@@ -228,6 +259,19 @@ def make_mesh(shape: tuple, axis_names: tuple):
     return rt.meshes[key]
 
 
+class LocalMesh:
+    """A mesh of this process alone, every axis of size 1: the mesh paths
+    run on it without a process group, each collective the identity (the
+    reference's functions on a one-device mesh)."""
+
+    def __init__(self, axis_names: tuple = ("data", "model")):
+        self.mesh_dim_names = tuple(axis_names)
+        self.mesh = torch.zeros((1,) * len(self.mesh_dim_names), dtype=torch.int64)
+
+    def get_coordinate(self) -> list[int]:
+        return [0] * len(self.mesh_dim_names)
+
+
 def retrieval_mesh(n_shards: int, axis: str = "shard"):
     """1-D mesh for range-sharded retrieval (DESIGN.md §4): ranks
     ``0..n_shards-1``, one shard each."""
@@ -307,6 +351,17 @@ def _bound_mesh():
     return _BOUND[-1]
 
 
+def mesh_coord(mesh, axes) -> tuple[int, int]:
+    """(this rank's linear index, their count) over mesh axes ``axes``, the
+    first the major one (the order of a ``P`` entry naming them)."""
+    idx, n = 0, 1
+    coord = mesh.get_coordinate()
+    for a in _names(axes):
+        k = _size(mesh, a)
+        idx, n = idx * k + int(coord[_dim(mesh, a)]), n * k
+    return idx, n
+
+
 def axis_size(name) -> int:
     """Size of mesh axis ``name`` (a tuple: their product) in the body."""
     mesh = _bound_mesh()
@@ -320,27 +375,116 @@ def axis_index(name: str) -> int:
     return int(mesh.get_coordinate()[_dim(mesh, name)])
 
 
+@contextlib.contextmanager
+def bound(mesh):
+    """Run the collectives on ``mesh`` outside a ``shard_map`` body: the
+    code inside works on placed blocks, as a mapped body does."""
+    _BOUND.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _BOUND.pop()
+
+
 def _stage(x: torch.Tensor) -> torch.Tensor:
     return x.cpu() if _RT.staged and x.is_cuda else x
+
+
+def _names(axis) -> tuple:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def _all_reduce(x: torch.Tensor, axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    mesh = _bound_mesh()
+    axes = [a for a in _names(axis) if _size(mesh, a) > 1]
+    if not axes:
+        return x.detach().clone()
+    y = _stage(x.detach()).clone()
+    for a in axes:
+        dist.all_reduce(y, op=op, group=mesh.get_group(a))
+    return y.to(x.device)
 
 
 def all_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
     """[n_axis, *x.shape]: every rank's ``x`` along ``axis``, in axis order."""
     mesh = _bound_mesh()
     n = _size(mesh, axis)
-    src = _stage(x.contiguous())
+    if n == 1:
+        return x.detach()[None]
+    src = _stage(x.detach().contiguous())
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=mesh.get_group(axis))
     return torch.stack(parts).to(x.device)
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, _bound_mesh()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):  # the backward pass runs outside the body: rebind
+        with bound(ctx.mesh):
+            return _all_reduce(g, ctx.axis), None
+
+
+class _GatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n, ctx.mesh = axis, dim, x.shape[dim], _bound_mesh()
+        ctx.idx = axis_index(axis)
+        return torch.cat(list(all_gather(x, axis)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with bound(ctx.mesh):
+            g = _all_reduce(g, ctx.axis)
+        return g.narrow(ctx.dim, ctx.idx * ctx.n, ctx.n), None, None
+
+
 def psum(x: torch.Tensor, axis) -> torch.Tensor:
-    """``x`` summed over mesh axis ``axis`` (a tuple: over each)."""
-    mesh = _bound_mesh()
-    y = _stage(x).clone()
-    for a in (axis if isinstance(axis, tuple) else (axis,)):
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
-    return y.to(x.device)
+    """``x`` summed over mesh axis ``axis`` (a tuple: over each). Its
+    gradient passes through unchanged: the sum's every use is replicated
+    over ``axis``, so each rank's gradient of it is the whole one."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Psum.apply(x, axis)
+    return _all_reduce(x, axis)
+
+
+def sum_grads(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``axis``: a replicated value
+    entering computation that each rank does for its own block."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumGrads.apply(x, axis)
+    return x
+
+
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """The elementwise max over mesh axis ``axis`` (no gradient)."""
+    return _all_reduce(x, axis, dist.ReduceOp.MAX)
+
+
+def all_gather_tiled(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order (a tuple:
+    over each, the first the major one), as ``lax.all_gather(tiled=True)``.
+    Under autograd each block gets the gradient summed over ``axis``."""
+    for a in reversed(_names(axis)):
+        if torch.is_grad_enabled() and x.requires_grad:
+            x = _GatherTiled.apply(x, a, dim)
+        else:
+            x = torch.cat(list(all_gather(x, a)), dim=dim)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -371,12 +515,15 @@ def _block(x, spec: P, mesh, device):
         sl = [slice(None)] * x.ndim
         sl[d] = slice(idx * b, (idx + 1) * b)
         x = x[tuple(sl)]
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, torch.Tensor) and device is not None:
         return x.to(device)
     return x
 
 
 def _map_in(x, spec, mesh, device):
+    if isinstance(x, dict):  # a spec prefix: a P covers every leaf under it
+        return {k: _map_in(v, spec[k] if isinstance(spec, dict) else spec, mesh, device)
+                for k, v in x.items()}
     if isinstance(spec, P):
         return _block(x, spec, mesh, device)
     if spec == LOCAL:
@@ -388,6 +535,9 @@ def _map_in(x, spec, mesh, device):
 
 
 def _gather_out(y, spec, mesh):
+    if isinstance(y, dict):
+        return {k: _gather_out(v, spec[k] if isinstance(spec, dict) else spec, mesh)
+                for k, v in y.items()}
     if isinstance(spec, (tuple, list)) and not isinstance(spec, P):
         parts = [_gather_out(a, s, mesh) for a, s in zip(y, spec)]
         return type(y)(*parts) if hasattr(y, "_fields") else type(y)(parts)
@@ -411,7 +561,7 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None, check_vma=None):
     def mapped(*args):
         if mesh.get_coordinate() is None:
             return None
-        device = _RT.device
+        device = _RT.device if _RT is not None else None  # a LocalMesh: where they are
         local = [_map_in(a, s, mesh, device) for a, s in zip(args, in_specs)]
         _BOUND.append(mesh)
         try:
@@ -421,6 +571,137 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None, check_vma=None):
             _BOUND.pop()
 
     return mapped
+
+
+# --------------------------------------------------------------------------
+# Placed trees
+# --------------------------------------------------------------------------
+
+
+def _spec_of(s) -> P:
+    return s.spec if isinstance(s, NamedSharding) else s
+
+
+def spec_at(specs, path) -> P:
+    """The spec of the leaf at ``path`` (names, list indices as digits) in
+    a spec tree of the reference's layout. A digit under a dict is a layer
+    of a stacked segment (the reference's ``[L, ...]`` leaf): the spec's
+    leading entry is dropped for it."""
+    node, drop = specs, 0
+    for part in path:
+        part = str(part)
+        if isinstance(node, (list, tuple)) and not isinstance(node, P):
+            node = node[int(part)]
+        elif part.isdigit() and part not in node:
+            drop += 1
+        else:
+            node = node[part]
+    return P(*tuple(_spec_of(node))[drop:])
+
+
+def _host_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    from repro_torch.models.layers import tensor_from_numpy
+
+    return tensor_from_numpy(x, "cpu")
+
+
+def place(x, spec, mesh, device=None) -> torch.Tensor:
+    """This rank's block of global ``x`` (a tensor or a numpy array) under
+    ``spec``, on ``device`` (None: the rank's own; without a process group,
+    a ``LocalMesh``, where ``x`` is)."""
+    if device is not None:
+        dev = torch.device(device)
+    elif _RT is not None:
+        dev = _RT.device
+    else:
+        dev = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = _host_tensor(np.ascontiguousarray(_block(a, _spec_of(spec), mesh, dev)))
+        return x.to(dev)
+    out = _block(x, _spec_of(spec), mesh, dev)
+    if out.numel() < x.numel() and out.untyped_storage().data_ptr() == (
+            x.untyped_storage().data_ptr()):
+        return out.clone(memory_format=torch.contiguous_format)  # not a view of the whole
+    return out.contiguous()
+
+
+def gather(x: torch.Tensor, spec, mesh, root: int | None = None):
+    """The global array of the placed block ``x``: on every rank, or with
+    ``root`` on the host of that rank alone (the others get None; each
+    block then travels once, to the root)."""
+    spec = _spec_of(spec)
+    if root is None or _RT is None or int(mesh.mesh.numel()) != _RT.world:
+        with bound(mesh):
+            y = _gather_out(x, spec, mesh)
+        if root is None:
+            return y
+        return y.cpu() if _RT is None or _RT.rank == root else None
+    src = _stage(x.detach().contiguous())
+    parts = [torch.empty_like(src) for _ in range(_RT.world)] if _RT.rank == root else None
+    dist.gather(src, parts, dst=root)
+    if _RT.rank != root:
+        return None
+    shape = list(x.shape)
+    for d, entry in enumerate(spec):
+        shape[d] *= int(np.prod([_size(mesh, a) for a in _axes(entry)] or [1]))
+    out = torch.empty(shape, dtype=x.dtype)
+    layout = mesh.mesh
+    for coord in np.ndindex(*layout.shape):
+        idx = [slice(None)] * x.ndim
+        for d, entry in enumerate(spec):
+            k = 0
+            for a in _axes(entry):
+                k = k * _size(mesh, a) + coord[_dim(mesh, a)]
+            idx[d] = slice(k * x.shape[d], (k + 1) * x.shape[d])
+        out[tuple(idx)] = parts[int(layout[coord])].cpu()
+    return out
+
+
+def _map_tree(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts, lists and tuples, or a
+    ``Params`` module (whose parameters are replaced in place)."""
+    if isinstance(tree, torch.nn.Module):
+        for name, prm in list(tree.named_parameters()):
+            *mods, leaf = name.split(".")
+            owner = tree
+            for m in mods:
+                owner = owner._modules[m]
+            new = fn(prm.detach(), spec_at(specs, name.split(".")))
+            owner._parameters[leaf] = torch.nn.Parameter(new, requires_grad=False)
+        return tree
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, _spec_of(specs))
+
+
+def place_tree(tree, specs, mesh):
+    """Every leaf's block on this rank (``jax.device_put`` of the tree with
+    ``NamedSharding(mesh, spec)``). ``specs`` is a tree of ``P`` (or
+    ``NamedSharding``) in the reference's layout; a ``Params`` tree is
+    placed in place, layer by layer. The global leaves are not kept."""
+    return _map_tree(lambda x, s: place(x, s, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh, root: int | None = None):
+    """The global arrays of a placed tree, on every rank (a ``Params`` tree
+    comes back as a new one; the placed tree is left as it was). With
+    ``root`` the arrays land on that rank's host, one leaf at a time, and
+    the other ranks get None."""
+    mine = root is None or _RT is None or _RT.rank == root
+    if isinstance(tree, torch.nn.Module) and mine:
+        tree = copy.deepcopy(tree)
+
+    def one(x, s):
+        y = gather(x, s, mesh, root)
+        return y if mine else x
+
+    out = _map_tree(one, tree, specs)
+    return out if mine else None
 
 
 # --------------------------------------------------------------------------

@@ -118,7 +118,8 @@ def embedding_bag_ragged(
     return out
 
 
-def sharded_field_lookup(table: torch.Tensor, ids: torch.Tensor, shard_ctx=None):
+def sharded_field_lookup(table: torch.Tensor, ids: torch.Tensor, shard_ctx=None, *,
+                         placed: bool = False):
     """Field lookup: table[ids] with padding ids (< 0) reading zeros.
 
     With a ``ShardCtx`` the table is row-sharded over its ``model`` axis
@@ -128,11 +129,25 @@ def sharded_field_lookup(table: torch.Tensor, ids: torch.Tensor, shard_ctx=None)
     ``model`` assembles the full rows, the reference's ``psum``. The id
     stream is split over the data axes only when it divides evenly, and
     replicated otherwise; every rank gets the whole [..., D] result.
+    ``placed=True`` takes ``table`` as this rank's row block and ``ids`` as
+    this rank's ids already (a tower on placed parameters): the result is
+    this rank's rows, and under autograd each block gets its rows'
+    gradient.
     """
     if shard_ctx is None:
         return _gather(table, ids) * (ids >= 0)[..., None].to(table.dtype)
     from repro_torch.distributed import sharding as mesh_lib
 
+    if placed:
+        m_axis = shard_ctx.model_axis
+        with mesh_lib.bound(shard_ctx.mesh):
+            m = mesh_lib.axis_index(m_axis)
+            V_loc = table.shape[0]
+            local = ids - m * V_loc
+            own = (ids >= 0) & (local >= 0) & (local < V_loc)
+            rows = table[local.clamp(0, V_loc - 1)]
+            return mesh_lib.psum(torch.where(own[..., None], rows, torch.zeros_like(rows)),
+                                 m_axis)
     mesh_lib.require_group("sharded_field_lookup with a sharding context")
     m_axis = shard_ctx.model_axis
 

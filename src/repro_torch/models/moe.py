@@ -1,8 +1,17 @@
-"""Mixture-of-Experts FFN with capacity-based top-k routing, on one device.
+"""Mixture-of-Experts FFN with capacity-based top-k routing and EP sharding.
 
-The counterpart of the JAX package's ``models/moe.py`` without its mesh
-(ROADMAP A7): every expert lives on the one device, so the routed combine
-needs no collective. Routing is the reference's decision for decision,
+The counterpart of the JAX package's ``models/moe.py``. On one device every
+expert is local. With a ``ShardCtx`` (placed parameters, tokens this
+rank's data block replicated over ``model``) experts are sharded over the
+mesh's ``model`` axis: each rank dispatches only to the experts it owns
+(``e_lo = axis_index * E_loc``) and one float32 ``psum`` over ``model``
+combines the routed and the shared experts' partial outputs; the aux loss is
+averaged over the data axes. ``moe_ffn_decode_ep_all`` shards experts over
+the whole (data, model) grid for decode: the token block is gathered over
+``data``, each rank runs its E/(D*M) experts, float32 ``psum``s combine,
+and each rank keeps its own rows. Routing runs replicated, outside the
+ranks' own expert work, so under autograd the router's gradient is whole on
+every rank. Routing is the reference's decision for decision,
 because one index that differs flips a whole expert's output:
   * ``_route`` in float32; ``topk_first`` takes the lower expert index
     first among tied probabilities, as ``lax.top_k`` does;
@@ -27,9 +36,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (
+    all_gather_tiled,
+    axis_index,
+    bound,
+    psum,
+    sum_grads,
+)
 from repro_torch.models.layers import Params, dense_init, dot_f32, maximum, topk_first
 
-__all__ = ["MoEConfig", "init_moe", "moe_ffn"]
+__all__ = ["MoEConfig", "init_moe", "moe_ffn", "moe_ffn_decode_ep_all"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +129,18 @@ def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, int(c))
 
 
-def _moe_compute(params, x, cfg: MoEConfig, e_lo, E_loc: int):
+def _moe_compute(params, x, cfg: MoEConfig, e_lo, E_loc: int, ax=None):
     """Dispatch/compute/combine for the expert slice [e_lo, e_lo + E_loc).
 
-    Returns the partial output (zeros for slots owned by other ranks) and
-    the aux loss; on one device the slice is every expert (``e_lo`` 0).
+    ``params``' expert leaves hold the slice [E_loc, ...]. Returns the
+    partial output (zeros for slots owned by other ranks) and the aux loss.
+    With a mesh axis ``ax`` the tokens and the gate weights enter the
+    rank's own expert work through ``sum_grads`` over it.
     """
     T, d = x.shape
     topv, topi, aux = _route(params["router"], x, cfg)
+    if ax is not None:
+        x, topv = sum_grads(x, ax), sum_grads(topv, ax)
     k = cfg.top_k
     C = _capacity(T, cfg)
 
@@ -146,19 +166,62 @@ def _moe_compute(params, x, cfg: MoEConfig, e_lo, E_loc: int):
 
 
 def moe_ffn(params, x2d: torch.Tensor, cfg: MoEConfig, shard_ctx=None):
-    """MoE FFN over flat tokens x2d [T, d]. Returns (y [T, d], aux scalar)."""
-    if shard_ctx is not None:
-        raise NotImplementedError(
-            "moe_ffn with a sharding context (experts sharded over the mesh's model "
-            "axis, shard_map in the reference) is ROADMAP A7; pass shard_ctx=None")
-    y, aux = _moe_compute(params, x2d, cfg, 0, cfg.n_experts)
-    if cfg.n_shared:
-        y = y + _shared_ffn(params["shared"], x2d)
+    """MoE FFN over flat tokens x2d [T, d]. Returns (y [T, d], aux scalar).
+
+    With ``shard_ctx``: ``params`` this rank's blocks under ``param_specs``
+    (experts ``P(model)``, the shared expert's hidden dim over model),
+    ``x2d`` this rank's data block of the tokens, replicated over model;
+    ``y`` is that block, and ``aux`` the mean over the data axes of each
+    block's aux loss (the reference's ``pmean``).
+    """
+    if shard_ctx is None:
+        y, aux = _moe_compute(params, x2d, cfg, 0, cfg.n_experts)
+        if cfg.n_shared:
+            y = y + _shared_ffn(params["shared"], x2d)
+        return y, aux
+
+    ax = shard_ctx.model_axis
+    E_loc = cfg.n_experts // shard_ctx.n_model
+    with bound(shard_ctx.mesh):
+        y, aux = _moe_compute(params, x2d, cfg, axis_index(ax) * E_loc, E_loc, ax)
+        y = y.to(torch.float32)
+        if cfg.n_shared:
+            # The shared experts' hidden dim is sharded over model; their
+            # partial sums ride the same float32 psum as the routed combine.
+            sp, xf = params["shared"], sum_grads(x2d, ax)
+            y = y + dot_f32(F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"]), sp["w_down"])
+        y = psum(y, ax).to(x2d.dtype)
+        aux = psum(aux, shard_ctx.data_axes) / shard_ctx.n_data
     return y, aux
 
 
 def moe_ffn_decode_ep_all(params, x2d: torch.Tensor, cfg: MoEConfig, shard_ctx):
-    """Decode-time MoE with experts over the whole (data, model) grid."""
-    raise NotImplementedError(
-        "moe_ffn_decode_ep_all shards experts over the (data, model) mesh grid "
-        "(shard_map in the reference); the mesh paths are ROADMAP A7")
+    """Decode-time MoE with experts sharded over the WHOLE (data, model) grid.
+
+    ``params``' expert leaves are this rank's E / (D * M) experts
+    (``param_specs_splitkv`` with ``ep_grid_ok``), ``x2d`` this rank's data
+    block of the tokens. The blocks are gathered over ``data``, the routed
+    outputs summed over the grid and the shared expert's over ``model`` in
+    float32, and each rank keeps its own rows. When the experts do not
+    cover the grid this is ``moe_ffn`` (EP over model).
+    """
+    ep_axes = ("data", shard_ctx.model_axis)
+    mesh = shard_ctx.mesh
+    n_data = int(mesh.mesh.shape[list(mesh.mesh_dim_names).index("data")])
+    n_all = n_data * shard_ctx.n_model
+    if cfg.n_experts % n_all != 0:
+        return moe_ffn(params, x2d, cfg, shard_ctx)
+    E_loc = cfg.n_experts // n_all
+    with bound(mesh):
+        x_full = all_gather_tiled(x2d, "data", 0)
+        rank = axis_index("data") * shard_ctx.n_model + axis_index(shard_ctx.model_axis)
+        y_full, aux = _moe_compute(params, x_full, cfg, rank * E_loc, E_loc)
+        y_full = psum(y_full.to(torch.float32), ep_axes)
+        if cfg.n_shared:
+            y_full = y_full + psum(
+                _shared_ffn(params["shared"], x_full).to(torch.float32),
+                shard_ctx.model_axis)
+        y_full = y_full.to(x_full.dtype)
+        T_loc = x2d.shape[0]
+        d_rank = axis_index("data")
+        return y_full[d_rank * T_loc:(d_rank + 1) * T_loc], aux

@@ -25,7 +25,15 @@ the whole batch): BCE for BST and AutoInt (``_bce``, whose ``max(z, 0)``
 keeps the reference's split gradient at z = 0), MIND's label-aware
 attention and in-batch softmax over the [B, B] logits, BERT4Rec's sampled
 softmax over 4,096 strided shared negatives and the gold column.
-``rec_param_specs`` waits for the mesh paths (ROADMAP A7).
+
+With a ``ShardCtx`` the towers run on placed parameters
+(``rec_param_specs``: the item and field tables row-sharded over
+``model``, the small nets replicated) and placed features (their batch
+rows over the data axes): every table read is the row-sharded lookup (the
+rank's rows of its block, a ``psum`` over ``model``), the scores are this
+rank's rows, and the loss is the global batch's (the data blocks' means
+averaged; MIND's in-batch softmax gathers the targets over the data axes,
+so every row still meets the whole batch).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.range_daat import resolve_device
+from repro_torch.distributed.sharding import P, all_gather_tiled, bound, mesh_coord, psum
 from repro_torch.models.embedding import sharded_field_lookup
 from repro_torch.models.layers import (
     Params,
@@ -175,21 +184,43 @@ def init_rec(key, cfg: RecConfig, device=None):
 # ------------------------------------------------------------ user encoders
 
 
+_CTX: list = []  # the sharding context of the tower call running on this rank
+
+
 def _items(p, ids):
-    """``item_emb[clip(ids, 0)]``, the reference's item lookup."""
+    """``item_emb[clip(ids, 0)]``, the reference's item lookup; on a mesh
+    the row-sharded lookup of the rank's block."""
+    if _CTX and _CTX[-1] is not None:
+        ctx = _CTX[-1]
+        n = p["item_emb"].shape[0] * ctx.n_model
+        return sharded_field_lookup(p["item_emb"], ids.clamp(0, n - 1), ctx, placed=True)
     return gather_rows(p["item_emb"], ids.clamp(min=0))
+
+
+class _on_mesh:
+    """The tower call's context for ``_items``, bound to its mesh."""
+
+    def __init__(self, shard_ctx):
+        self.ctx = shard_ctx
+
+    def __enter__(self):
+        _CTX.append(self.ctx)
+        self.bound = bound(self.ctx.mesh) if self.ctx is not None else None
+        if self.bound is not None:
+            self.bound.__enter__()
+
+    def __exit__(self, *exc):
+        if self.bound is not None:
+            self.bound.__exit__(*exc)
+        _CTX.pop()
 
 
 def _lookup_fields(p, fields, cfg: RecConfig, shard_ctx):
     """fields [B, F] per-field ids -> [B, F, D]; rows offset per field."""
-    if shard_ctx is not None:
-        # The row-sharded lookup itself runs on a mesh; a tower laid over
-        # one (its table's spec, its batch over data) is the model mesh.
-        raise NotImplementedError(
-            "a tower with a sharding context (row-sharded tables) is ROADMAP A7")
     offs = torch.arange(cfg.n_fields, dtype=fields.dtype, device=fields.device)
     gids = fields + offs[None, :] * cfg.field_vocab
-    return sharded_field_lookup(p["field_emb"], gids, shard_ctx)
+    return sharded_field_lookup(p["field_emb"], gids, shard_ctx,
+                                placed=shard_ctx is not None)
 
 
 def _bst_seq(p, history, target, cfg: RecConfig):
@@ -287,13 +318,14 @@ def rec_user_embedding(p, feats: dict, cfg: RecConfig):
 
 def rec_serve_scores(p, feats: dict, cfg: RecConfig, shard_ctx=None):
     """Pointwise scores for a batch of (user, item) examples -> [B],
-    ``SERVE_CHUNK`` examples at a time."""
+    ``SERVE_CHUNK`` examples at a time (with a context: this rank's rows)."""
     feats = _feats(p, feats)
     B = next(iter(feats.values())).shape[0]
-    return torch.cat([
-        _serve_scores(p, {k: v[b0:b0 + SERVE_CHUNK] for k, v in feats.items()}, cfg,
-                      shard_ctx)
-        for b0 in range(0, B, SERVE_CHUNK)])
+    with _on_mesh(shard_ctx):
+        return torch.cat([
+            _serve_scores(p, {k: v[b0:b0 + SERVE_CHUNK] for k, v in feats.items()}, cfg,
+                          shard_ctx)
+            for b0 in range(0, B, SERVE_CHUNK)])
 
 
 def _serve_scores(p, feats: dict, cfg: RecConfig, shard_ctx):
@@ -323,12 +355,20 @@ def _bce(logits, labels):
 
 
 def rec_train_loss(p, batch: dict, cfg: RecConfig, shard_ctx=None):
-    if shard_ctx is not None:
-        raise NotImplementedError(
-            "rec_train_loss with a sharding context (row-sharded tables) is ROADMAP A7")
+    """The batch's training loss. With a context: from this rank's rows,
+    the global batch's loss on every rank; its backward pass gives this
+    rank's share of the gradient (the shares sum to it over the data axes)."""
     batch = _feats(p, batch)
+    with _on_mesh(shard_ctx):
+        loss = _train_loss(p, batch, cfg, shard_ctx)
+        if shard_ctx is not None:
+            loss = psum(loss, shard_ctx.data_axes) / shard_ctx.n_data
+        return loss
+
+
+def _train_loss(p, batch: dict, cfg: RecConfig, shard_ctx):
     if cfg.arch in ("bst", "autoint"):
-        return _bce(_serve_scores(p, batch, cfg, None), batch["label"])
+        return _bce(_serve_scores(p, batch, cfg, shard_ctx), batch["label"])
     if cfg.arch == "mind":
         u = _mind_interests(p, batch["history"], cfg)  # [B, J, D]
         t = _items(p, batch["target"])  # [B, D]
@@ -336,8 +376,11 @@ def rec_train_loss(p, batch: dict, cfg: RecConfig, shard_ctx=None):
         ui = (u @ t[:, :, None])[..., 0]  # [B, J]
         att = torch.softmax(ui * 2.0, dim=-1)
         user = (att[:, None, :] @ u)[:, 0]  # [B, D]
+        labels = torch.arange(user.shape[0], device=user.device)
+        if shard_ctx is not None:  # the in-batch negatives are the whole batch's
+            labels = labels + mesh_coord(shard_ctx.mesh, shard_ctx.data_axes)[0] * user.shape[0]
+            t = all_gather_tiled(t, tuple(shard_ctx.data_axes), 0)
         logits = (user @ t.T).to(torch.float32)  # [B, B] in-batch
-        labels = torch.arange(logits.shape[0], device=logits.device)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[:, None])[:, 0]
         return torch.mean(lse - gold)
@@ -352,7 +395,7 @@ def rec_train_loss(p, batch: dict, cfg: RecConfig, shard_ctx=None):
         # deterministic strided negatives and the gold column.
         n_neg = min(4096, cfg.n_items)
         neg_ids = torch.arange(n_neg, device=flat.device) * (cfg.n_items // n_neg)
-        neg_emb = gather_rows(p["item_emb"], neg_ids)  # [n_neg, D]
+        neg_emb = _items(p, neg_ids)  # [n_neg, D]
         gold_emb = _items(p, labels)  # [BM, D]
         neg_logits = dot_f32(flat, neg_emb.T)  # [BM, n_neg]
         gold_logit = torch.sum(flat.to(torch.float32) * gold_emb.to(torch.float32), dim=-1)
@@ -391,6 +434,11 @@ def rec_retrieval_scores(p, feats: dict, candidates, cfg: RecConfig, shard_ctx=N
     """
     feats = _feats(p, feats)
     candidates = torch.as_tensor(candidates, device=p["item_emb"].device)
+    with _on_mesh(shard_ctx):
+        return _retrieval_scores(p, feats, candidates, cfg, shard_ctx)
+
+
+def _retrieval_scores(p, feats, candidates, cfg, shard_ctx):
     if cfg.arch in ("mind", "bert4rec"):
         u = rec_user_embedding(p, feats, cfg)[0]  # [J, D]
         t = _items(p, candidates)  # [C, D]
@@ -402,8 +450,26 @@ def rec_retrieval_scores(p, feats: dict, candidates, cfg: RecConfig, shard_ctx=N
     raise ValueError(cfg.arch)
 
 
+def _spec_tree(node):
+    if isinstance(node, Params):
+        return {k: _spec_tree(node[k]) for k in node.keys()}
+    if isinstance(node, nn.ModuleList):
+        return [_spec_tree(v) for v in node]
+    if isinstance(node, dict):
+        return {k: _spec_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_spec_tree(v) for v in node]
+    return P()
+
+
 def rec_param_specs(p_example, cfg: RecConfig, model_axis: str = "model"):
-    raise NotImplementedError(
-        "rec_param_specs row-shards the tables over the mesh; the mesh paths are "
-        "ROADMAP A7")
+    """Embedding tables row-sharded over model; small nets replicated.
+    ``p_example`` is a ``Params`` or the reference's tree."""
+    del cfg
+    specs = _spec_tree(p_example)
+    specs["item_emb"] = P(model_axis, None)
+    if "field_emb" in specs:
+        specs["field_emb"] = P(model_axis, None)
+    return specs
+
 

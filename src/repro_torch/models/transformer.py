@@ -24,21 +24,53 @@ returns the cache it was given. ``rope`` (keyword-only, the port's own)
 passes a prebuilt ``rope_freqs`` table, so that a step built once does not
 rebuild it per call.
 
-``param_specs``, ``cache_specs`` and ``param_specs_splitkv`` wait for the
-mesh paths (ROADMAP A7), as does a sharding context.
+With a sharding context (``distributed.sharding.ShardCtx``) every entry
+point takes placed trees (``param_specs`` or ``param_specs_splitkv``, a
+cache by ``cache_specs``, tokens by their batch rows over the data axes)
+and keeps every activation as this rank's batch rows, replicated over
+``model``. Attention is ``attention.gqa_tp``/``mla_tp`` (the split-KV
+functions for ``decode_impl="split_kv"``), the dense FFN a column-sharded
+``w_gate``/``w_up`` and a row-sharded ``w_down`` with one ``psum``, MoE
+``moe.moe_ffn`` (``moe_ffn_decode_ep_all`` under split-KV). The output
+head is vocab-sharded: ``lm_decode_step`` returns this rank's columns of
+the logits (``logits_spec``), and the loss is the vocab-parallel
+cross-entropy (a ``pmax``, and ``psum``s of the exponentials and of the
+gold logit), averaged over the data axes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.range_daat import resolve_device
-from repro_torch.models.attention import MLAConfig, gqa, init_gqa, init_mla, mla
+from repro_torch.distributed.sharding import (
+    P,
+    axis_index,
+    bound,
+    pmax,
+    psum,
+    sum_grads,
+)
+from repro_torch.models.attention import (
+    MLAConfig,
+    gqa,
+    gqa_decode_splitkv,
+    gqa_prefill_splitkv,
+    gqa_tp,
+    init_gqa,
+    init_mla,
+    mla,
+    mla_decode_splitkv,
+    mla_tp,
+    rows_psum,
+)
 from repro_torch.models.layers import (
     Params,
     dense_init,
@@ -51,7 +83,7 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_init,
 )
-from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
+from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn, moe_ffn_decode_ep_all
 
 __all__ = ["LMConfig", "init_lm", "lm_forward", "lm_loss", "init_cache", "lm_decode_step",
            "param_specs", "count_params"]
@@ -95,9 +127,23 @@ def _init_attn(key, cfg: LMConfig, device):
     return init(key, cfg.attn, cfg.dtype, device)
 
 
-def _attn(params, x, rope, cfg: LMConfig, **kw):
+def _attn(params, x, rope, cfg: LMConfig, shard_ctx=None, **kw):
+    if shard_ctx is not None:
+        fn = mla_tp if _is_mla(cfg) else gqa_tp
+        return fn(params, x, rope, cfg.attn, shard_ctx, chunk=cfg.attn_chunk, **kw)
     fn = mla if _is_mla(cfg) else gqa
     return fn(params, x, rope, cfg.attn, chunk=cfg.attn_chunk, **kw)
+
+
+def _ffn(params, z, shard_ctx):
+    """SwiGLU; on a mesh its hidden dim is sharded over model (w_gate/w_up
+    columns, w_down rows) and one psum sums the partial outputs."""
+    if shard_ctx is None:
+        return swiglu(params, z)
+    ax = shard_ctx.model_axis
+    zf = sum_grads(z, ax)
+    h = F.silu(zf @ params["w_gate"]) * (zf @ params["w_up"])
+    return rows_psum(h, params["w_down"], ax, z.dtype)
 
 
 def _init_layer(key, cfg: LMConfig, use_moe: bool, device):
@@ -150,14 +196,21 @@ def rope_table(cfg: LMConfig, max_len: int, device) -> torch.Tensor:
 
 
 def _layer_apply(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx):
-    h, _ = _attn(layer["attn"], rms_norm(x, layer["ln1"]), rope, cfg, positions=positions)
+    with _bound(shard_ctx):  # a remat recomputes this in the backward pass
+        return _layer_body(layer, x, rope, cfg, positions, use_moe, shard_ctx)
+
+
+def _layer_body(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx):
+    h, _ = _attn(layer["attn"], rms_norm(x, layer["ln1"]), rope, cfg, shard_ctx,
+                 positions=positions)
     x = x + h
     z = rms_norm(x, layer["ln2"])
     if use_moe:
         B, S, d = z.shape
         y, aux = moe_ffn(layer["moe"], z.reshape(B * S, d), cfg.moe, shard_ctx)
         return x + y.reshape(B, S, d), aux
-    return x + swiglu(layer["ffn"], z), torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x + _ffn(layer["ffn"], z, shard_ctx),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _scan_segment(params_seg, x, rope, cfg, positions, use_moe, shard_ctx):
@@ -174,16 +227,19 @@ def _scan_segment(params_seg, x, rope, cfg, positions, use_moe, shard_ctx):
     return x, aux
 
 
-def _no_ctx(shard_ctx, what: str) -> None:
-    if shard_ctx is not None:
-        raise NotImplementedError(
-            f"{what} with a sharding context (the mesh's tensor and expert "
-            "parallelism) is ROADMAP A7; pass shard_ctx=None")
+def _bound(shard_ctx):
+    return bound(shard_ctx.mesh) if shard_ctx is not None else contextlib.nullcontext()
 
 
 def lm_forward(params, tokens, cfg: LMConfig, shard_ctx=None, *, rope=None):
     """tokens [B, S] -> (hidden [B, S, d], aux_loss). Logits are computed by
-    the loss (chunked) or by the caller via lm_head."""
+    the loss (chunked) or by the caller via lm_head. With a context: this
+    rank's batch rows of both, from placed parameters."""
+    with _bound(shard_ctx):
+        return _lm_forward(params, tokens, cfg, shard_ctx, rope)
+
+
+def _lm_forward(params, tokens, cfg, shard_ctx, rope):
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B, S = tokens.shape
@@ -215,17 +271,54 @@ def _chunked_xent(h2d, head, labels, chunk: int):
     return tot / T
 
 
+def _chunked_xent_vocab(h2d, head, labels, chunk: int, ax: str):
+    """``_chunked_xent`` with ``head`` this rank's vocab columns: the
+    log-sum-exp over the columns of every rank (a ``pmax`` and a ``psum``)
+    and the gold logit from the rank that holds it (a ``psum``)."""
+    T, _ = h2d.shape
+    if T % chunk != 0:
+        chunk = T
+    V_loc = head.shape[1]
+    v_lo = axis_index(ax) * V_loc
+    h2d = sum_grads(h2d, ax)
+    tot = torch.zeros((), dtype=torch.float32, device=h2d.device)
+    for c0 in range(0, T, chunk):
+        logits = dot_f32(h2d[c0:c0 + chunk], head)  # [c, V_loc]
+        mx = pmax(torch.amax(logits.detach(), dim=-1, keepdim=True), ax)
+        se = psum(torch.sum(torch.exp(logits - mx), dim=-1), ax)
+        lse = mx[:, 0] + torch.log(se)
+        lab = labels[c0:c0 + chunk].long() - v_lo
+        own = (lab >= 0) & (lab < V_loc)
+        gold = torch.gather(logits, -1, lab.clamp(0, V_loc - 1)[:, None])[:, 0]
+        gold = psum(torch.where(own, gold, torch.zeros_like(gold)), ax)
+        tot = tot + torch.sum(lse - gold)
+    return tot / T
+
+
 def lm_loss(params, tokens, cfg: LMConfig, shard_ctx=None):
-    """Next-token CE (+ MoE aux + MTP aux). tokens [B, S] int32."""
-    _no_ctx(shard_ctx, "lm_loss")
+    """Next-token CE (+ MoE aux + MTP aux). tokens [B, S] int32. With a
+    context: the global batch's loss on every rank, from this rank's rows;
+    its backward pass gives this rank's share of the gradient (the shares
+    sum to the gradient over the data axes)."""
+    with _bound(shard_ctx):
+        return _lm_loss(params, tokens, cfg, shard_ctx)
+
+
+def _xent(h2d, head, labels, cfg, shard_ctx):
+    if shard_ctx is None:
+        return _chunked_xent(h2d, head, labels, cfg.loss_chunk)
+    return _chunked_xent_vocab(h2d, head, labels, cfg.loss_chunk, shard_ctx.model_axis)
+
+
+def _lm_loss(params, tokens, cfg, shard_ctx):
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B, S = tokens.shape
     rope = rope_table(cfg, max(S, cfg.max_seq), dev)
-    h, aux = lm_forward(params, tokens, cfg, shard_ctx, rope=rope)
+    h, aux = _lm_forward(params, tokens, cfg, shard_ctx, rope)
     h_pred = h[:, :-1].reshape(B * (S - 1), cfg.d_model)
     labels = tokens[:, 1:].reshape(B * (S - 1))
-    loss = _chunked_xent(h_pred, params["lm_head"], labels, cfg.loss_chunk)
+    loss = _xent(h_pred, params["lm_head"], labels, cfg, shard_ctx)
 
     if cfg.mtp and "mtp" in params:
         # Predict token t+2 from (h_t, embed(token_{t+1})) through one block.
@@ -239,10 +332,11 @@ def lm_loss(params, tokens, cfg: LMConfig, shard_ctx=None):
         z = rms_norm(z, m["final_norm"])
         z_pred = z[:, :-1].reshape(B * (S - 2), cfg.d_model)
         mtp_labels = tokens[:, 2:].reshape(B * (S - 2))
-        loss = loss + cfg.mtp_weight * _chunked_xent(
-            z_pred, params["lm_head"], mtp_labels, cfg.loss_chunk
-        )
+        loss = loss + cfg.mtp_weight * _xent(
+            z_pred, params["lm_head"], mtp_labels, cfg, shard_ctx)
 
+    if shard_ctx is not None:  # each data block's mean; the batch's is their mean
+        loss = psum(loss, shard_ctx.data_axes) / shard_ctx.n_data
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_loss_weight * aux
     return loss
@@ -281,25 +375,35 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
 
 def _decode_segment(params_seg, cache_seg, x, rope, cfg, pos, use_moe, shard_ctx,
                     decode_impl: str = "batch"):
-    if decode_impl == "split_kv" and shard_ctx is not None:
-        raise NotImplementedError(
-            "decode_impl='split_kv' with a sharding context (the KV cache sharded over "
-            "the mesh, shard_map in the reference) is ROADMAP A7; with no context the "
-            "step runs the batch cache, as the reference does")
+    split = decode_impl == "split_kv" and shard_ctx is not None
     positions = int(pos) + torch.arange(x.shape[1], device=x.device)
     for i, layer in enumerate(params_seg):
         cache_layer = {name: buf[i] for name, buf in cache_seg.items()}
         z1 = rms_norm(x, layer["ln1"])
-        h, _ = _attn(layer["attn"], z1, rope, cfg, positions=positions,
-                     cache=cache_layer, cache_pos=pos)
+        S_new = x.shape[1]
+        if split and (S_new == 1 or _is_mla(cfg)):
+            # MLA takes a prefill chunk of any length on the split cache.
+            fn = mla_decode_splitkv if _is_mla(cfg) else gqa_decode_splitkv
+            h, _ = fn(layer["attn"], z1, rope, cfg.attn, cache_layer, pos, shard_ctx)
+        elif split:
+            # Seq-parallel prefill chunk (chunk size == per-rank slice).
+            h, _ = gqa_prefill_splitkv(layer["attn"], z1, rope, cfg.attn, cache_layer,
+                                       int(pos) // S_new, shard_ctx)
+        else:
+            h, _ = _attn(layer["attn"], z1, rope, cfg, shard_ctx, positions=positions,
+                         cache=cache_layer, cache_pos=pos)
         x = x + h
         z = rms_norm(x, layer["ln2"])
         if use_moe:
             B, S, d = z.shape
-            y, _ = moe_ffn(layer["moe"], z.reshape(B * S, d), cfg.moe, shard_ctx)
+            if split:
+                y, _ = moe_ffn_decode_ep_all(layer["moe"], z.reshape(B * S, d), cfg.moe,
+                                             shard_ctx)
+            else:
+                y, _ = moe_ffn(layer["moe"], z.reshape(B * S, d), cfg.moe, shard_ctx)
             x = x + y.reshape(B, S, d)
         else:
-            x = x + swiglu(layer["ffn"], z)
+            x = x + _ffn(layer["ffn"], z, shard_ctx)
     return x, cache_seg
 
 
@@ -309,52 +413,203 @@ def lm_decode_step(
 ):
     """One decode (or prefill) step. tokens [B, S_new]; pos = cache fill.
 
+    decode_impl: "batch" (cache sharded over batch, the baseline) or
+    "split_kv" (cache sharded batch x seq with the partial-softmax merge,
+    absorbed MLA and full-grid MoE EP; without a mesh, the batch path).
     Returns (logits [B, S_new, V] float32, or [B, 1, V] with
     ``logits_last_only``, the prefill contract, and the cache, updated in
-    place). ``decode_impl="split_kv"`` needs a mesh (A7); without one it is
-    the batch path, as in the reference.
+    place). With a context: this rank's placed tokens, cache and
+    parameters; the logits are this rank's rows and vocab columns
+    (``logits_spec``).
     """
-    dev = params["embed"].device
-    tokens = torch.as_tensor(tokens, device=dev)
-    x = gather_rows(params["embed"], tokens)
-    if rope is None:
-        rope = rope_table(cfg, cfg.max_seq, dev)
-    new_cache = {}
-    if "dense" in params:
-        x, new_cache["dense"] = _decode_segment(
-            params["dense"], cache["dense"], x, rope, cfg, pos, False, shard_ctx,
-            decode_impl,
-        )
-    if "moe" in params:
-        x, new_cache["moe"] = _decode_segment(
-            params["moe"], cache["moe"], x, rope, cfg, pos, True, shard_ctx,
-            decode_impl,
-        )
-    h = rms_norm(x, params["final_norm"])
-    if logits_last_only:
-        h = h[:, -1:]
-    return dot_f32(h, params["lm_head"]), new_cache
+    with _bound(shard_ctx):
+        dev = params["embed"].device
+        tokens = torch.as_tensor(tokens, device=dev)
+        x = gather_rows(params["embed"], tokens)
+        if rope is None:
+            rope = rope_table(cfg, cfg.max_seq, dev)
+        new_cache = {}
+        if "dense" in params:
+            x, new_cache["dense"] = _decode_segment(
+                params["dense"], cache["dense"], x, rope, cfg, pos, False, shard_ctx,
+                decode_impl,
+            )
+        if "moe" in params:
+            x, new_cache["moe"] = _decode_segment(
+                params["moe"], cache["moe"], x, rope, cfg, pos, True, shard_ctx,
+                decode_impl,
+            )
+        h = rms_norm(x, params["final_norm"])
+        if logits_last_only:
+            h = h[:, -1:]
+        return dot_f32(h, params["lm_head"]), new_cache
+
+
+def logits_spec(shard_ctx) -> P:
+    """The layout of ``lm_decode_step``'s logits on a mesh: rows over the
+    data axes, the vocab over model."""
+    return P(shard_ctx.data_axes, None, shard_ctx.model_axis)
 
 
 # ------------------------------------------------------------------- specs
 
 
-def _needs_mesh(name: str):
-    raise NotImplementedError(
-        f"{name} gives PartitionSpecs for the device mesh; the mesh paths are "
-        "ROADMAP A7")
+def _map_specs(fn, tree):
+    if isinstance(tree, P):
+        return fn(tree)
+    return {k: _map_specs(fn, v) for k, v in tree.items()}
+
+
+def _kv_shardable(a) -> bool:
+    return a.n_kv_heads * a.head_dim % 16 == 0 and a.n_kv_heads >= 16
+
+
+def _attn_specs(cfg: LMConfig, m: str):
+    if _is_mla(cfg):
+        return {
+            "w_dq": P(),
+            "q_norm": P(),
+            "w_uq": P(None, m),
+            "w_dkv": P(),
+            "kv_norm": P(),
+            "w_uk": P(None, m),
+            "w_uv": P(None, m),
+            "wo": P(m, None),
+        }
+    a = cfg.attn
+    kv_shardable = _kv_shardable(a)
+    kv = P(None, m) if kv_shardable else P()
+    s = {
+        "wq": P(None, m),
+        "wk": kv,
+        "wv": kv,
+        "wo": P(m, None),
+    }
+    if a.qkv_bias:
+        s["bq"] = P(m)
+        s["bk"] = P(m) if kv_shardable else P()
+        s["bv"] = P(m) if kv_shardable else P()
+    if a.qk_norm:
+        s["q_norm"] = P()
+        s["k_norm"] = P()
+    return s
+
+
+def _layer_specs(cfg: LMConfig, use_moe: bool, m: str):
+    def stack(spec: P) -> P:
+        return P(None, *spec)  # leading layer-stack dim
+
+    attn = _map_specs(stack, _attn_specs(cfg, m))
+    layer = {"ln1": P(None), "attn": attn, "ln2": P(None)}
+    if use_moe:
+        moe = {
+            "router": P(None),
+            "w_gate": P(None, m, None, None),
+            "w_up": P(None, m, None, None),
+            "w_down": P(None, m, None, None),
+        }
+        if cfg.moe.n_shared:
+            moe["shared"] = {
+                "w_gate": P(None, None, m),
+                "w_up": P(None, None, m),
+                "w_down": P(None, m, None),
+            }
+        layer["moe"] = moe
+    else:
+        layer["ffn"] = {
+            "w_gate": P(None, None, m),
+            "w_up": P(None, None, m),
+            "w_down": P(None, m, None),
+        }
+    return layer
 
 
 def param_specs(cfg: LMConfig, model_axis: str = "model"):
-    _needs_mesh("param_specs")
+    """PartitionSpec tree matching init_lm's structure (TP over model), in
+    the reference's stacked layout: a segment's leaves lead with the layer
+    dim (``distributed.sharding.place_tree`` drops it per layer)."""
+    m = model_axis
+    specs = {
+        "embed": P(None, None),
+        "final_norm": P(None),
+        "lm_head": P(None, m),  # vocab-sharded output projection
+    }
+    if cfg.n_dense_total:
+        specs["dense"] = _layer_specs(cfg, False, m)
+    if cfg.n_moe_layers:
+        specs["moe"] = _layer_specs(cfg, True, m)
+    if cfg.mtp:
+        block = _map_specs(lambda s: P(*s[1:]), _layer_specs(cfg, False, m))  # un-stack
+        specs["mtp"] = {
+            "proj": P(),
+            "ln_h": P(None),
+            "ln_e": P(None),
+            "block": block,
+            "final_norm": P(None),
+        }
+    return specs
 
 
 def cache_specs(cfg: LMConfig, data_axes, layout: str = "batch") -> dict:
-    _needs_mesh("cache_specs")
+    """KV cache shardings. layout="batch": batch-only (baseline);
+    layout="split": batch over data x sequence over model (split-KV)."""
+    seq = "model" if layout == "split" else None
+    if _is_mla(cfg):
+        seg = {
+            "c_kv": P(None, data_axes, seq, None),
+            "k_rope": P(None, data_axes, seq, None),
+        }
+    else:
+        seg = {
+            "k": P(None, data_axes, seq, None, None),
+            "v": P(None, data_axes, seq, None, None),
+        }
+    out = {}
+    if cfg.n_dense_total:
+        out["dense"] = seg
+    if cfg.n_moe_layers:
+        out["moe"] = seg
+    return out
 
 
 def param_specs_splitkv(cfg: LMConfig, model_axis: str = "model", ep_grid_ok: bool = True):
-    _needs_mesh("param_specs_splitkv")
+    """Param shardings for the split-KV decode variant.
+
+    Attention projections are row-sharded on their input dim; MLA
+    w_uk/w_uv replicated (absorbed-path operands); MoE experts sharded over
+    the full (data, model) grid when ``ep_grid_ok``; everything else as in
+    training.
+    """
+    m = model_axis
+    specs = param_specs(cfg, m)
+
+    def attn_split():
+        if _is_mla(cfg):
+            return {
+                "w_dq": P(None, m, None), "q_norm": P(None),
+                "w_uq": P(None, m, None), "w_dkv": P(None, m, None),
+                "kv_norm": P(None), "w_uk": P(None), "w_uv": P(None),
+                "wo": P(None, m, None),
+            }
+        a = cfg.attn
+        s = {
+            "wq": P(None, m, None), "wk": P(None, m, None),
+            "wv": P(None, m, None), "wo": P(None, m, None),
+        }
+        if a.qkv_bias:
+            s.update({"bq": P(None), "bk": P(None), "bv": P(None)})
+        if a.qk_norm:
+            s.update({"q_norm": P(None), "k_norm": P(None)})
+        return s
+
+    for seg in ("dense", "moe"):
+        if seg in specs:
+            specs[seg]["attn"] = attn_split()
+    if "moe" in specs and cfg.moe is not None and ep_grid_ok:
+        # Full-grid EP when experts cover data x model (deepseek-v3: 256/256).
+        for w in ("w_gate", "w_up", "w_down"):
+            specs["moe"]["moe"][w] = P(None, ("data", m), None, None)
+    return specs
 
 
 def count_params(cfg: LMConfig) -> tuple[int, int]:

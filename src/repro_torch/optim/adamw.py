@@ -110,38 +110,53 @@ def _global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
 
 
+def _scale_and_corrections(gnorm: torch.Tensor, step: torch.Tensor, cfg: AdamWConfig):
+    """The clip scale of a global norm and the bias corrections of ``step``
+    (the step after the increment)."""
+    one = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    scale = torch.minimum(one, cfg.grad_clip / torch.clamp(gnorm, min=1e-9))
+    stepf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
+    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
+    return scale, bc1, bc2
+
+
+def _leaf_step(p, g, m_state, v_state, scale, bc1, bc2, lr, cfg: AdamWConfig):
+    """One leaf's update: (p's new value in float32, the encoded m and v).
+    ``p`` and ``g`` are the whole leaf, or the same part of it."""
+    g = g.to(torch.float32) * scale
+    m = cfg.b1 * _decode(m_state, p)
+    m += (1 - cfg.b1) * g
+    v = cfg.b2 * _decode(v_state, p)
+    gg = (1 - cfg.b2) * g
+    gg *= g
+    v += gg
+    del g, gg
+    den = v / bc2
+    den.sqrt_()
+    den += cfg.eps
+    delta = m / bc1
+    delta /= den
+    del den
+    delta += cfg.weight_decay * p.to(torch.float32)
+    delta *= lr
+    new = p.to(torch.float32) - delta
+    del delta
+    return new, _encode(m, cfg.moment_dtype), _encode(v, cfg.moment_dtype)
+
+
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr):
     """One AdamW step. ``grads`` maps the parameters' names to gradients.
     Returns (params, state, metrics), the first two updated in place."""
     leaves = param_leaves(params)
     step = state["step"] + 1
     gnorm = _global_norm(grads[n] for n in leaves)
-    one = torch.ones((), dtype=torch.float32, device=gnorm.device)
-    scale = torch.minimum(one, cfg.grad_clip / torch.clamp(gnorm, min=1e-9))
-    stepf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
-    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
+    scale, bc1, bc2 = _scale_and_corrections(gnorm, step, cfg)
     with torch.no_grad():
         for name, p in leaves.items():
-            g = grads[name].to(torch.float32) * scale
-            m = cfg.b1 * _decode(state["m"][name], p)
-            m += (1 - cfg.b1) * g
-            v = cfg.b2 * _decode(state["v"][name], p)
-            gg = (1 - cfg.b2) * g
-            gg *= g
-            v += gg
-            del g, gg
-            den = v / bc2
-            den.sqrt_()
-            den += cfg.eps
-            delta = m / bc1
-            delta /= den
-            del den
-            delta += cfg.weight_decay * p.to(torch.float32)
-            delta *= lr
-            p.copy_(p.to(torch.float32) - delta)
-            del delta
-            state["m"][name] = _encode(m, cfg.moment_dtype)
-            state["v"][name] = _encode(v, cfg.moment_dtype)
+            new, state["m"][name], state["v"][name] = _leaf_step(
+                p, grads[name], state["m"][name], state["v"][name], scale, bc1, bc2, lr, cfg)
+            p.copy_(new)
+            del new
     state["step"] = step
     return params, state, {"grad_norm": gnorm}

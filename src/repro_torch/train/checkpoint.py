@@ -19,7 +19,12 @@ writes an ``ml_dtypes`` bfloat16 array: a ``<V2`` member of its bits, and
 ``"bfloat16"`` in the manifest. The reference's own restore returns such a
 leaf as a ``|V2`` array (ROADMAP C4); this one reads it back as bfloat16
 with its bits unchanged. ``restore`` returns tensors on ``device`` (None:
-the card); restoring onto a mesh (``shardings``) waits for ROADMAP A7.
+the card). ``restore(step, shardings=...)`` is the elastic restore: given
+a tree of ``NamedSharding`` (``distributed.sharding``) over any mesh,
+matching the state's structure, each rank reads the leaves one at a time
+and keeps only its block of each (``sharding.place``), on its own device;
+a leaf without a sharding comes back whole. A state saved from one mesh
+(gathered to the global arrays first) restores onto another.
 """
 
 from __future__ import annotations
@@ -96,6 +101,35 @@ def _savez(path: str, arrays: dict) -> None:
                 _write_member(fid, a)
 
 
+def _member_map(path: str, zf: zipfile.ZipFile, key: str) -> np.ndarray:
+    """The ``.npy`` member ``key`` of an uncompressed ``.npz``, memory-mapped."""
+    info = zf.getinfo(key + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        return np.load(zf.open(info))
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)
+        start = info.header_offset + 30 + int.from_bytes(local[26:28], "little") + \
+            int.from_bytes(local[28:30], "little")
+        f.seek(start)
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if int(np.prod(shape)) == 0:
+        return np.zeros(shape, dtype)
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=shape,
+                     order="F" if fortran else "C")
+
+
+def _rank_device():
+    from repro_torch.distributed.sharding import runtime
+
+    rt = runtime()
+    return rt.device if rt is not None else resolve_device(None)
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep_last: int = 3, host_id: int = 0):
         self.dir = directory
@@ -160,23 +194,34 @@ class Checkpointer:
     def restore(self, step: int, shardings=None, device=None):
         """Restore a step as the reference's tree of tensors on ``device``
         (None: the card); a leaf the manifest calls bfloat16 comes back as
-        bfloat16 with its bits unchanged."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore with shardings re-shards the arrays onto a device mesh (the "
-                "reference's elastic restore); the mesh paths are ROADMAP A7")
-        dev = resolve_device(device)
+        bfloat16 with its bits unchanged. With ``shardings`` (a tree of
+        ``NamedSharding`` matching the state) each sharded leaf is this
+        rank's block, on its own device."""
+        flat_sh = _flatten(shardings) if shardings is not None else {}
+        dev = resolve_device(device) if len(flat_sh) == 0 or device is not None else None
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         flat = {}
-        with np.load(os.path.join(path, f"shard{self.host_id}.npz")) as data:
+        npz = os.path.join(path, f"shard{self.host_id}.npz")
+        with np.load(npz) as data, zipfile.ZipFile(npz) as zf:
             for k, meta in manifest["arrays"].items():
-                a = data[k]
-                if meta["dtype"] == "bfloat16":
-                    flat[k] = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+                # A sharded leaf is read in place (its member is stored
+                # uncompressed): only this rank's block leaves the disk.
+                a = _member_map(npz, zf, k) if k in flat_sh else data[k]
+                if k in flat_sh:  # the block alone is copied, off the host array
+                    from repro_torch.distributed.sharding import place
+
+                    sh = flat_sh[k]
+                    if meta["dtype"] == "bfloat16":
+                        a = a.view(np.dtype("V2"))
+                    t = place(a, sh.spec, sh.mesh, dev)
+                elif meta["dtype"] == "bfloat16":
+                    t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                 else:
-                    flat[k] = tensor_from_numpy(a, dev)
+                    t = tensor_from_numpy(a, "cpu")
+                flat[k] = t.to(dev if dev is not None else _rank_device())
+                del a
         return _unflatten(flat)
 
     def restore_latest(self, shardings=None, device=None):

@@ -26,8 +26,19 @@ boundary (``torch.cuda.synchronize``), where the reference blocks on the
 loss. Checkpoints hold the reference's trees (``layers.params_to_tree``,
 ``opt_state_to_tree``), so either package resumes the other's run.
 
-``zero1_spec`` and ``zero1_state_specs`` shard the optimizer state over a
-mesh's data axis; they raise until the mesh paths are ported (ROADMAP A7).
+On a mesh (``make_train_step(..., shard_ctx=, param_specs=)``, the step
+an ``Arch.build_step`` with a context returns) the step takes parameters
+placed by ``param_specs``, an optimizer state placed by
+``zero1_state_specs`` (``place_opt_state``, or ``init_zero1_state``) and a
+batch placed by ``batch_pspecs``; every rank calls it. The reference gets
+this layout from GSPMD; here each rank's backward pass gives its share of
+the gradient of its blocks, the shares are summed over the data axes, the
+clip norm sums each leaf's squares over the axes that shard it, and each
+data rank updates only its ZeRO-1 slice of the moments and of the
+parameter block (``zero1_spec`` names the dim; a stacked segment's layer
+dim gives each data rank whole layers), then the updated slices are
+gathered back over the data axes. The result is the single-device step's.
+Int8 moments are not sliced: with them the step takes one data rank.
 """
 
 from __future__ import annotations
@@ -37,9 +48,21 @@ import signal
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (
+    P,
+    all_gather_tiled,
+    bound,
+    mesh_coord,
+    place,
+    psum,
+    runtime,
+    spec_at,
+)
 from repro_torch.models.layers import (
+    _ref_key,
     flat_to_tree,
     host_array,
     param_leaves,
@@ -49,26 +72,379 @@ from repro_torch.models.layers import (
     trainable,
     tree_to_flat,
 )
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    _decode,
+    _encode,
+    _global_norm,
+    _leaf_step,
+    _scale_and_corrections,
+    adamw_update,
+    init_opt_state,
+    is_q8_leaf,
+)
 from repro_torch.optim.schedule import cosine_with_warmup
 
 __all__ = ["make_train_step", "zero1_state_specs", "Trainer", "TrainerConfig",
-           "opt_state_to_tree", "opt_state_from_tree"]
+           "opt_state_to_tree", "opt_state_from_tree", "zero1_spec", "init_zero1_state",
+           "place_opt_state", "gather_opt_state"]
 
 
-def _needs_mesh(name: str):
-    raise NotImplementedError(
-        f"{name} shards the optimizer state over a device mesh's data axis (ZeRO-1); "
-        "the mesh paths are ROADMAP A7")
+# ------------------------------------------------------------------ ZeRO-1
 
 
-def zero1_spec(spec, shape, n_data: int, data_axes, mesh_shape=None):
-    _needs_mesh("zero1_spec")
+def _axes_size(axes, mesh_shape: dict) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return mesh_shape.get(axes, 1)
+    n = 1
+    for a in axes:
+        n *= mesh_shape.get(a, 1)
+    return n
+
+
+def _fit_spec(spec: P, shape, mesh_shape: dict) -> P:
+    """Drop spec axes that no longer divide their dimension (e.g. a
+    model-sharded FFN dim after int8 block-reshaping)."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    parts = parts[: len(shape)]
+    for i, (s, d) in enumerate(zip(parts, shape)):
+        if s is not None and d % _axes_size(s, mesh_shape) != 0:
+            parts[i] = None
+    return P(*parts)
+
+
+def _uses_axes(parts, axes) -> bool:
+    names = set(axes)
+    for s in parts:
+        if s is None:
+            continue
+        for a in (s,) if isinstance(s, str) else s:
+            if a in names:
+                return True
+    return False
+
+
+def zero1_spec(spec: P, shape, n_data: int, data_axes, mesh_shape=None) -> P:
+    """Add a data-axis shard on the first unsharded divisible dim (idempotent:
+    specs already carrying a data axis, e.g. FSDP params, pass through)."""
+    if mesh_shape is not None:
+        spec = _fit_spec(spec, shape, mesh_shape)
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    parts = parts[: len(shape)]
+    if _uses_axes(parts, data_axes):
+        return P(*parts)
+    for i, (s, d) in enumerate(zip(parts, shape)):
+        if s is None and d % n_data == 0 and d > 0:
+            parts[i] = data_axes
+            return P(*parts)
+    return P(*parts)
+
+
+def _shape_tree(flat: dict, stacked) -> dict:
+    """Port-named leaves as the reference's nested tree of shapes (a stacked
+    segment's layers as one ``(L, ...)`` shape; q8 leaves as dicts)."""
+    def shape(v):
+        return {k: tuple(t.shape) for k, t in v.items()} if is_q8_leaf(v) else tuple(v.shape)
+
+    root, layers = {}, {}
+    for name, v in flat.items():
+        path, layer = _ref_key(name, stacked)
+        if layer is None:
+            _put_path(root, path, shape(v))
+        else:
+            layers.setdefault(path, []).append(shape(v))
+    for path, shapes in layers.items():
+        first = shapes[0]
+        _put_path(root, path, {k: (len(shapes), *v) for k, v in first.items()}
+                  if isinstance(first, dict) else (len(shapes), *first))
+    return root
+
+
+def _put_path(root: dict, path: tuple, value) -> None:
+    node = root
+    for c in path[:-1]:
+        node = node.setdefault(str(c), {})
+    node[str(path[-1])] = value
+
+
+def _at(tree, key):
+    if isinstance(tree, (list, tuple)):
+        return tree[int(key)]
+    return tree[key] if key in tree else tree[str(key)]
+
+
+def _as_shape_trees(params, opt_state):
+    """(param shapes, m shapes, v shapes) in the reference's layout, from
+    either package's trees: a ``Params`` and the port's state, or nested
+    trees of arrays."""
+    if isinstance(params, torch.nn.Module):
+        stacked = params.stacked
+        leaves = param_leaves(params)
+        return (_shape_tree(leaves, stacked), _shape_tree(opt_state["m"], stacked),
+                _shape_tree(opt_state["v"], stacked))
+
+    def shapes(t):
+        if is_q8_leaf(t):
+            return {k: tuple(np.shape(v)) for k, v in t.items()}
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [shapes(v) for v in t]
+        return tuple(np.shape(t))
+    return shapes(params), shapes(opt_state["m"]), shapes(opt_state["v"])
 
 
 def zero1_state_specs(param_specs, params, opt_state, n_data: int, data_axes,
                       mesh_shape: dict | None = None):
-    _needs_mesh("zero1_state_specs")
+    """PartitionSpecs for the optimizer state matching init_opt_state's
+    structure, in the reference's layout.
+
+    mesh_shape ({axis: size}) enables divisibility sanitization, required
+    for int8 moments whose block reshaping can break param-spec alignment.
+    ``params``/``opt_state`` are a ``Params`` and the port's state, or the
+    reference's trees.
+    """
+    p_shapes, m_shapes, v_shapes = _as_shape_trees(params, opt_state)
+
+    def moment_spec(p_spec: P, p_shape, s):
+        if isinstance(s, dict):
+            q_shape = s["q"]
+            base = list(p_spec) + [None] * (len(q_shape) - len(p_spec))
+            qspec = zero1_spec(P(*base), q_shape, n_data, data_axes, mesh_shape)
+            scspec = zero1_spec(P(*base), s["scale"], n_data, data_axes, mesh_shape)
+            return {"q": qspec, "scale": scspec}
+        return zero1_spec(p_spec, p_shape, n_data, data_axes, mesh_shape)
+
+    def walk(spec, ps, ms):
+        if isinstance(spec, P):
+            return moment_spec(spec, ps, ms)
+        if isinstance(spec, dict):
+            return {k: walk(v, _at(ps, k), _at(ms, k)) for k, v in spec.items()}
+        return [walk(v, _at(ps, i), _at(ms, i)) for i, v in enumerate(spec)]
+
+    return {"m": walk(param_specs, p_shapes, m_shapes),
+            "v": walk(param_specs, p_shapes, v_shapes), "step": P()}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """A parameter block's place in the sharded step. ``axes``: the mesh
+    axes its spec shards it over (its squares are summed over them for the
+    clip norm); ``reduce``: the data axes its gradient is summed over;
+    ``kind``: "whole" (every data rank updates the block), "layer" (the
+    data rank ``own`` updates this layer of a stacked segment) or "slice"
+    (``[lo, hi)`` of dim ``dim``, over the data axes)."""
+
+    axes: tuple
+    reduce: tuple
+    kind: str
+    own: bool = True
+    dim: int = 0
+    lo: int = 0
+    hi: int = 0
+
+
+def _spec_axes(spec) -> tuple:
+    out = []
+    for e in spec:
+        if e is None:
+            continue
+        out.extend((e,) if isinstance(e, str) else e)
+    return tuple(out)
+
+
+def _mesh_shape(mesh) -> dict:
+    return {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+
+
+def _leaf_layout(name, block: torch.Tensor, param_specs, stacked, n_layers: dict,
+                 shard_ctx, moment_dtype: str) -> _Leaf:
+    mesh = shard_ctx.mesh
+    shape = _mesh_shape(mesh)
+    da = tuple(shard_ctx.data_axes)
+    path, layer = _ref_key(name, stacked)
+    full = spec_at(param_specs, path)  # the stacked spec, layer dim included
+    per = P(*tuple(full)[1:]) if layer is not None else full
+    parts = list(per) + [None] * (block.ndim - len(per))
+    gshape = [d * _axes_size(e, shape) for d, e in zip(block.shape, parts)]
+    axes = _spec_axes(per)
+    reduce = tuple(a for a in da if a not in axes)
+    n_data = _axes_size(da, shape)
+    lead = (n_layers[path[0]],) if layer is not None else ()
+    gfull = (*lead, *gshape)
+    if moment_dtype == "int8":
+        # Int8 moments are not sliced over data ranks: every one holds the
+        # block's blocks of 256 whole, as on one data rank.
+        if n_data > 1:
+            raise ValueError(f"{name}: int8 moments under ZeRO-1 need one data rank; "
+                             "use fp32 or bf16 moments")
+        q_shape = (*gfull[:-1], (gfull[-1] + 255) // 256, 256)
+        base = P(*(list(full) + [None] * (len(q_shape) - len(full))))
+        if tuple(_fit_spec(base, q_shape, shape)) != tuple(base):
+            raise ValueError(f"{name}: int8 moments on this mesh would unshard a "
+                             "model-sharded dim; use fp32 or bf16 moments")
+        return _Leaf(axes, reduce, "whole")
+    mspec = zero1_spec(full, gfull, n_data, da, shape)
+    j = _data_dim(mspec, da)
+    if j is None or _uses_axes(list(full), da):
+        return _Leaf(axes, reduce, "whole")
+    idx, n = mesh_coord(mesh, da)
+    if layer is not None and j == 0:
+        per_rank = n_layers[path[0]] // n
+        return _Leaf(axes, reduce, "layer", own=layer // per_rank == idx)
+    dim = j - len(lead)
+    w = block.shape[dim] // n
+    return _Leaf(axes, reduce, "slice", dim=dim, lo=idx * w, hi=(idx + 1) * w)
+
+
+def _data_dim(spec: P, data_axes) -> int | None:
+    for i, e in enumerate(spec):
+        if e is not None and _uses_axes([e], data_axes):
+            return i
+    return None
+
+
+def _layouts(params, param_specs, shard_ctx, moment_dtype: str) -> dict:
+    stacked = params.stacked
+    n_layers = {seg: len(params[seg]) for seg in stacked if seg in params}
+    return {n: _leaf_layout(n, p, param_specs, stacked, n_layers, shard_ctx, moment_dtype)
+            for n, p in param_leaves(params).items()}
+
+
+def _slice(x: torch.Tensor, lay: _Leaf) -> torch.Tensor:
+    return x.narrow(lay.dim, lay.lo, lay.hi - lay.lo) if lay.kind == "slice" else x
+
+
+def _empty(dev) -> torch.Tensor:
+    return torch.zeros((0,), dtype=torch.float32, device=dev)
+
+
+def _moment_block(m, lay: _Leaf):
+    """This rank's part of a global moment under ``lay`` (an int8 moment is
+    always whole)."""
+    if lay.kind == "layer" and not lay.own:
+        return _empty(m.device)
+    return _slice(m, lay)
+
+
+def init_zero1_state(params, cfg: AdamWConfig, param_specs, shard_ctx) -> dict:
+    """Zero moments of placed ``params``, each rank holding its ZeRO-1 part
+    (``zero1_state_specs``) and nothing else."""
+    lays = _layouts(params, param_specs, shard_ctx, cfg.moment_dtype)
+    leaves = param_leaves(params)
+    dev = next(iter(leaves.values())).device
+
+    def zero(n):
+        lay = lays[n]
+        if lay.kind == "layer" and not lay.own:
+            return _empty(dev)
+        z = torch.zeros(_slice(leaves[n], lay).shape, dtype=torch.float32, device=dev)
+        return _encode(z, cfg.moment_dtype)
+
+    return {"m": {n: zero(n) for n in leaves}, "v": {n: zero(n) for n in leaves},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def place_opt_state(state, params, param_specs, shard_ctx, moment_dtype: str = "fp32"):
+    """This rank's ZeRO-1 part of a global optimizer state (the port's, or
+    the reference's tree as ``opt_state_from_tree`` reads it), next to
+    ``params`` placed by ``param_specs``: each moment first placed as its
+    parameter is, then sliced over the data axes."""
+    if not isinstance(state["m"], dict) or any(isinstance(v, dict) and not is_q8_leaf(v)
+                                               for v in state["m"].values()):
+        state = opt_state_from_tree(state, params.stacked, "cpu")
+    lays = _layouts(params, param_specs, shard_ctx, moment_dtype)
+    mesh = shard_ctx.mesh
+
+    def one(name, m):
+        spec = spec_at(param_specs, name.split("."))
+        if is_q8_leaf(m):
+            base = P(*(list(spec) + [None] * (m["q"].ndim - len(spec))))
+            blk = {"q": place(m["q"], base, mesh), "scale": place(m["scale"], P(
+                *(list(base)[:-1] + [None])), mesh)}
+        else:
+            blk = place(m, spec, mesh)
+        return _moment_block(blk, lays[name])
+
+    dev = next(iter(params.parameters())).device
+    return {"m": {n: one(n, v) for n, v in state["m"].items()},
+            "v": {n: one(n, v) for n, v in state["v"].items()},
+            "step": torch.as_tensor(state["step"]).to(device=dev, dtype=torch.int32)}
+
+
+def _gather_moment(m, p_block: torch.Tensor, lay: _Leaf, data_axes, dtype: str):
+    if lay.kind == "whole":
+        return m
+    if lay.kind == "layer":
+        full = _decode(m, p_block) if lay.own else torch.zeros(
+            p_block.shape, dtype=torch.float32, device=p_block.device)
+        return _encode(psum(full, data_axes), dtype)
+    return all_gather_tiled(m, data_axes, lay.dim)
+
+
+def gather_opt_state(state, params, param_specs, shard_ctx, moment_dtype: str = "fp32",
+                     root: int | None = None):
+    """The global optimizer state (the port's, on every rank) from every
+    rank's ZeRO-1 parts: gathered over the data axes, then as each
+    moment's parameter is placed. With ``root`` it lands on that rank's
+    host, one leaf at a time, and the other ranks get None."""
+    from repro_torch.distributed.sharding import gather
+
+    lays = _layouts(params, param_specs, shard_ctx, moment_dtype)
+    leaves = param_leaves(params)
+    da = tuple(shard_ctx.data_axes)
+    mesh = shard_ctx.mesh
+
+    def whole(name, m):
+        spec = spec_at(param_specs, name.split("."))
+        blk = _gather_moment(m, leaves[name], lays[name], da, moment_dtype)
+        if is_q8_leaf(blk):
+            base = P(*(list(spec) + [None] * (blk["q"].ndim - len(spec))))
+            return {k: gather(v, base, mesh, root) for k, v in blk.items()}
+        return gather(blk, spec, mesh, root)
+
+    with bound(mesh):
+        out = {k: {n: whole(n, v) for n, v in state[k].items()} for k in ("m", "v")}
+    if root is not None and runtime() is not None and runtime().rank != root:
+        return None
+    return out | {"step": state["step"].cpu() if root is not None else state["step"]}
+
+
+def _sharded_update(params, grads, state, cfg: AdamWConfig, lr, lays, shard_ctx):
+    """``adamw_update`` on blocks: the clip norm over the whole gradient,
+    then each data rank's ZeRO-1 slice updated and the slices gathered."""
+    leaves = param_leaves(params)
+    da = tuple(shard_ctx.data_axes)
+    groups: dict = {}
+    for n, g in grads.items():
+        groups.setdefault(lays[n].axes, []).append(g)
+    sq = torch.zeros((), dtype=torch.float32, device=state["step"].device)
+    for axes, gs in sorted(groups.items()):
+        part = _global_norm(gs) ** 2
+        sq = sq + (psum(part, axes) if axes else part)
+    gnorm = torch.sqrt(sq)
+    step = state["step"] + 1
+    scale, bc1, bc2 = _scale_and_corrections(gnorm, step, cfg)
+    with torch.no_grad():
+        for name, p in leaves.items():
+            lay = lays[name]
+            if lay.kind == "layer" and not lay.own:
+                new = torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+            else:
+                new, state["m"][name], state["v"][name] = _leaf_step(
+                    _slice(p, lay), _slice(grads[name], lay), state["m"][name],
+                    state["v"][name], scale, bc1, bc2, lr, cfg)
+                new = new.to(p.dtype)
+            if lay.kind == "layer":
+                p.copy_(psum(new, da))
+            elif lay.kind == "slice":
+                p.copy_(all_gather_tiled(new, da, lay.dim))
+            else:
+                p.copy_(new)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm}
 
 
 def opt_state_to_tree(state, stacked: tuple[str, ...] = ()) -> dict:
@@ -78,16 +454,56 @@ def opt_state_to_tree(state, stacked: tuple[str, ...] = ()) -> dict:
             "step": host_array(state["step"])}
 
 
-def opt_state_from_tree(tree, stacked: tuple[str, ...] = (), device=None) -> dict:
+def opt_state_from_tree(tree, stacked: tuple[str, ...] = (), device=None, specs=None,
+                        mesh=None) -> dict:
     """The reference's optimizer-state tree (numpy arrays or tensors) as the
-    port's state on ``device``."""
-    def moments(t):
-        return {n: ({k: tensor_from_numpy(a, device) for k, a in v.items()}
-                    if isinstance(v, dict) else tensor_from_numpy(v, device))
-                for n, v in tree_to_flat(t, stacked).items()}
+    port's state on ``device``. A tree of this rank's blocks (a restore with
+    ``shardings``) passes its moment specs and mesh: a stacked leaf whose
+    layer dim is sharded holds layers [i * L_b, (i + 1) * L_b) of L, and the
+    port's state names them so, with empty moments for the other layers."""
+    def moments(t, mspecs):
+        flat = {}
+        for n, v in tree_to_flat(t, stacked).items():
+            flat[n] = ({k: tensor_from_numpy(a, device) for k, a in v.items()}
+                       if isinstance(v, dict) else tensor_from_numpy(v, device))
+        if specs is None:
+            return flat
+        out = {}
+        for n, v in flat.items():
+            path, layer = _ref_key(n, stacked)
+            spec = _node_at(mspecs, path) if layer is not None else None
+            spec = tuple(spec["q"] if isinstance(spec, dict) else spec or ())
+            if not spec or spec[0] is None:
+                out[n] = v
+                continue
+            axes = (spec[0],) if isinstance(spec[0], str) else tuple(spec[0])
+            idx, cnt = mesh_coord(mesh, axes)
+            nb = _n_block_layers(t, path)
+            rest = tuple(map(str, path[1:]))
+            for i in range(nb * cnt):
+                out.setdefault(".".join((path[0], str(i), *rest)), _empty(
+                    torch.device(device) if device is not None else torch.device("cpu")))
+            out[".".join((path[0], str(idx * nb + layer), *rest))] = v
+        return out
 
-    return {"m": moments(tree["m"]), "v": moments(tree["v"]),
+    m_specs = specs["m"] if specs is not None else None
+    v_specs = specs["v"] if specs is not None else None
+    return {"m": moments(tree["m"], m_specs), "v": moments(tree["v"], v_specs),
             "step": tensor_from_numpy(tree["step"], device).to(torch.int32)}
+
+
+def _node_at(tree, path):
+    for c in path:
+        tree = _at(tree, c)
+    return tree
+
+
+def _n_block_layers(tree, path) -> int:
+    node = tree
+    for c in path:
+        node = _at(node, c)
+    first = node["q"] if is_q8_leaf(node) else node
+    return int(first.shape[0])
 
 
 def _grads(loss_fn, params, batch, leaves):
@@ -105,11 +521,16 @@ def make_train_step(
     accum: int = 1,
     lr_schedule: Callable | None = None,
     donate: bool = True,
+    shard_ctx=None,
+    param_specs=None,
 ):
     """Build a train step: (params, opt_state, batch) -> updated, in place.
     ``donate`` is accepted for the reference's signature; the step always
-    reuses its arguments' memory."""
+    reuses its arguments' memory. With ``shard_ctx`` and ``param_specs``
+    the step runs on placed trees (the module docstring); every rank calls
+    it."""
     del donate
+    layouts: dict = {}
 
     def default_lr(step):
         return torch.tensor(opt_cfg.lr, dtype=torch.float32, device=step.device)
@@ -135,9 +556,18 @@ def make_train_step(
             grads = [g / accum for g in grads]
 
         lr = lr_schedule(opt_state["step"])
-        params, opt_state, metrics = adamw_update(
-            params, dict(zip(leaves, grads)), opt_state, opt_cfg, lr
-        )
+        if shard_ctx is None:
+            params, opt_state, metrics = adamw_update(
+                params, dict(zip(leaves, grads)), opt_state, opt_cfg, lr
+            )
+        else:
+            if not layouts:
+                layouts.update(_layouts(params, param_specs, shard_ctx, opt_cfg.moment_dtype))
+            with bound(shard_ctx.mesh):
+                grads = {n: (psum(g, layouts[n].reduce) if layouts[n].reduce else g)
+                         for n, g in zip(leaves, grads)}
+                params, opt_state, metrics = _sharded_update(
+                    params, grads, opt_state, opt_cfg, lr, layouts, shard_ctx)
         metrics = dict(metrics, loss=loss, lr=lr)
         return params, opt_state, metrics
 

@@ -264,28 +264,52 @@ def test_anytime_ir_params_are_meta_specs():
 @pytest.mark.parametrize("name", NAMES)
 def test_train_shapes_and_mesh_functions_raise(name):
     """Every ``train`` shape builds and takes a step on the CPU (its
-    parameters move, its state's step counts 1, its metrics are finite);
-    every mesh function of a model raises naming A7; ``anytime-ir``'s specs
-    are the reference's."""
+    parameters move, its state's step counts 1, its metrics are finite),
+    and the same step built with a context on a one-process mesh
+    (``LocalMesh``: the sharded step, its ZeRO-1 state and collectives all
+    of size 1) gives the same parameters; every shape's step builds with a
+    context (a serve step with its ``out_specs``); ``param_pspecs`` names
+    a spec for every parameter and ``batch_pspecs`` one for every input
+    (the specs themselves: tests/test_torch_mesh_specs.py); ``anytime-ir``'s
+    specs are the reference's. (Before the mesh paths were ported, every
+    context raised.)"""
+    import copy
+
+    from repro_torch.distributed.sharding import LocalMesh, ShardCtx, spec_at
+    from repro_torch.models.layers import param_leaves
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.trainer import init_zero1_state
 
     arch = ARCHS[name]
     cfg = arch.model_config(True)
+    ctx = ShardCtx(LocalMesh())
     for shape, info in arch.shapes().items():
         if info.kind == "train":
             step, kind = arch.build_step(cfg, shape)
             assert kind == "train"
             rcfg = arch._resolved(cfg, shape) if arch.family == "gnn" else cfg
             params = arch.init_params(0, rcfg, device="cpu")
+            mesh_params = copy.deepcopy(params)
             before = [p.clone() for p in params.parameters()]
-            state = init_opt_state(params, AdamWConfig(moment_dtype=arch.moment_dtype(cfg)))
-            params, state, metrics = step(params, state, arch.make_batch(cfg, shape, seed=1))
+            opt = AdamWConfig(moment_dtype=arch.moment_dtype(cfg))
+            state = init_opt_state(params, opt)
+            batch = arch.make_batch(cfg, shape, seed=1)
+            params, state, metrics = step(params, state, batch)
             assert int(state["step"]) == 1
             assert all(torch.isfinite(metrics[k]) for k in ("loss", "lr", "grad_norm"))
             assert any(not torch.equal(a, b) for a, b in zip(before, params.parameters()))
-        if arch.family != "ir":
-            with pytest.raises(NotImplementedError, match="A7"):
-                arch.build_step(cfg, shape, shard_ctx=object())
+            mesh_step, mesh_kind = arch.build_step(cfg, shape, shard_ctx=ctx)
+            specs = arch.param_pspecs(rcfg, mesh_params)
+            mesh_state = init_zero1_state(mesh_params, opt, specs, ctx)
+            mesh_params, mesh_state, m2 = mesh_step(mesh_params, mesh_state, batch)
+            assert mesh_kind == "train" and int(mesh_state["step"]) == 1
+            torch.testing.assert_close(m2["loss"], metrics["loss"], rtol=1e-5, atol=1e-6)
+            got = param_leaves(mesh_params)
+            for n, a in param_leaves(params).items():
+                torch.testing.assert_close(got[n], a, rtol=1e-4, atol=1e-5, msg=n)
+        elif arch.family != "ir":
+            step, kind = arch.build_step(cfg, shape, shard_ctx=ctx)
+            assert callable(step) and kind == "serve" and step.out_specs is not None
     if arch.family == "ir":
         from repro.configs.registry import ARCHS as JAX_ARCHS
         from repro_torch.distributed.sharding import ShardCtx
@@ -300,7 +324,11 @@ def test_train_shapes_and_mesh_functions_raise(name):
         assert [tuple(t) for t in tables] == [
             (("pod", "data"), "model", None, None)] * 2 + [(("pod", "data"), "model", None)] * 2
         return
-    with pytest.raises(NotImplementedError, match="A7"):
-        arch.param_pspecs(cfg, None)
-    with pytest.raises(NotImplementedError, match="A7"):
-        arch.batch_pspecs(cfg, next(iter(arch.shapes())), None)
+    for shape in arch.shapes():
+        rcfg = arch._resolved(cfg, shape) if arch.family == "gnn" else cfg
+        params = arch.param_shapes(rcfg)
+        specs = arch.param_pspecs(rcfg, params)
+        for n, leaf in param_leaves(params).items():
+            assert len(spec_at(specs, n.split("."))) <= leaf.ndim, n
+        batch = arch.input_specs(cfg, shape)
+        assert arch.batch_pspecs(cfg, shape, ctx).keys() == batch.keys()

@@ -232,26 +232,52 @@ def test_moe_is_the_references(case):
 
 
 def test_moe_and_attention_mesh_paths_raise():
-    p = moe.init_moe(torch.Generator().manual_seed(0), 8, _port_moe_cfg(MOE_CFG),
-                     torch.float32, "cpu")
-    x = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        moe.moe_ffn(p, x, _port_moe_cfg(MOE_CFG), shard_ctx=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        moe.moe_ffn_decode_ep_all(p, x, _port_moe_cfg(MOE_CFG), object())
-    for fn in (attention.gqa_decode_splitkv, attention.mla_decode_splitkv,
-               attention.gqa_prefill_splitkv):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(None, None, None, None, None, 0, object())
-    cfg = ARCHS["qwen3-4b"].model_config(True)
-    for fn, args in ((transformer.param_specs, (cfg,)),
-                     (transformer.cache_specs, (cfg, ("data",))),
-                     (transformer.param_specs_splitkv, (cfg,))):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(*args)
-    # lm_loss is ported (tests/test_torch_train_archs.py); its mesh form raises.
-    with pytest.raises(NotImplementedError, match="A7"):
-        transformer.lm_loss(None, None, cfg, shard_ctx=object())
+    """The mesh paths on a one-process mesh (``LocalMesh``: every axis of
+    size 1, each collective the identity) are the one-device functions:
+    ``moe_ffn`` with EP and ``moe_ffn_decode_ep_all`` bit for bit, the
+    split-KV and tensor-parallel decodes of the reduced qwen3-4b and
+    deepseek-v3 within the tolerance, ``lm_loss`` with a context too; the
+    spec functions are the reference's. (They raised before the mesh
+    paths were ported; tests/test_torch_mesh_models.py runs them on 8
+    ranks.)"""
+    from repro_torch.distributed.sharding import LocalMesh, ShardCtx
+
+    ctx = ShardCtx(LocalMesh())
+    pcfg = _port_moe_cfg(MOE_CFG)
+    p = moe.init_moe(torch.Generator().manual_seed(0), 8, pcfg, torch.float32, "cpu")
+    x = torch.randn(12, 8, generator=torch.Generator().manual_seed(1))
+    want, waux = moe.moe_ffn(p, x, pcfg)
+    for fn in (moe.moe_ffn, moe.moe_ffn_decode_ep_all):
+        got, aux = fn(p, x, pcfg, ctx)
+        assert torch.equal(got, want) and torch.equal(aux, waux), fn.__name__
+    for name in ("qwen3-4b", "deepseek-v3-671b"):
+        cfg = ARCHS[name].model_config(True)
+        params = ARCHS[name].init_params(0, cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 5), generator=torch.Generator().manual_seed(2))
+        base = transformer.init_cache(cfg, 2, 16, device="cpu")
+        want, _ = transformer.lm_decode_step(params, toks, base, 0, cfg)
+        for impl in ("split_kv", "batch"):
+            cache = transformer.init_cache(cfg, 2, 16, device="cpu")
+            got, _ = transformer.lm_decode_step(params, toks, cache, 0, cfg, ctx,
+                                                decode_impl=impl)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+            for seg in cache:
+                for leaf in cache[seg]:
+                    torch.testing.assert_close(cache[seg][leaf], base[seg][leaf])
+        torch.testing.assert_close(
+            transformer.lm_loss(params, toks, cfg, ctx), transformer.lm_loss(params, toks, cfg),
+            rtol=1e-5, atol=1e-6)
+        rcfg = REF_ARCHS[name].model_config(True)
+        for fn, args in ((transformer.param_specs, ()), (transformer.param_specs_splitkv, ()),
+                         (transformer.cache_specs, (("data",), "split"))):
+            got, want = fn(cfg, *args), getattr(ref_tfm, fn.__name__)(rcfg, *args)
+            assert _spec_tuples(got) == _spec_tuples(want), fn.__name__
+
+
+def _spec_tuples(tree):
+    if isinstance(tree, dict):
+        return {k: _spec_tuples(v) for k, v in tree.items()}
+    return tuple(tree)
 
 
 # ------------------------------------------------------------------- the LM

@@ -242,5 +242,23 @@ def test_error_buffers_and_the_pod_exchange():
     assert got.keys() == want.keys()
     for k, v in got.items():
         assert v.dtype == want[k].dtype and v.shape == want[k].shape and not v.any()
-    with pytest.raises(NotImplementedError, match="A7"):
-        compression.compress_psum_pod(lambda b: b, None)
+    # The pod exchange on one pod (a one-process mesh, pod x data = 1 x 1):
+    # the gradient through the int8 quantizer, bit for bit the reference's,
+    # and its residue kept for the next step. (Eight ranks, two pods:
+    # tests/test_torch_mesh_models.py.)
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.distributed.sharding import LocalMesh
+
+    batch = np.random.default_rng(9).standard_normal((4, 300)).astype(np.float32)
+    err0 = np.random.default_rng(10).standard_normal((1, 300)).astype(np.float32) * 1e-3
+    mesh = jax.make_mesh((1, 1), ("pod", "data"))
+    wgrads, werr = jax.jit(ref_comp.compress_psum_pod(lambda b: {"w": b.sum(0)}, mesh))(
+        jax.device_put(jnp.asarray(batch), NamedSharding(mesh, JP("pod"))),
+        {"w": jnp.asarray(err0)})
+    ggrads, gerr = compression.compress_psum_pod(lambda b: {"w": b.sum(0)}, LocalMesh(
+        ("pod", "data")))(torch.from_numpy(batch), {"w": torch.from_numpy(err0)})
+    assert _bits(ggrads["w"].numpy()) == _bits(np.asarray(wgrads["w"]))
+    assert gerr["w"].shape == (1, 300)
+    np.testing.assert_allclose(gerr["w"].numpy(), np.asarray(werr["w"]), rtol=0, atol=1e-6)

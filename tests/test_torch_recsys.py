@@ -96,14 +96,27 @@ def test_training_and_mesh_functions_raise(towers):
     _, pp = towers["bst"]
     # rec_train_loss is ported (tests/test_torch_train_archs.py holds it
     # against the reference); its mesh form raises.
-    loss = recsys.rec_train_loss(pp, ARCHS["bst"].make_batch(cfg, "train_batch"), cfg)
+    train = ARCHS["bst"].make_batch(cfg, "train_batch")
+    loss = recsys.rec_train_loss(pp, train, cfg)
     assert loss.shape == () and torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="A7"):
-        recsys.rec_train_loss(pp, {}, cfg, shard_ctx=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        recsys.rec_param_specs(pp, cfg)
+    # On a one-process mesh (every axis of size 1) the mesh forms are the
+    # one-device ones; the specs are the reference's. (Eight ranks:
+    # tests/test_torch_mesh_models.py and tests/test_torch_mesh_train.py.)
+    from repro_torch.distributed.sharding import LocalMesh, ShardCtx
+
+    ctx = ShardCtx(LocalMesh())
+    torch.testing.assert_close(recsys.rec_train_loss(pp, train, cfg, shard_ctx=ctx), loss)
+    specs = recsys.rec_param_specs(pp, cfg)
+    want = ref_rec.rec_param_specs(jax.eval_shape(
+        lambda: REF_ARCHS["bst"].init_params(jax.random.key(0), REF_ARCHS["bst"].model_config(
+            True))), REF_ARCHS["bst"].model_config(True))
+    assert jax.tree.structure(jax.tree.map(tuple, specs, is_leaf=lambda t: isinstance(
+        t, tuple))) == jax.tree.structure(jax.tree.map(tuple, want, is_leaf=lambda t: isinstance(
+            t, tuple)))
+    assert tuple(specs["item_emb"]) == tuple(want["item_emb"]) == ("model", None)
+    assert tuple(specs["field_emb"]) == tuple(want["field_emb"]) == ("model", None)
     batch = ARCHS["bst"].make_batch(cfg, "serve_p99")
-    with pytest.raises(NotImplementedError, match="A7"):
-        recsys.rec_serve_scores(pp, batch, cfg, shard_ctx=object())
+    torch.testing.assert_close(recsys.rec_serve_scores(pp, batch, cfg, shard_ctx=ctx),
+                               recsys.rec_serve_scores(pp, batch, cfg))
     with pytest.raises(ValueError, match="no dot-product user embedding"):
         recsys.rec_user_embedding(pp, batch, cfg)

@@ -20,7 +20,8 @@ shape and the reduced qwen3-4b:
     package restores the other's; the reference's restore gives a bfloat16
     leaf back as ``|V2`` (ROADMAP C4) and the port's as bfloat16 with the
     same bits; ``keep_last``, invisible partial writes, and a restore onto
-    a mesh raising A7;
+    a one-process mesh (``shardings``; the elastic restore across meshes of
+    ranks is tests/test_torch_mesh_train.py);
   * ``launch/train`` on the CPU: a run, a resume, the reference's launcher
     resuming the port's checkpoint, and the final step saved twice when
     ``--steps`` is a multiple of ``--ckpt-every`` (both packages).
@@ -355,12 +356,28 @@ def test_checkpoint_gc_atomicity_and_mesh_restore(tmp_path):
     assert ck.list_steps() == [2, 3]
     assert ck.restore_latest(device="cpu")["w"].tolist() == [3.0] * 4
     assert Checkpointer(str(tmp_path / "empty")).restore_latest(device="cpu") is None
-    with pytest.raises(NotImplementedError, match="A7"):
-        ck.restore(3, shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.zero1_spec(None, (4,), 2, "data")
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.zero1_state_specs(None, None, None, 2, "data")
+    # The elastic restore onto a one-process mesh: a sharded leaf is this
+    # process's (whole) block, an unsharded one comes back as it is.
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.distributed.sharding import LocalMesh, NamedSharding, P
+
+    mesh = LocalMesh()
+    h = torch.randn(3, 4).to(torch.bfloat16)
+    ck.save({"w": torch.arange(8.0), "b": torch.ones(2), "h": h}, step=4, blocking=True)
+    got = ck.restore(4, shardings={"w": NamedSharding(mesh, P(("data", "model"))),
+                                   "h": NamedSharding(mesh, P(None, "model"))}, device="cpu")
+    assert got["w"].tolist() == list(range(8)) and got["b"].tolist() == [1.0, 1.0]
+    assert got["h"].dtype == torch.bfloat16 and torch.equal(got["h"].view(torch.int16),
+                                                            h.view(torch.int16))
+    assert tuple(trainer.zero1_spec(P(None, "model"), (4, 8), 2, ("data",))) == tuple(
+        ref_trainer.zero1_spec(JP(None, "model"), (4, 8), 2, ("data",))) == (
+            "data", "model")
+    tree = {"w": np.zeros((6, 4), np.float32)}
+    state = {"m": tree, "v": tree}
+    assert tuple(trainer.zero1_state_specs({"w": P()}, tree, state, 3, ("data",))["m"][
+        "w"]) == tuple(ref_trainer.zero1_state_specs({"w": JP()}, tree, state, 3, ("data",))[
+            "m"]["w"]) == ("data", None)
 
 
 def test_save_snapshots_the_state_before_it_changes(tmp_path):
