@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases   # the range step's phase timer alone
     python3 chip_smoke.py --train    # the train phase alone
     python3 chip_smoke.py --mesh-model  # the model mesh phase alone
+    python3 chip_smoke.py --dryrun   # the dry run's whole sweep and the roofline
 
 Drives the port (``src/repro_torch``) through its main path on the card and
 fails (non-zero exit, no result line) on any fault:
@@ -1958,10 +1959,13 @@ class TimingInputs:
 
 
 def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs) -> dict:
-    """Each kernel at a main-path shape (``TimingInputs``)."""
+    """Each kernel at a main-path shape (``TimingInputs``); ``traverse`` also
+    through its caller ``traverse_lanes``, where the dry run's shape rule
+    sits, and the rule's own host cost (one ``is_abstract`` a call)."""
     import numpy as np
     import torch
-    from repro_torch.core.range_daat import Engine
+    from repro_torch.core.range_daat import Engine, traverse_lanes
+    from repro_torch.kernels._abstract import is_abstract
     from repro_torch.kernels.range_scorer import kernel, ref
 
     eng, plan, r, blk, rs = ti.eng, ti.plan, ti.r, ti.blk, ti.rs
@@ -2039,10 +2043,16 @@ def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs) -> dic
     nbytes, scored, slowest = traverse_bytes(eng, lanes)
     wrapper = functools.partial(kernel.traverse, eng.dix, *lanes, **kw)
     plain = functools.partial(ref.traverse_ref, eng.dix, *lanes, **kw)
+    caller = functools.partial(traverse_lanes, eng.dix, *lanes, **kw, impl="cuda")
+    t0, n_rule = time.perf_counter(), 100_000
+    for _ in range(n_rule):
+        is_abstract(lanes[-1])
+    rule_us = (time.perf_counter() - t0) / n_rule * 1e6
     trav = dict(
         shape=(f"N={BATCH} R={index.n_ranges} B={width} s_pad={s_pad} k={eng.k} "
                f"({kernel.acc_placement(s_pad, 'traverse')} acc), {scored} ranges"),
         ms=time_ms(wrapper, 100), plain_ms=time_ms(plain, 2, warmup=1), library_ms=None,
+        caller_ms=time_ms(caller, 100), rule_us=rule_us,
         kernel_device_us=device_us(wrapper, "traverse_kernel", 50),
         wrapper_device_us=device_us(wrapper, None, 50),
         plain_device_us=device_us(plain, None, 2), library_device_us=None,
@@ -3148,6 +3158,7 @@ def ir_phase(job, dev, n: int = CONTROL_QUERIES) -> dict:
         f"{res['budgeted']['ms_per_call']:.3f} ms budgeted "
         f"({res['budgeted']['ranges']} lane-ranges)")
     res["arch"] = arch_ir(arrays, tables)
+    res["arch_dry"] = res["arch"].pop("dry")  # the dry run's (i) reads it
     return res
 
 
@@ -4153,6 +4164,7 @@ def arch_ir(arrays, tables) -> dict:
                   f"anytime-ir {shape}: {label} != sharded_anytime_query's")
         res[shape] = dict(budget=budget, launches=launches["traverse"],
                           ranges=int(got[2]))
+    res["dry"] = ir_dry_spec(arrays, tables, cfg)
     log(f"arch anytime-ir through the registry ({len(tables[0])} queries x {M} shards): "
         f"serve_anytime (budget {res['serve_anytime']['budget']} postings a lane, "
         f"{res['serve_anytime']['ranges']} lane-ranges) and serve_exhaustive "
@@ -5443,7 +5455,10 @@ def _mm_train_rank(rt, plan) -> dict:
     if leaves is not None:
         res["leaves"][p["steps"] + 1] = _mm_train_leaves(param_leaves(leaves))
     del params, state, leaves
-    res["peak"] = max(res["peak"], _mm_peak(rt.device))
+    # Each step's own peak (the stats were reset before the restore): the
+    # dry run's (ii) holds each against its own prediction.
+    res["step_peaks"] = [res["peak"], _mm_peak(rt.device)]
+    res["peak"] = max(res["step_peaks"])
     _mm_reset(rt.device)
     if rt.rank == 0:
         shutil.rmtree(directory, ignore_errors=True)
@@ -5672,6 +5687,10 @@ def mesh_model_phase(dev, pool, plan=MM_PLAN, device: str | None = None) -> dict
     got2 = spawn_mesh("model2", MM_GROUP, dict(plan=plan), device=device)
     for path in ref["gnn"]["paths"].values():
         Path(path).unlink(missing_ok=True)
+    res["train_ranks"] = [dict(param_bytes=r["param_bytes"], moment_bytes=r["moment_bytes"],
+                               peak=r["peak"], step_peaks=r["step_peaks"],
+                               after={k: r["after"][k] for k in (
+                                   "param_bytes", "moment_bytes")}) for r in got1["train"]]
     res["cases"] = cases = mm_checks(plan, ref, got1, got2)
     res["launches"] = sum(sum(r["launches"]) for g in (got1, got2) for r in g["ranks"])
     log(f"mesh_model launches of the five kernels on its ranks: {res['launches']} (no "
@@ -5884,6 +5903,253 @@ def _mm_concat_topi(ranks, n_model: int, which: str) -> list:
     return [dict(topi=torch.cat([p["topi"] for p in parts]),
                  gap=torch.cat([p["gap"] for p in parts])) for parts in zip(*calls)]
 
+# ---------------------------------------------------------------- dry run
+
+# (iii): published cells on the production 16 x 16 mesh, faked on the card.
+DRY_FULL = (("qwen3-4b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
+            ("anytime-ir", "serve_anytime"))
+# (ii): mesh_model (c)'s measured per-rank peak over the dry run's predicted
+# one lies in this band, for its 2 x 2 and its 4 x 1 step each; stated in
+# PERF.md before the first chip run (the allocator's rounding, the cuBLAS
+# workspace and gloo's staging are not modelled; the dry run keeps a
+# storage until Python frees it).
+DRY_PEAK_BAND = (0.75, 1.25)
+DRY_TIMEOUT_S = 900  # the dry-run worker's jobs, waited for after mesh_model
+EXTRA_POOLS: list = []  # worker pools a phase starts; main() stops them all
+RATE_MATMUL_N = 8192  # (iv): one bf16 matmul of this size, CUDA events
+RATE_COPY_BYTES = 4 * 2**30  # (iv): one device-to-device copy of 4 GiB
+
+
+def dry_mesh_full(src: str, device: str, plan) -> dict:
+    """Worker: (ii) mesh_model (c)'s two steps (2 x 2, then 4 x 1 after the
+    restore) and (iii) the ``DRY_FULL`` cells, each under ``FakeTensorMode``
+    on fake ``device`` tensors over a fake group of 512 ranks."""
+    import dataclasses
+    import os
+
+    os.nice(10)  # off the smoke's critical path: yield to the card's feeders
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    p = plan["train"]
+    arch = ARCHS[p["arch"]]
+    cfg = dataclasses.replace(arch.model_config(not plan["full"]), **p["cut"])
+
+    def tokens(rows):
+        return {"tokens": torch.empty((rows, p["seq"]), dtype=torch.int32, device="meta")}
+
+    out = {"mesh_model": {}, "full": {}}
+    for mesh, rows in ((p["mesh"], p["batch"]), (p["restore_mesh"], p["after_batch"])):
+        out["mesh_model"]["x".join(map(str, mesh))] = dryrun.run_cell(
+            p["arch"], "train_4k", mesh_shape=mesh, cfg=cfg, batch_shapes=tokens(rows),
+            device=device)
+    for a, shape in DRY_FULL:
+        out["full"][f"{a}/{shape}"] = dryrun.run_cell(a, shape, "single", device=device)
+    return out
+
+
+def ir_dry_spec(arrays, tables, cfg) -> dict:
+    """What (i) needs of ``arch_ir``'s inputs: shapes, types, the config and
+    the real bytes of the arrays and tables."""
+    import numpy as np
+    import torch
+
+    fields = ("docs", "impacts", "blk_start", "blk_len", "blk_maximp", "range_starts",
+              "doc_base")
+    arrs = {f: getattr(arrays, f) for f in fields}
+    tabs = [t if isinstance(t, torch.Tensor) else np.asarray(t) for t in tables]
+    return dict(
+        arrays={f: (tuple(t.shape), str(t.dtype).removeprefix("torch.")) for f, t in arrs.items()},
+        tables=[(tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in tabs],
+        s_pad=arrays.s_pad, k=arrays.k, cfg=dict(cfg),
+        bytes=sum(t.numel() * t.element_size() for t in arrs.values())
+        + sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor) else t.nbytes
+              for t in tabs))
+
+
+def dry_ir(src: str, device: str, spec: dict) -> dict:
+    """Worker: (i) the registry's ``anytime-ir`` step that ``arch_ir`` runs
+    on the card, again on fake ``device`` tensors of the same shapes."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.serve.distributed_ir import ShardedIndexArrays
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def fake(sd):
+        return torch.empty(sd[0], dtype=getattr(torch, sd[1]), device=device)
+
+    step, _ = ARCHS["anytime-ir"].build_step(spec["cfg"], "serve_anytime")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        arrays = ShardedIndexArrays(**{f: fake(v) for f, v in spec["arrays"].items()},
+                                    s_pad=spec["s_pad"], k=spec["k"])
+        tables = tuple(fake(t) for t in spec["tables"])
+        return dryrun.measure_step(step, (arrays, {"tables": tables}))
+
+
+def measured_rates(dev) -> dict:
+    """(iv): one 8192^3 bf16 ``torch.matmul`` and one 4 GiB device-to-device
+    copy, each timed with CUDA events (10 calls after 3), beside the data
+    sheet's peaks (``launch/roofline.py``); the copy moves its bytes twice
+    (read and write)."""
+    import torch
+    from repro_torch.launch import roofline
+
+    n = RATE_MATMUL_N
+    a = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    ms = time_ms(lambda: torch.matmul(a, b), iters=10, warmup=3)
+    del a, b
+    flops = 2.0 * n ** 3 / (ms / 1e3)
+    x = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=dev)
+    y = torch.empty_like(x)
+    cms = time_ms(lambda: y.copy_(x), iters=10, warmup=3)
+    del x, y
+    torch.cuda.empty_cache()
+    rate = 2.0 * RATE_COPY_BYTES / (cms / 1e3)
+    res = dict(matmul_ms=ms, matmul_flops=flops, peak_flops=roofline.PEAK_FLOPS,
+               matmul_share=flops / roofline.PEAK_FLOPS, copy_ms=cms, copy_bytes_per_s=rate,
+               peak_bytes_per_s=roofline.HBM_BW, copy_share=rate / roofline.HBM_BW)
+    log(f"dryrun (iv) measured rates: bf16 matmul {n}^3 {ms:.3f} ms = {flops / 1e12:.1f} "
+        f"TFLOP/s ({res['matmul_share']:.3f} of the data sheet's "
+        f"{roofline.PEAK_FLOPS / 1e12:.1f}); copy of {RATE_COPY_BYTES / 2**30:.0f} GiB "
+        f"{cms:.3f} ms = {rate / 1e12:.3f} TB/s read + written ({res['copy_share']:.3f} of "
+        f"{roofline.HBM_BW / 1e12:.2f} TB/s)")
+    return res
+
+
+def _gib(b) -> float:
+    return b / 2**30
+
+
+def dryrun_phase(jobs: dict, record: dict, dev) -> dict:
+    """The dry run held against this run's own measurements: (i) the
+    ``anytime-ir`` step's argument bytes equal to the real arrays' and
+    tables' and its launches to ``arch_ir``'s, (ii) mesh_model (c)'s
+    per-rank parameter and moment bytes equal and each step's peak (2 x 2,
+    then 4 x 1) within ``DRY_PEAK_BAND`` of its own prediction, (iii) the
+    published cells, (iv) the measured rates."""
+    import torch
+
+    t0 = time.perf_counter()
+    got = jobs["mesh"].get(timeout=DRY_TIMEOUT_S)
+    ir = jobs["ir"].get(timeout=DRY_TIMEOUT_S)
+    res = dict(wait_s=time.perf_counter() - t0, ir=ir, **got)
+    spec, arch = record["ir"]["arch_dry"], record["ir"]["arch"]
+    mem = ir["memory"]
+    log(f"dryrun (i) anytime-ir registry step on fake card tensors: arguments "
+        f"{mem['argument_size_in_bytes']} B (real arrays and tables {spec['bytes']} B), "
+        f"peak {_gib(mem['peak_memory_in_bytes']):.3f} GiB, launches {ir['kernel_launches']} "
+        f"(arch_ir measured {arch['serve_anytime']['launches']} traverse)")
+    check(mem["argument_size_in_bytes"] == spec["bytes"],
+          f"dryrun (i): {mem['argument_size_in_bytes']} argument bytes, the real arrays "
+          f"and tables hold {spec['bytes']}")
+    check(ir["kernel_launches"] == {"traverse": arch["serve_anytime"]["launches"]} == {
+        "traverse": 1}, f"dryrun (i): launches {ir['kernel_launches']}")
+    ranks = record["mesh_model"]["train_ranks"]
+    mm = got["mesh_model"]
+    (k22, d22), (k41, d41) = mm.items()
+    for key, d, want in ((k22, d22, ranks[0]), (k41, d41, ranks[0]["after"])):
+        log(f"dryrun (ii) mesh_model (c) {key}: parameters {d['arguments']['params']} B "
+            f"(measured {want['param_bytes']}), moments {d['arguments']['moments']} B "
+            f"(measured {want['moment_bytes']}); predicted peak "
+            f"{_gib(d['memory']['peak_memory_in_bytes']):.3f} GiB (arguments "
+            f"{_gib(d['memory']['argument_size_in_bytes']):.3f}, temp "
+            f"{_gib(d['memory']['temp_size_in_bytes']):.3f}), collectives "
+            f"{d['collectives']['count_by_kind']}")
+        check(d["arguments"]["params"] == want["param_bytes"]
+              and d["arguments"]["moments"] == want["moment_bytes"],
+              f"dryrun (ii) {key}: parameter/moment bytes differ from the measured ones")
+    lo, hi = DRY_PEAK_BAND
+    res["peak"] = {}
+    for i, (key, d) in enumerate(((k22, d22), (k41, d41))):
+        predicted = d["memory"]["peak_memory_in_bytes"]
+        measured = max(r["step_peaks"][i] for r in ranks)
+        ratio = measured / predicted
+        res["peak"][key] = dict(predicted=predicted, measured=measured, ratio=ratio,
+                                band=DRY_PEAK_BAND)
+        log(f"dryrun (ii) mesh_model (c) {key} step, per-rank peak: measured "
+            f"{_gib(measured):.3f} GiB, predicted {_gib(predicted):.3f} GiB, ratio "
+            f"{ratio:.3f} (band {lo}-{hi})")
+        check(lo <= ratio <= hi, f"dryrun (ii) {key}: measured/predicted peak {ratio:.3f} "
+              f"outside {DRY_PEAK_BAND}")
+    total = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else 0
+    for cell, d in got["full"].items():
+        m = d["memory"]
+        fits = "-" if not total else m["peak_memory_in_bytes"] <= total
+        log(f"dryrun (iii) {cell} on 16 x 16: arguments {_gib(m['argument_size_in_bytes']):.3f}"
+            f" GiB, peak {_gib(m['peak_memory_in_bytes']):.3f} GiB (fits "
+            f"{_gib(total):.2f} GiB: {fits}), {d['per_device_flops']:.4g} FLOPs and "
+            f"{d['per_device_bytes_accessed']:.4g} B a device, collectives "
+            f"{d['collectives']['total_bytes']:.4g} B {d['collectives']['count_by_kind']}, "
+            f"launches {d['kernel_launches']}, traced in {d['trace_s']} s")
+    res["rates"] = measured_rates(dev) if dev.type == "cuda" else None
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"dryrun phase {res['wall_s']:.1f} s after mesh_model (waited {res['wait_s']:.1f} s "
+        "for the worker)")
+    return res
+
+
+def run_dryrun(pool, dev=None) -> None:
+    """``--dryrun``: every cell of the registry on both production meshes
+    and the perf variants (``launch/dryrun.py``, fake card tensors, one
+    worker per core but one), the roofline table; fails if a cell fails or
+    a perf variant's peak exceeds the card's memory (numbers in
+    ``chiprun_out/dryrun/``, ``chiprun_out/roofline.json`` and
+    ``chiprun_out/chip_smoke_dryrun.json``)."""
+    import os
+
+    import torch
+    from repro_torch.launch import dryrun, roofline
+
+    del pool
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    cells = dryrun.sweep_cells()
+    n_jobs = max(1, (os.cpu_count() or 2) - 1)
+    failures = dryrun.run_cells(cells, device="cuda", out_dir=str(out_dir), force=True,
+                                jobs=n_jobs)
+    sweep_s = time.perf_counter() - t_start
+    log(f"dryrun sweep: {len(cells)} cells in {sweep_s:.1f} s on {n_jobs} workers, "
+        f"{len(failures)} failed {failures}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    variants = {}
+    for arch, shape, mesh, variant in dryrun.PERF_VARIANTS:
+        path = out_dir / Path(dryrun._cell_path("", arch, shape, mesh, variant)).name
+        d = json.loads(path.read_text())
+        peak = d.get("memory", {}).get("peak_memory_in_bytes")
+        variants[path.stem] = dict(ok=d["ok"], peak=peak, fits=bool(d["ok"] and peak <= total))
+        log(f"dryrun variant {path.stem}: peak "
+            f"{'-' if peak is None else f'{_gib(peak):.3f}'} GiB against the card's "
+            f"{_gib(total):.2f} GiB: {'fits' if variants[path.stem]['fits'] else 'DOES NOT FIT'}")
+    rows = roofline.collate(str(out_dir))
+    (ROOT / "chiprun_out" / "roofline.json").write_text(json.dumps(rows, indent=1))
+    for mesh in ("single", "multi"):
+        log(f"roofline ({mesh}-pod mesh; H100 data-sheet peaks):")
+        for line in roofline.to_markdown(rows, mesh).splitlines():
+            log("  " + line)
+    rates = measured_rates(dev)
+    record = dict(card=smi, cells=len(cells), failures=failures, sweep_s=sweep_s,
+                  variants=variants, total_memory=total, rates=rates, rows=rows)
+    (ROOT / "chiprun_out" / "chip_smoke_dryrun.json").write_text(
+        json.dumps(record, indent=1, default=str))
+    check(not failures, f"dryrun: cells failed {failures}")
+    over = [k for k, v in variants.items() if not v["fits"]]
+    check(not over, f"dryrun: perf variants over the card's {_gib(total):.2f} GiB: {over}")
+    log(f"dryrun wall time {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5939,6 +6205,12 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
                 log(f"  ptxas: {line}")
             record["nvcc_s"][src] = build_s
             record.setdefault("ptxas", {})[src] = lines
+    # The dry run's worker (fake card tensors, host CPU only, at low
+    # priority) runs beside the card's phases; dryrun_phase holds its
+    # records against theirs.
+    dry_pool = multiprocessing.get_context("spawn").Pool(1)
+    EXTRA_POOLS.append(dry_pool)
+    dry_jobs = {"mesh": dry_pool.apply_async(dry_mesh_full, (str(SRC), "cuda", MM_PLAN))}
 
     parity = Parity()
     t0 = time.perf_counter()
@@ -5969,6 +6241,7 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     # Partitioned IR and anytime MIPS, while the scale build runs on.
     t0 = time.perf_counter()
     record["ir"] = ir_phase(jobs["ir"], dev)
+    dry_jobs["ir"] = dry_pool.apply_async(dry_ir, (str(SRC), "cuda", record["ir"]["arch_dry"]))
     t1 = time.perf_counter()
     record["mips"] = mips_phase(jobs["mips"], dev)
     log(f"partitioned IR phase {t1 - t0:.1f} s, MIPS phase {time.perf_counter() - t1:.1f} s")
@@ -5979,6 +6252,8 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
     # published GraphSAGE and tower configs.
     record["train"] = train_phase(dev, pool)
     record["mesh_model"] = mesh_model_phase(dev, pool)
+    record["dryrun"] = dryrun_phase(dry_jobs, record, dev)
+    dry_pool.terminate()
 
     index, queries, builds = receive_index(jobs["scale"], "scale")
     record["scale"] = dict(build=builds, nnz=index.nnz, n_blocks=index.n_blocks,
@@ -6228,7 +6503,10 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
             + ("" if tm["library_device_us"] is None else
                f", library {tm['library_device_us']:.2f} us"
                + (f" (of which its zero fill {tm['library_fill_device_us']:.2f} us)"
-                  if "library_fill_device_us" in tm else "")))
+                  if "library_fill_device_us" in tm else ""))
+            + ("" if "caller_ms" not in tm else
+               f"; through traverse_lanes {tm['caller_ms'] * 1e3:.2f} us/call, its shape "
+               f"rule {tm['rule_us']:.3f} us a call on the host"))
         kernels.append({
             "name": kname, "route": "cuda", "source": CU_SOURCE,
             "replaces": replaces[kname],
@@ -6380,15 +6658,17 @@ def main() -> int:
     ctx = multiprocessing.get_context("spawn")
     pool = ctx.Pool(3)
     try:
-        mode = {"--phases": run_phases, "--train": run_train, "--mesh-model": run_mesh_model}
+        mode = {"--phases": run_phases, "--train": run_train, "--mesh-model": run_mesh_model,
+                "--dryrun": run_dryrun}
         flags = [a for a in sys.argv[1:] if a in mode]
         (mode[flags[0]] if flags else run)(pool)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
-        pool.terminate()
-        pool.join()
+        for p in [pool, *EXTRA_POOLS]:
+            p.terminate()
+            p.join()
     return 0
 
 

@@ -492,12 +492,13 @@ class ControlPlane:
             or cuts[-1] != R
             or np.any(np.diff(cuts) < 1)
         ):
-            raise ValueError(
+            raise ValueError(  # cuts is host numpy: no device  analysis: allow[HOSTSYNC]
                 f"cuts {cuts.tolist()} must rise strictly from 0 to "
                 f"n_ranges={R} (every shard keeps >= 1 range)"
             )
         if np.array_equal(cuts, self.sengine.cuts):
-            raise ValueError(f"cuts {cuts.tolist()} are already the live layout")
+            raise ValueError(  # host numpy  analysis: allow[HOSTSYNC]
+                f"cuts {cuts.tolist()} are already the live layout")
         if not self.health.all_up:
             if defer_if_degraded:
                 self.deferred_reshard = dict(
@@ -506,7 +507,8 @@ class ControlPlane:
                     warm_widths=warm_widths,
                 )
                 return None
-            down = np.nonzero(self.health.shard_down_mask())[0].tolist()
+            # host numpy mask, no device
+            down = np.nonzero(self.health.shard_down_mask())[0].tolist()  # analysis: allow[HOSTSYNC]
             raise RuntimeError(
                 f"refusing to start a reshard during an outage (ledger has "
                 f"down shards {down}, degraded replicas "

@@ -165,6 +165,7 @@ def run_query_anytime(
         state = engine.step(plan, state, i)
         # Per-range latency is the point of the anytime loop (paper Alg. 2
         # timing), so each step waits for the device.
+        # analysis: allow[HOSTSYNC]
         engine.synchronize()
         times.append((clock() - t0) * 1e3 - sum(times))
         processed += 1

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.clustered_index import BLOCK, ClusteredIndex, pack_dir_entries
+from repro_torch.kernels._abstract import is_abstract, record_launch, record_reads
 from repro_torch.kernels.range_scorer import kernel as scorer_kernel
 from repro_torch.kernels.range_scorer import ops as scorer_ops
 from repro_torch.kernels.range_scorer import ref as scorer_ref
@@ -377,8 +378,18 @@ def traverse_lanes(
     plain version, ``kernels.range_scorer.ref.traverse_ref``. ``dix`` may
     be S range shards stacked row by row (``serving.sharded``): lane n
     then reads shard n % S. A ``timer`` (the profiler's) times the
-    kernel's launch on the card.
+    kernel's launch on the card. On fake or meta tensors it returns an
+    empty carry of the kernel's shape, and counts a launch on the ``cuda``
+    route only (``kernels._abstract``).
     """
+    if is_abstract(carry):  # a dry run: the shape rule, no data
+        ins = (dix, blk_tabs, rest_tabs, orders, ordered_bounds, budgets, max_ranges, carry)
+        if impl == "cuda":
+            record_launch("traverse", *ins)
+        else:  # the plain loop reads the same inputs and launches nothing
+            record_reads(*ins)
+        return torch.empty((carry.shape[0], 2 * k + 5), dtype=torch.int32,
+                           device=carry.device)
     kw = dict(s_pad=s_pad, k=k, quantum=quantum, safe_stop=safe_stop,
               prune_blocks=prune_blocks, docs_format=docs_format)
     args = (dix, blk_tabs, rest_tabs, orders, ordered_bounds, budgets, max_ranges, carry)

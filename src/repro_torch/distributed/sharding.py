@@ -79,23 +79,30 @@ __all__ = [
     "axis_index",
     "bound",
     "close_mesh_group",
+    "collective_census",
     "driving",
+    "fsdp_gather",
     "gather",
+    "gather_seq",
     "gather_tree",
+    "init_fake_group",
     "init_mesh_group",
     "make_mesh",
     "mesh_call",
     "mesh_coord",
+    "mesh_sizes",
     "mesh_world_size",
     "place",
     "place_tree",
     "pmax",
     "psum",
+    "psum_scatter",
     "register",
     "release",
     "require_group",
     "runtime",
     "spec_at",
+    "split_seq",
     "sum_grads",
     "worker_loop",
 ]
@@ -210,6 +217,24 @@ def init_mesh_group(
     return _RT
 
 
+def init_fake_group(world_size: int, device="cpu") -> RankRuntime:
+    """This process as rank 0 of a group of ``world_size`` ranks that do not
+    exist: torch's ``fake`` backend, whose collectives return at once and
+    move nothing (the dry run's counterpart of the reference's
+    ``--xla_force_host_platform_device_count``). Meshes over it are laid out
+    as over a real group; tensors are meant to be fake (``FakeTensorMode``)
+    on ``device``."""
+    global _RT
+    if _RT is not None:
+        raise RuntimeError("a process group is already up; close_mesh_group() first")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    _RT = RankRuntime(rank=0, world=world_size, backend="fake",
+                      device=torch.device(device), control=dist.group.WORLD)
+    return _RT
+
+
 def close_mesh_group() -> None:
     """Tear down the process group ``init_mesh_group`` brought up."""
     global _RT
@@ -296,8 +321,21 @@ def _dim(mesh, name: str) -> int:
     return list(mesh.mesh_dim_names).index(name)
 
 
+_SIZES: dict = {}  # id(mesh) -> (mesh, {axis: size}); a mesh's layout never changes
+
+
+def mesh_sizes(mesh) -> dict:
+    """``{axis name: size}`` of ``mesh`` (read once per mesh: a
+    ``DeviceMesh`` rebuilds its rank tensor on every ``.mesh``)."""
+    hit = _SIZES.get(id(mesh))
+    if hit is None or hit[0] is not mesh:
+        hit = (mesh, {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.mesh.shape)})
+        _SIZES[id(mesh)] = hit
+    return hit[1]
+
+
 def _size(mesh, name: str) -> int:
-    return int(mesh.mesh.shape[_dim(mesh, name)])
+    return mesh_sizes(mesh)[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,11 +343,17 @@ class ShardCtx:
     """Which mesh axes carry data parallelism and which carry model/TP/EP.
 
     data_axes is ("pod", "data") on the multi-pod mesh, ("data",) otherwise.
+    ``fsdp_specs`` (the port's own field) is the parameters' spec tree when
+    their placement also splits leaves over the data axes (FSDP,
+    ``trainer.fsdp_param_specs``), else None: the steps gather those
+    leaves where they are used (``fsdp_gather``) and the sharded update
+    lays them out by it.
     """
 
     mesh: object
     data_axes: tuple = ("data",)
     model_axis: str = "model"
+    fsdp_specs: object = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def n_model(self) -> int:
@@ -386,6 +430,31 @@ def bound(mesh):
         _BOUND.pop()
 
 
+_CENSUS: list = []  # the open collective censuses, innermost last
+
+
+@contextlib.contextmanager
+def collective_census():
+    """``{"bytes_by_kind", "count_by_kind"}`` of the collectives this rank
+    makes inside the block: per kind (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``), the bytes that land on this rank (an all-reduce's
+    tensor, an all-gather's gathered result, a reduce-scatter's block: the
+    reference's result bytes), once per mesh axis a collective spans."""
+    out = {"bytes_by_kind": {}, "count_by_kind": {}}
+    _CENSUS.append(out)
+    try:
+        yield out
+    finally:
+        _CENSUS.pop()
+
+
+def _note(kind: str, nbytes: int) -> None:
+    if _CENSUS:
+        c = _CENSUS[-1]
+        c["bytes_by_kind"][kind] = c["bytes_by_kind"].get(kind, 0) + int(nbytes)
+        c["count_by_kind"][kind] = c["count_by_kind"].get(kind, 0) + 1
+
+
 def _stage(x: torch.Tensor) -> torch.Tensor:
     return x.cpu() if _RT.staged and x.is_cuda else x
 
@@ -402,6 +471,7 @@ def _all_reduce(x: torch.Tensor, axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = _stage(x.detach()).clone()
     for a in axes:
         dist.all_reduce(y, op=op, group=mesh.get_group(a))
+        _note("all-reduce", y.numel() * y.element_size())
     return y.to(x.device)
 
 
@@ -414,7 +484,20 @@ def all_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
     src = _stage(x.detach().contiguous())
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=mesh.get_group(axis))
+    _note("all-gather", n * src.numel() * src.element_size())
     return torch.stack(parts).to(x.device)
+
+
+def _reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    mesh = _bound_mesh()
+    n = _size(mesh, axis)
+    if n == 1:
+        return x.detach().clone()
+    parts = [c.contiguous() for c in _stage(x.detach()).chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=mesh.get_group(axis))
+    _note("reduce-scatter", out.numel() * out.element_size())
+    return out.to(x.device)
 
 
 class _Psum(torch.autograd.Function):
@@ -450,7 +533,81 @@ class _GatherTiled(torch.autograd.Function):
     def backward(ctx, g):
         with bound(ctx.mesh):
             g = _all_reduce(g, ctx.axis)
-        return g.narrow(ctx.dim, ctx.idx * ctx.n, ctx.n), None, None
+        # A copy of the block: a view would keep the whole sum alive as long
+        # as the gradient (an FSDP leaf's, to the end of the backward pass).
+        return g.narrow(ctx.dim, ctx.idx * ctx.n, ctx.n).clone(), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.dim, ctx.n, ctx.idx = dim, x.shape[dim], axis_index(axis)
+        return torch.cat(list(all_gather(x, axis)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.idx * ctx.n, ctx.n).clone(), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        n = axis_size(axis)
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, _bound_mesh()
+        w = x.shape[dim] // n
+        return x.narrow(dim, axis_index(axis) * w, w).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        with bound(ctx.mesh):
+            return torch.cat(list(all_gather(g, ctx.axis)), dim=ctx.dim), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, dtype):
+        ctx.axis, ctx.dim, ctx.mesh, ctx.in_dtype = axis, dim, _bound_mesh(), x.dtype
+        return _reduce_scatter(x, axis, dim).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        with bound(ctx.mesh):
+            g = torch.cat(list(all_gather(g, ctx.axis)), dim=ctx.dim)
+        return g.to(ctx.in_dtype), None, None, None
+
+
+def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0, dtype=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over mesh axis
+    ``axis`` (``dim`` divisible by its size), in ``dtype`` (None: ``x``'s):
+    one reduce-scatter in ``x``'s type, the reference's
+    ``psum_scatter(..., tiled=True)``. Its backward gathers the blocks'
+    gradients (in ``dtype``), which is each rank's gradient of its whole
+    ``x``."""
+    dtype = dtype or x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PsumScatter.apply(x, axis, dim, dtype)
+    return _reduce_scatter(x, axis, dim).to(dtype)
+
+
+def gather_seq(x: torch.Tensor, axis: str, dim: int = 1) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim``, concatenated over mesh axis
+    ``axis``: a sequence-parallel activation made whole for a region that
+    uses it replicated (each rank's gradient of it is then the whole one,
+    so the backward pass keeps this rank's block of it)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherSeq.apply(x, axis, dim)
+    return torch.cat(list(all_gather(x, axis)), dim=dim)
+
+
+def split_seq(x: torch.Tensor, axis: str, dim: int = 1) -> torch.Tensor:
+    """This rank's block of a replicated ``x`` along ``dim`` over mesh axis
+    ``axis`` (``dim`` divisible by its size): a sequence-parallel
+    activation. Its backward gathers the blocks' gradients, which is the
+    whole one every rank held for the replicated value."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SplitSeq.apply(x, axis, dim)
+    w = x.shape[dim] // axis_size(axis)
+    return x.narrow(dim, axis_index(axis) * w, w).clone()
 
 
 def psum(x: torch.Tensor, axis) -> torch.Tensor:
@@ -656,7 +813,8 @@ def gather(x: torch.Tensor, spec, mesh, root: int | None = None):
             for a in _axes(entry):
                 k = k * _size(mesh, a) + coord[_dim(mesh, a)]
             idx[d] = slice(k * x.shape[d], (k + 1) * x.shape[d])
-        out[tuple(idx)] = parts[int(layout[coord])].cpu()
+        # the root assembles the global array on its host, block by block
+        out[tuple(idx)] = parts[int(layout[coord])].cpu()  # analysis: allow[HOSTSYNC]
     return out
 
 
@@ -687,6 +845,60 @@ def place_tree(tree, specs, mesh):
     return _map_tree(lambda x, s: place(x, s, mesh), tree, specs)
 
 
+_FSDP_PLANS: dict = {}  # id(fsdp_specs) -> (fsdp_specs, {(path, data axes): leaves})
+
+
+def _fsdp_leaves(node, path: str, shard_ctx) -> list:
+    """(leaf, axes, dim) of ``node``'s own leaves that ``fsdp_specs``
+    splits over the data axes alone (an entry with a model axis too is
+    expert parallelism, not FSDP)."""
+    specs, da = shard_ctx.fsdp_specs, tuple(shard_ctx.data_axes)
+    hit = _FSDP_PLANS.get(id(specs))
+    if hit is None or hit[0] is not specs:
+        hit = _FSDP_PLANS[id(specs)] = (specs, {})
+    plan = hit[1]
+    if (path, da) not in plan:
+        out = []
+        for leaf in node._parameters:
+            spec = spec_at(specs, (f"{path}.{leaf}" if path else leaf).split("."))
+            for d, entry in enumerate(spec):
+                axes = _axes(entry)
+                if axes and all(a in da for a in axes):
+                    out.append((leaf, axes if len(axes) > 1 else axes[0], d))
+        plan[path, da] = out
+    return plan[path, da]
+
+
+def fsdp_gather(node, shard_ctx, path: str = "", deep: bool = True):
+    """``node``, the ``Params`` node at ``path`` of the parameters ("" the
+    root, ``dense.3`` a layer), with every leaf that ``shard_ctx.fsdp_specs``
+    splits over the data axes (FSDP) gathered whole over them, as a dict of
+    its children; ``node`` itself when nothing is split or the context
+    has no FSDP specs. ``deep`` gathers the leaves of every ``Params``
+    below it too (a layer); otherwise only ``node``'s own. Call it inside
+    the mesh's ``bound`` where the weights are used: the whole weights live
+    as long as the view, and under autograd each block's gradient is the
+    whole one's, summed over the data axes and sliced
+    (``all_gather_tiled``)."""
+    if (shard_ctx is None or shard_ctx.fsdp_specs is None
+            or not isinstance(node, torch.nn.Module) or not hasattr(node, "keys")):
+        return node
+    leaves = _fsdp_leaves(node, path, shard_ctx)
+    kids = {}
+    if deep:
+        for name, child in node._modules.items():
+            g = fsdp_gather(child, shard_ctx, f"{path}.{name}" if path else name, True)
+            if g is not child:
+                kids[name] = g
+    if not leaves and not kids:
+        return node
+    view = {name: node[name] for name in node.keys()}
+    for leaf, axes, dim in leaves:
+        view[leaf] = all_gather_tiled(view[leaf], axes, dim)
+    view.update(kids)
+    return view
+
+
 def gather_tree(tree, specs, mesh, root: int | None = None):
     """The global arrays of a placed tree, on every rank (a ``Params`` tree
     comes back as a new one; the placed tree is left as it was). With
@@ -694,7 +906,7 @@ def gather_tree(tree, specs, mesh, root: int | None = None):
     the other ranks get None."""
     mine = root is None or _RT is None or _RT.rank == root
     if isinstance(tree, torch.nn.Module) and mine:
-        tree = copy.deepcopy(tree)
+        tree = copy.deepcopy(tree)  # the copy holds global arrays
 
     def one(x, s):
         y = gather(x, s, mesh, root)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._abstract import is_abstract, record_launch, record_reads
 from repro_torch.kernels.range_scorer import kernel, ref
 from repro_torch.kernels.range_scorer.ref import DOCS_FORMATS, IMPACT_BIAS  # noqa: F401
 
@@ -46,7 +47,8 @@ def score_blocks(
     placeholder) and the per-block merged directory (``pack_dir``, see
     ``core.clustered_index.pack_dir_entries``) and first-docid column plus
     the shared ``pack_words`` stream are required; impacts stay
-    offset-addressed via ``starts`` in both formats.
+    offset-addressed via ``starts`` in both formats. On fake or meta
+    tensors it returns an empty accumulator (``kernels._abstract``).
     """
     if docs_format not in DOCS_FORMATS:
         raise ValueError(f"docs_format {docs_format!r} not in {DOCS_FORMATS}")
@@ -54,6 +56,16 @@ def score_blocks(
         pack_words is None or pack_dir is None or pack_firsts is None
     ):
         raise ValueError("docs_format='packed' requires all pack_* arrays")
+    if is_abstract(starts):  # a dry run: the shape rule, no data
+        if impl == "cuda":
+            if docs_format == "packed":
+                record_launch("unpack_locals", pack_words, starts, lens, pack_dir,
+                              pack_firsts, keep)
+            record_launch("scatter_accumulate", post_docs, post_imps, starts, lens, keep)
+        else:  # the plain version reads the same inputs and launches nothing
+            record_reads(post_docs, post_imps, starts, lens, keep, pack_words, pack_dir,
+                         pack_firsts)
+        return torch.empty((s_pad,), dtype=torch.int32, device=starts.device)
     if impl == "torch":
         if docs_format == "packed":
             return ref.score_blocks_packed_ref(

@@ -438,11 +438,14 @@ def traverse_ref(
     rows = []
     for n in range(N):
         lane_dix = shard_row(dix, n % n_shards) if n_shards else dix
+        # the plain version decides on the host, lane by lane, as it must
+        # analysis: allow[HOSTSYNC]
         order_h = order[n].tolist()
-        bounds_h = ordered_bounds[n].tolist()
+        bounds_h = ordered_bounds[n].tolist()  # analysis: allow[HOSTSYNC]
         bud, mr = int(budget[n]), int(maxr[n])
         state = state_views(carry[n, : 2 * k + 2], k)
-        i, s_safe, s_budget = (int(x) for x in carry[n, 2 * k + 2:].tolist())
+        i, s_safe, s_budget = (  # analysis: allow[HOSTSYNC]
+            int(x) for x in carry[n, 2 * k + 2:].tolist())
         steps = 0
         while i < R and not s_safe and not s_budget and (
             quantum is None or steps < quantum

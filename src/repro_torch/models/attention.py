@@ -325,19 +325,23 @@ def _head_groups(k, v, q, h_lo: int, group: int):
     return q.reshape(B, S, H_loc, 1, D), k[:, :, sel], v[:, :, sel]
 
 
-def rows_psum(a: torch.Tensor, w: torch.Tensor, ax: str, dtype) -> torch.Tensor:
+def rows_psum(a: torch.Tensor, w: torch.Tensor, ax: str, dtype,
+              partial: bool = False) -> torch.Tensor:
     """``a @ w`` summed over ``ax``, each rank holding its rows of the
     contraction: the partial product and the sum in float32, the result in
-    ``dtype``."""
-    return psum(dot_f32(a, w), ax).to(dtype)
+    ``dtype``. With ``partial`` the float32 partial product, for the caller
+    to reduce (a sequence-parallel layer's reduce-scatter)."""
+    y = dot_f32(a, w)
+    return y if partial else psum(y, ax).to(dtype)
 
 
 def gqa_tp(params, x, rope_table, cfg: GQAConfig, shard_ctx, *, positions, cache=None,
-           cache_pos=None, chunk: int = 512):
+           cache_pos=None, chunk: int = 512, partial: bool = False):
     """``gqa`` on a mesh under ``param_specs``: this rank's query heads
     (its columns of wq), all KV heads unless the spec shards wk/wv, its
-    rows of wo and one ``psum`` over model. ``cache`` (batch layout,
-    replicated over model) is written in place with every KV head."""
+    rows of wo and one ``psum`` over model (``partial``: none, the float32
+    partial output). ``cache`` (batch layout, replicated over model) is
+    written in place with every KV head."""
     from repro_torch.distributed.sharding import all_gather_tiled
 
     ax = shard_ctx.model_axis
@@ -384,14 +388,15 @@ def gqa_tp(params, x, rope_table, cfg: GQAConfig, shard_ctx, *, positions, cache
         out = _grouped_attention(q5, k_all, v_all, q_positions=positions,
                                  kv_valid_len=valid, chunk=chunk)
         out = out.reshape(B, S, H_loc * cfg.head_dim)
-        return rows_psum(out, params["wo"], ax, x.dtype), cache
+        return rows_psum(out, params["wo"], ax, x.dtype, partial), cache
 
 
 def mla_tp(params, x, rope_table, cfg: MLAConfig, shard_ctx, *, positions, cache=None,
-           cache_pos=None, chunk: int = 512):
+           cache_pos=None, chunk: int = 512, partial: bool = False):
     """``mla`` on a mesh under ``param_specs``: the compressed (c_kv,
     k_rope) and the query's low-rank path replicated, this rank's heads of
-    w_uq/w_uk/w_uv, its rows of wo and one ``psum`` over model."""
+    w_uq/w_uk/w_uv, its rows of wo and one ``psum`` over model
+    (``partial``: none, the float32 partial output)."""
     ax = shard_ctx.model_axis
     with bound(shard_ctx.mesh):
         M = axis_size(ax)
@@ -425,7 +430,7 @@ def mla_tp(params, x, rope_table, cfg: MLAConfig, shard_ctx, *, positions, cache
         out = _grouped_attention(q_eff.reshape(B, S, H_loc, 1, qk_head), k_eff, v,
                                  q_positions=positions, kv_valid_len=valid, chunk=chunk)
         out = out.reshape(B, S, H_loc * cfg.v_head_dim)
-        return rows_psum(out, params["wo"], ax, x.dtype), cache
+        return rows_psum(out, params["wo"], ax, x.dtype, partial), cache
 
 
 # ----------------------------------------------------- split-KV decode (mesh)

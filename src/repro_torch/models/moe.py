@@ -40,12 +40,13 @@ from repro_torch.distributed.sharding import (
     all_gather_tiled,
     axis_index,
     bound,
+    mesh_sizes,
     psum,
     sum_grads,
 )
 from repro_torch.models.layers import Params, dense_init, dot_f32, maximum, topk_first
 
-__all__ = ["MoEConfig", "init_moe", "moe_ffn", "moe_ffn_decode_ep_all"]
+__all__ = ["MoEConfig", "init_moe", "moe_ffn", "moe_ffn_decode_ep_all", "moe_ffn_partial"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +181,16 @@ def moe_ffn(params, x2d: torch.Tensor, cfg: MoEConfig, shard_ctx=None):
             y = y + _shared_ffn(params["shared"], x2d)
         return y, aux
 
+    y, aux = moe_ffn_partial(params, x2d, cfg, shard_ctx)
+    with bound(shard_ctx.mesh):
+        return psum(y, shard_ctx.model_axis).to(x2d.dtype), aux
+
+
+def moe_ffn_partial(params, x2d: torch.Tensor, cfg: MoEConfig, shard_ctx):
+    """``moe_ffn`` on a mesh with ``y`` left as this rank's float32 partial
+    sum over ``model`` (its experts' routed outputs and its part of the
+    shared experts'), for the caller to reduce (``moe_ffn``'s ``psum``, a
+    sequence-parallel layer's reduce-scatter)."""
     ax = shard_ctx.model_axis
     E_loc = cfg.n_experts // shard_ctx.n_model
     with bound(shard_ctx.mesh):
@@ -187,10 +198,9 @@ def moe_ffn(params, x2d: torch.Tensor, cfg: MoEConfig, shard_ctx=None):
         y = y.to(torch.float32)
         if cfg.n_shared:
             # The shared experts' hidden dim is sharded over model; their
-            # partial sums ride the same float32 psum as the routed combine.
+            # partial sums ride the same float32 reduction as the routed combine.
             sp, xf = params["shared"], sum_grads(x2d, ax)
             y = y + dot_f32(F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"]), sp["w_down"])
-        y = psum(y, ax).to(x2d.dtype)
         aux = psum(aux, shard_ctx.data_axes) / shard_ctx.n_data
     return y, aux
 
@@ -207,7 +217,7 @@ def moe_ffn_decode_ep_all(params, x2d: torch.Tensor, cfg: MoEConfig, shard_ctx):
     """
     ep_axes = ("data", shard_ctx.model_axis)
     mesh = shard_ctx.mesh
-    n_data = int(mesh.mesh.shape[list(mesh.mesh_dim_names).index("data")])
+    n_data = mesh_sizes(mesh)["data"]
     n_all = n_data * shard_ctx.n_model
     if cfg.n_experts % n_all != 0:
         return moe_ffn(params, x2d, cfg, shard_ctx)

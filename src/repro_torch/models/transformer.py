@@ -35,7 +35,20 @@ functions for ``decode_impl="split_kv"``), the dense FFN a column-sharded
 head is vocab-sharded: ``lm_decode_step`` returns this rank's columns of
 the logits (``logits_spec``), and the loss is the vocab-parallel
 cross-entropy (a ``pmax``, and ``psum``s of the exponentials and of the
-gold logit), averaged over the data axes.
+gold logit), averaged over the data axes. Under a context with
+``fsdp_specs`` (FSDP, ``trainer.fsdp_param_specs``) the leaves they split
+over the data axes are gathered where they are used
+(``sharding.fsdp_gather``, by each node's path): a layer's inside the
+layer, so inside its remat, the embedding, head and final norm at the
+entry point. A differentiated pass on a mesh keeps the residual stream
+between the layers sequence parallel: each model rank holds its block of
+the B * S tokens (``sharding.split_seq``), each region (attention, FFN or
+MoE) takes them whole (``gather_seq``, an all-gather) and ends in a
+reduce-scatter of its float32 partial output (``psum_scatter``) where the
+replicated stream ends in an all-reduce, so a remat'd layer saves
+1 / n_model of its input and the forward pass moves the replicated
+stream's bytes. The values are the replicated stream's up to the order of
+the float32 sum.
 """
 
 from __future__ import annotations
@@ -54,8 +67,12 @@ from repro_torch.distributed.sharding import (
     P,
     axis_index,
     bound,
+    fsdp_gather,
+    gather_seq,
     pmax,
     psum,
+    psum_scatter,
+    split_seq,
     sum_grads,
 )
 from repro_torch.models.attention import (
@@ -83,7 +100,13 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_init,
 )
-from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn, moe_ffn_decode_ep_all
+from repro_torch.models.moe import (
+    MoEConfig,
+    init_moe,
+    moe_ffn,
+    moe_ffn_decode_ep_all,
+    moe_ffn_partial,
+)
 
 __all__ = ["LMConfig", "init_lm", "lm_forward", "lm_loss", "init_cache", "lm_decode_step",
            "param_specs", "count_params"]
@@ -127,23 +150,27 @@ def _init_attn(key, cfg: LMConfig, device):
     return init(key, cfg.attn, cfg.dtype, device)
 
 
-def _attn(params, x, rope, cfg: LMConfig, shard_ctx=None, **kw):
+def _attn(params, x, rope, cfg: LMConfig, shard_ctx=None, partial: bool = False, **kw):
+    """Attention; on a mesh ``gqa_tp``/``mla_tp`` (``partial``: the float32
+    partial output, unreduced)."""
     if shard_ctx is not None:
         fn = mla_tp if _is_mla(cfg) else gqa_tp
-        return fn(params, x, rope, cfg.attn, shard_ctx, chunk=cfg.attn_chunk, **kw)
+        return fn(params, x, rope, cfg.attn, shard_ctx, chunk=cfg.attn_chunk,
+                  partial=partial, **kw)
     fn = mla if _is_mla(cfg) else gqa
     return fn(params, x, rope, cfg.attn, chunk=cfg.attn_chunk, **kw)
 
 
-def _ffn(params, z, shard_ctx):
+def _ffn(params, z, shard_ctx, partial: bool = False):
     """SwiGLU; on a mesh its hidden dim is sharded over model (w_gate/w_up
-    columns, w_down rows) and one psum sums the partial outputs."""
+    columns, w_down rows) and one psum sums the partial outputs
+    (``partial``: the float32 partial output, unreduced)."""
     if shard_ctx is None:
         return swiglu(params, z)
     ax = shard_ctx.model_axis
     zf = sum_grads(z, ax)
     h = F.silu(zf @ params["w_gate"]) * (zf @ params["w_up"])
-    return rows_psum(h, params["w_down"], ax, z.dtype)
+    return rows_psum(h, params["w_down"], ax, z.dtype, partial)
 
 
 def _init_layer(key, cfg: LMConfig, use_moe: bool, device):
@@ -195,34 +222,64 @@ def rope_table(cfg: LMConfig, max_len: int, device) -> torch.Tensor:
 # ------------------------------------------------------------------ forward
 
 
-def _layer_apply(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx):
+def _layer_apply(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx,
+                 sp: bool = False, path: str = ""):
     with _bound(shard_ctx):  # a remat recomputes this in the backward pass
-        return _layer_body(layer, x, rope, cfg, positions, use_moe, shard_ctx)
+        return _layer_body(layer, x, rope, cfg, positions, use_moe, shard_ctx, sp, path)
 
 
-def _layer_body(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx):
-    h, _ = _attn(layer["attn"], rms_norm(x, layer["ln1"]), rope, cfg, shard_ctx,
-                 positions=positions)
-    x = x + h
-    z = rms_norm(x, layer["ln2"])
+def _layer_body(layer, x, rope, cfg: LMConfig, positions, use_moe, shard_ctx,
+                sp: bool = False, path: str = ""):
+    """One layer, the node at ``path`` of the parameters (``dense.3``).
+    With ``sp`` (sequence parallel) ``x`` [B * S / n_model, d] is this
+    rank's block of the flat tokens: each region takes them whole and ends
+    in a reduce-scatter of its partial output to this rank's block."""
+    layer = fsdp_gather(layer, shard_ctx, path)  # FSDP: whole weights for this layer only
+    S = positions.shape[0]
+    if sp:
+        ax = shard_ctx.model_axis
+
+        def whole(t):  # [B, S, d]
+            return gather_seq(t, ax, 0).view(-1, S, t.shape[-1])
+
+        def mine(y):  # this rank's block of the sum of the ranks' partial outputs
+            return psum_scatter(y.reshape(-1, y.shape[-1]), ax, 0, x.dtype)
+    else:
+        def whole(t):
+            return t
+
+        def mine(y):
+            return y
+
+    # The attention's whole output (under ``sp`` a float32 partial sum) is
+    # not kept past its reduction: the FFN's peak would hold it.
+    x = x + mine(_attn(layer["attn"], rms_norm(whole(x), layer["ln1"]), rope, cfg,
+                       shard_ctx, positions=positions, partial=sp)[0])
+    z = rms_norm(whole(x), layer["ln2"])
     if use_moe:
-        B, S, d = z.shape
-        y, aux = moe_ffn(layer["moe"], z.reshape(B * S, d), cfg.moe, shard_ctx)
-        return x + y.reshape(B, S, d), aux
-    return (x + _ffn(layer["ffn"], z, shard_ctx),
+        B, _, d = z.shape
+        z2 = z.reshape(B * S, d)
+        if sp:
+            y, aux = moe_ffn_partial(layer["moe"], z2, cfg.moe, shard_ctx)
+        else:
+            y, aux = moe_ffn(layer["moe"], z2, cfg.moe, shard_ctx)
+        return x + mine(y.reshape(B, S, d)), aux
+    return (x + mine(_ffn(layer["ffn"], z, shard_ctx, sp)),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _scan_segment(params_seg, x, rope, cfg, positions, use_moe, shard_ctx):
+def _scan_segment(params_seg, seg: str, x, rope, cfg, positions, use_moe, shard_ctx,
+                  sp=False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled() and x.requires_grad
-    for layer in params_seg:
+    for i, layer in enumerate(params_seg):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _layer_apply, layer, x, rope, cfg, positions, use_moe, shard_ctx,
-                use_reentrant=False)
+                _layer_apply, layer, x, rope, cfg, positions, use_moe, shard_ctx, sp,
+                f"{seg}.{i}", use_reentrant=False)
         else:
-            x, a = _layer_apply(layer, x, rope, cfg, positions, use_moe, shard_ctx)
+            x, a = _layer_apply(layer, x, rope, cfg, positions, use_moe, shard_ctx, sp,
+                                f"{seg}.{i}")
         aux = aux + a
     return x, aux
 
@@ -240,6 +297,7 @@ def lm_forward(params, tokens, cfg: LMConfig, shard_ctx=None, *, rope=None):
 
 
 def _lm_forward(params, tokens, cfg, shard_ctx, rope):
+    params = fsdp_gather(params, shard_ctx, deep=False)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B, S = tokens.shape
@@ -248,12 +306,24 @@ def _lm_forward(params, tokens, cfg, shard_ctx, rope):
         rope = rope_table(cfg, max(S, cfg.max_seq), dev)
     positions = torch.arange(S, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    # Differentiated on a mesh, the residual stream between the layers is
+    # sequence parallel: each model rank keeps (and remat saves) its block
+    # of the flat tokens, not the whole.
+    d = x.shape[-1]
+    sp = (shard_ctx is not None and torch.is_grad_enabled() and x.requires_grad
+          and shard_ctx.n_model > 1 and (B * S) % shard_ctx.n_model == 0)
+    if sp:
+        x = split_seq(x.reshape(B * S, d), shard_ctx.model_axis, 0)
     if "dense" in params:
-        x, a = _scan_segment(params["dense"], x, rope, cfg, positions, False, shard_ctx)
+        x, a = _scan_segment(params["dense"], "dense", x, rope, cfg, positions, False,
+                             shard_ctx, sp)
         aux = aux + a
     if "moe" in params:
-        x, a = _scan_segment(params["moe"], x, rope, cfg, positions, True, shard_ctx)
+        x, a = _scan_segment(params["moe"], "moe", x, rope, cfg, positions, True,
+                             shard_ctx, sp)
         aux = aux + a
+    if sp:
+        x = gather_seq(x, shard_ctx.model_axis, 0).view(B, S, d)
     return rms_norm(x, params["final_norm"]), aux
 
 
@@ -311,6 +381,7 @@ def _xent(h2d, head, labels, cfg, shard_ctx):
 
 
 def _lm_loss(params, tokens, cfg, shard_ctx):
+    params = fsdp_gather(params, shard_ctx, deep=False)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B, S = tokens.shape
@@ -322,14 +393,22 @@ def _lm_loss(params, tokens, cfg, shard_ctx):
 
     if cfg.mtp and "mtp" in params:
         # Predict token t+2 from (h_t, embed(token_{t+1})) through one block.
-        m = params["mtp"]
-        h_in = rms_norm(h[:, :-1], m["ln_h"])
-        e_in = rms_norm(gather_rows(params["embed"], tokens[:, 1:]), m["ln_e"])
-        z = torch.cat([h_in, e_in], -1) @ m["proj"]
-        z, _ = _layer_apply(
-            m["block"], z, rope, cfg, torch.arange(S - 1, device=dev), False, shard_ctx
-        )
-        z = rms_norm(z, m["final_norm"])
+        m = fsdp_gather(params["mtp"], shard_ctx, "mtp", deep=False)
+
+        def mtp_head(h):
+            h_in = rms_norm(h[:, :-1], m["ln_h"])
+            e_in = rms_norm(gather_rows(params["embed"], tokens[:, 1:]), m["ln_e"])
+            z = torch.cat([h_in, e_in], -1) @ m["proj"]
+            z, _ = _layer_apply(
+                m["block"], z, rope, cfg, torch.arange(S - 1, device=dev), False, shard_ctx,
+                path="mtp.block")
+            return rms_norm(z, m["final_norm"])
+
+        # Under remat the head is one more remat'd block: only h is kept.
+        if cfg.remat and torch.is_grad_enabled() and h.requires_grad:
+            z = torch.utils.checkpoint.checkpoint(mtp_head, h, use_reentrant=False)
+        else:
+            z = mtp_head(h)
         z_pred = z[:, :-1].reshape(B * (S - 2), cfg.d_model)
         mtp_labels = tokens[:, 2:].reshape(B * (S - 2))
         loss = loss + cfg.mtp_weight * _xent(
@@ -373,11 +452,12 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
     return out
 
 
-def _decode_segment(params_seg, cache_seg, x, rope, cfg, pos, use_moe, shard_ctx,
+def _decode_segment(params_seg, seg: str, cache_seg, x, rope, cfg, pos, use_moe, shard_ctx,
                     decode_impl: str = "batch"):
     split = decode_impl == "split_kv" and shard_ctx is not None
     positions = int(pos) + torch.arange(x.shape[1], device=x.device)
     for i, layer in enumerate(params_seg):
+        layer = fsdp_gather(layer, shard_ctx, f"{seg}.{i}")
         cache_layer = {name: buf[i] for name, buf in cache_seg.items()}
         z1 = rms_norm(x, layer["ln1"])
         S_new = x.shape[1]
@@ -423,6 +503,7 @@ def lm_decode_step(
     (``logits_spec``).
     """
     with _bound(shard_ctx):
+        params = fsdp_gather(params, shard_ctx, deep=False)
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens, device=dev)
         x = gather_rows(params["embed"], tokens)
@@ -431,12 +512,12 @@ def lm_decode_step(
         new_cache = {}
         if "dense" in params:
             x, new_cache["dense"] = _decode_segment(
-                params["dense"], cache["dense"], x, rope, cfg, pos, False, shard_ctx,
+                params["dense"], "dense", cache["dense"], x, rope, cfg, pos, False, shard_ctx,
                 decode_impl,
             )
         if "moe" in params:
             x, new_cache["moe"] = _decode_segment(
-                params["moe"], cache["moe"], x, rope, cfg, pos, True, shard_ctx,
+                params["moe"], "moe", cache["moe"], x, rope, cfg, pos, True, shard_ctx,
                 decode_impl,
             )
         h = rms_norm(x, params["final_norm"])

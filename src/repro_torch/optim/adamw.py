@@ -121,13 +121,17 @@ def _scale_and_corrections(gnorm: torch.Tensor, step: torch.Tensor, cfg: AdamWCo
     return scale, bc1, bc2
 
 
-def _leaf_step(p, g, m_state, v_state, scale, bc1, bc2, lr, cfg: AdamWConfig):
+def _leaf_step(p, g, m_state, v_state, scale, bc1, bc2, lr, cfg: AdamWConfig,
+               codec=None):
     """One leaf's update: (p's new value in float32, the encoded m and v).
-    ``p`` and ``g`` are the whole leaf, or the same part of it."""
+    ``p`` and ``g`` are the whole leaf, or the same part of it. ``codec``,
+    a pair ``(decode(state, like), encode(x))``, replaces the moment
+    dtype's (the sharded step's int8 blocks)."""
+    decode, encode = codec or (_decode, lambda x: _encode(x, cfg.moment_dtype))
     g = g.to(torch.float32) * scale
-    m = cfg.b1 * _decode(m_state, p)
+    m = cfg.b1 * decode(m_state, p)
     m += (1 - cfg.b1) * g
-    v = cfg.b2 * _decode(v_state, p)
+    v = cfg.b2 * decode(v_state, p)
     gg = (1 - cfg.b2) * g
     gg *= g
     v += gg
@@ -142,7 +146,7 @@ def _leaf_step(p, g, m_state, v_state, scale, bc1, bc2, lr, cfg: AdamWConfig):
     delta *= lr
     new = p.to(torch.float32) - delta
     del delta
-    return new, _encode(m, cfg.moment_dtype), _encode(v, cfg.moment_dtype)
+    return new, encode(m), encode(v)
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr):

@@ -274,6 +274,12 @@ def _array_tuple(arrays: "ShardedIndexArrays") -> tuple:
             arrays.blk_maximp, arrays.range_starts)
 
 
+def _host_or_tensor(t):
+    """A plan table as given: a tensor stays one (no round trip through the
+    host; ``upload_int32`` passes it through), anything else is numpy."""
+    return t if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
 def make_sharded_query_fn(ctx, *, s_pad: int, k: int, budget: int, impl: str | None = None):
     """The sharded query step (the ``anytime-ir`` serve step):
     ``step(arrays, tables) -> (vals [Q, k], ids [Q, k] global, ranges)``.
@@ -290,7 +296,7 @@ def make_sharded_query_fn(ctx, *, s_pad: int, k: int, budget: int, impl: str | N
     """
     if _ctx_devices(ctx) == 1:
         def step(arrays: ShardedIndexArrays, tables):
-            blk, rest, order, bounds = (np.asarray(t) for t in tables)
+            blk, rest, order, bounds = (_host_or_tensor(t) for t in tables)
             dev = arrays.docs.device
             lane_impl = impl or ("cuda" if dev.type == "cuda" else "torch")
             out = _lanes_out(arrays.device_index(), blk, rest, order, bounds, budget,
@@ -348,7 +354,7 @@ def make_sharded_query_fn(ctx, *, s_pad: int, k: int, budget: int, impl: str | N
 
     def mesh_step(arrays: ShardedIndexArrays, tables):
         return fn(_array_tuple(arrays), arrays.doc_base,
-                  *(np.asarray(t) for t in tables))
+                  *(_host_or_tensor(t) for t in tables))
 
     return mesh_step
 

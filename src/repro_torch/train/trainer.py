@@ -38,7 +38,24 @@ data rank updates only its ZeRO-1 slice of the moments and of the
 parameter block (``zero1_spec`` names the dim; a stacked segment's layer
 dim gives each data rank whole layers), then the updated slices are
 gathered back over the data axes. The result is the single-device step's.
-Int8 moments are not sliced: with them the step takes one data rank.
+
+Int8 moments are laid out as the reference's ``zero1_state_specs`` lays
+them out: ``q`` [..., nblk, 256] and ``scale`` [..., nblk, 1] each by
+``zero1_spec`` of its own shape, which may split the 256-wide block dim
+over the data axes (the scale then stays whole, and the block's absmax is
+a ``pmax`` over them) or leave a model-sharded parameter dim whole in the
+moment. Each rank then updates the part of the parameter its moment block
+covers: its parameter and gradient blocks gathered over the axes the
+moment does not split, sliced to the moment's block (a strided view of
+each block of 256 when the block dim is split), and the new values taken
+back to the parameter's layout the same way.
+
+FSDP (``fsdp_param_specs``, the reference dry run's placement of an
+``fsdp`` arch, given to the step as its context's ``fsdp_specs``): a leaf
+whose spec there splits it over the data axes is the rank's own block,
+updated whole; the model gathers it where it is used
+(``sharding.fsdp_gather``, which reads the same specs), and its gradient
+arrives summed over the data axes.
 """
 
 from __future__ import annotations
@@ -50,13 +67,16 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (
     P,
     all_gather_tiled,
     bound,
     mesh_coord,
+    mesh_sizes,
     place,
+    pmax,
     psum,
     runtime,
     spec_at,
@@ -73,6 +93,7 @@ from repro_torch.models.layers import (
     tree_to_flat,
 )
 from repro_torch.optim.adamw import (
+    _BLOCK,
     AdamWConfig,
     _decode,
     _encode,
@@ -87,7 +108,7 @@ from repro_torch.optim.schedule import cosine_with_warmup
 
 __all__ = ["make_train_step", "zero1_state_specs", "Trainer", "TrainerConfig",
            "opt_state_to_tree", "opt_state_from_tree", "zero1_spec", "init_zero1_state",
-           "place_opt_state", "gather_opt_state"]
+           "place_opt_state", "gather_opt_state", "fsdp_param_specs"]
 
 
 # ------------------------------------------------------------------ ZeRO-1
@@ -228,14 +249,78 @@ def zero1_state_specs(param_specs, params, opt_state, n_data: int, data_axes,
             "v": walk(param_specs, p_shapes, v_shapes), "step": P()}
 
 
+# The reference dry run's FSDP threshold: a leaf of fewer elements stays
+# replicated over the data axes.
+FSDP_MIN_SIZE = 65536
+
+
+def fsdp_param_specs(arch, cfg, param_specs, params, ctx):
+    """The reference dry run's FSDP placement of an ``fsdp`` arch: every leaf
+    of at least ``FSDP_MIN_SIZE`` elements is also split over the data axes on
+    its first free divisible dim (``zero1_spec``, on top of the TP spec);
+    smaller leaves keep ``param_specs``. Place the parameters by them and
+    run the steps with ``dataclasses.replace(ctx, fsdp_specs=...)`` of
+    them: the steps gather and update the split leaves by the context. ``params`` is the arch's
+    ``Params`` (``param_shapes``) or the reference's tree of arrays.
+    Another arch's specs come back as they are. The port holds a stacked
+    segment's layers as separate modules, so the layer dim is never the
+    FSDP dim: where it would be (its length a multiple of the data axes'
+    size, as at no published depth), the next free dim is taken."""
+    del cfg
+    if not getattr(arch, "fsdp", False):
+        return param_specs
+    mesh_shape = _mesh_shape(ctx.mesh)
+    da, n = tuple(ctx.data_axes), ctx.n_data
+    stacked = getattr(params, "stacked", getattr(arch, "stacked", ()))
+    shapes = _as_shape_trees(params, {"m": {}, "v": {}})[0]
+
+    def one(spec: P, shape, is_stacked: bool) -> P:
+        if int(np.prod(shape)) < FSDP_MIN_SIZE:
+            return spec
+        out = zero1_spec(spec, shape, n, da, mesh_shape)
+        if is_stacked and out and out[0] is not None and _uses_axes([out[0]], da):
+            lead = _fit_spec(spec, shape, mesh_shape)
+            inner = zero1_spec(P(*tuple(lead)[1:]), shape[1:], n, da, mesh_shape)
+            out = P(tuple(lead)[0] if len(lead) else None, *inner)
+        return out
+
+    def walk(spec, shp, path):
+        if isinstance(spec, P):
+            return one(spec, shp, bool(path) and path[0] in stacked)
+        if isinstance(spec, dict):
+            return {k: walk(v, _at(shp, k), path + (k,)) for k, v in spec.items()}
+        return type(spec)(walk(v, _at(shp, i), path + (str(i),)) for i, v in enumerate(spec))
+
+    return walk(param_specs, shapes, ())
+
+
+@dataclasses.dataclass(frozen=True)
+class _Q8:
+    """An int8 moment's layout against its parameter block, per layer:
+    ``pe`` the parameter's spec entries, ``qe`` those of the moment's ``q``
+    [..., nblk, 256] (``zero1_state_specs``; its ``scale`` [..., nblk, 1]
+    is split as ``q`` but for the last dim), ``shape`` the parameter's
+    global shape, ``aligned`` when the parameter's last-dim split falls on
+    whole blocks of 256 that ``q`` splits alike, and ``layer`` the data
+    axes that split a stacked segment's layers (the rank then holds the
+    moments of its own layers only)."""
+
+    pe: tuple
+    qe: tuple
+    shape: tuple
+    aligned: bool
+    layer: tuple = ()
+
+
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     """A parameter block's place in the sharded step. ``axes``: the mesh
     axes its spec shards it over (its squares are summed over them for the
     clip norm); ``reduce``: the data axes its gradient is summed over;
     ``kind``: "whole" (every data rank updates the block), "layer" (the
-    data rank ``own`` updates this layer of a stacked segment) or "slice"
-    (``[lo, hi)`` of dim ``dim``, over the data axes)."""
+    data rank ``own`` updates this layer of a stacked segment), "slice"
+    (``[lo, hi)`` of dim ``dim``, over the data axes) or "q8" (an int8
+    moment's block, ``q8``)."""
 
     axes: tuple
     reduce: tuple
@@ -244,6 +329,7 @@ class _Leaf:
     dim: int = 0
     lo: int = 0
     hi: int = 0
+    q8: _Q8 | None = None
 
 
 def _spec_axes(spec) -> tuple:
@@ -256,7 +342,7 @@ def _spec_axes(spec) -> tuple:
 
 
 def _mesh_shape(mesh) -> dict:
-    return {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+    return dict(mesh_sizes(mesh))
 
 
 def _leaf_layout(name, block: torch.Tensor, param_specs, stacked, n_layers: dict,
@@ -265,7 +351,11 @@ def _leaf_layout(name, block: torch.Tensor, param_specs, stacked, n_layers: dict
     shape = _mesh_shape(mesh)
     da = tuple(shard_ctx.data_axes)
     path, layer = _ref_key(name, stacked)
-    full = spec_at(param_specs, path)  # the stacked spec, layer dim included
+    # The stacked spec, layer dim included; an FSDP placement is the
+    # context's (what the rank holds, a block split over data its own).
+    if shard_ctx.fsdp_specs is not None:
+        param_specs = shard_ctx.fsdp_specs
+    full = spec_at(param_specs, path)
     per = P(*tuple(full)[1:]) if layer is not None else full
     parts = list(per) + [None] * (block.ndim - len(per))
     gshape = [d * _axes_size(e, shape) for d, e in zip(block.shape, parts)]
@@ -275,17 +365,22 @@ def _leaf_layout(name, block: torch.Tensor, param_specs, stacked, n_layers: dict
     lead = (n_layers[path[0]],) if layer is not None else ()
     gfull = (*lead, *gshape)
     if moment_dtype == "int8":
-        # Int8 moments are not sliced over data ranks: every one holds the
-        # block's blocks of 256 whole, as on one data rank.
-        if n_data > 1:
-            raise ValueError(f"{name}: int8 moments under ZeRO-1 need one data rank; "
-                             "use fp32 or bf16 moments")
-        q_shape = (*gfull[:-1], (gfull[-1] + 255) // 256, 256)
+        q_shape = (*gfull[:-1], -(-gfull[-1] // _BLOCK), _BLOCK)
         base = P(*(list(full) + [None] * (len(q_shape) - len(full))))
-        if tuple(_fit_spec(base, q_shape, shape)) != tuple(base):
-            raise ValueError(f"{name}: int8 moments on this mesh would unshard a "
-                             "model-sharded dim; use fp32 or bf16 moments")
-        return _Leaf(axes, reduce, "whole")
+        qs = list(zero1_spec(base, q_shape, n_data, da, shape))
+        qs += [None] * (len(q_shape) - len(qs))
+        layer_axes, own = (), True
+        if layer is not None:
+            if qs[0] is not None and _uses_axes([qs[0]], da):
+                layer_axes = qs[0]
+                idx, n = mesh_coord(mesh, layer_axes)
+                own = layer // (n_layers[path[0]] // n) == idx
+            qs = qs[1:]
+        pe = tuple(parts)
+        aligned = (qs[-2] == pe[-1]
+                   and gshape[-1] % (_BLOCK * _axes_size(pe[-1], shape)) == 0)
+        return _Leaf(axes, reduce, "q8", own=own,
+                     q8=_Q8(pe, tuple(qs), tuple(gshape), aligned, layer_axes))
     mspec = zero1_spec(full, gfull, n_data, da, shape)
     j = _data_dim(mspec, da)
     if j is None or _uses_axes(list(full), da):
@@ -313,6 +408,91 @@ def _layouts(params, param_specs, shard_ctx, moment_dtype: str) -> dict:
             for n, p in param_leaves(params).items()}
 
 
+def _part(mesh, entry, size: int) -> tuple[int, int]:
+    """(start, length) of this rank's part of a dim of ``size`` split over
+    spec entry ``entry``."""
+    if entry is None:
+        return 0, size
+    idx, n = mesh_coord(mesh, entry)
+    return idx * (size // n), size // n
+
+
+def _q8_region(x: torch.Tensor, q: _Q8, mesh) -> torch.Tensor:
+    """The part of parameter-shaped block ``x`` (a parameter or its
+    gradient) that this rank's int8 moment block covers, as blocks
+    [..., nblk_loc, 256_loc]: gathered over the axes the moment does not
+    split, then sliced to the moment's part."""
+    nd = len(q.shape)
+    for d in range(nd - 1):
+        if q.qe[d] != q.pe[d]:
+            if q.pe[d] is not None:
+                x = all_gather_tiled(x, q.pe[d], d)
+            if q.qe[d] is not None:
+                x = x.narrow(d, *_part(mesh, q.qe[d], q.shape[d]))
+    if q.aligned:
+        x = x.reshape(*x.shape[:-1], -1, _BLOCK)
+    else:
+        if q.pe[-1] is not None:
+            x = all_gather_tiled(x, q.pe[-1], nd - 1)
+        nb = -(-q.shape[-1] // _BLOCK)
+        x = F.pad(x, (0, nb * _BLOCK - q.shape[-1])).reshape(*x.shape[:-1], nb, _BLOCK)
+        if q.qe[nd - 1] is not None:
+            x = x.narrow(nd - 1, *_part(mesh, q.qe[nd - 1], nb))
+    if q.qe[nd] is not None:
+        x = x.narrow(nd, *_part(mesh, q.qe[nd], _BLOCK))
+    return x
+
+
+def _q8_back(y: torch.Tensor, q: _Q8, mesh) -> torch.Tensor:
+    """``_q8_region``'s inverse: the parameter block of every rank's new
+    values on its moment block."""
+    nd = len(q.shape)
+    if q.qe[nd] is not None:
+        y = all_gather_tiled(y, q.qe[nd], nd)
+    if q.aligned:
+        y = y.reshape(*y.shape[:-2], -1)
+    else:
+        if q.qe[nd - 1] is not None:
+            y = all_gather_tiled(y, q.qe[nd - 1], nd - 1)
+        y = y.reshape(*y.shape[:-2], -1)[..., :q.shape[-1]]
+        if q.pe[-1] is not None:
+            y = y.narrow(nd - 1, *_part(mesh, q.pe[-1], q.shape[-1]))
+    for d in range(nd - 1):
+        if q.qe[d] != q.pe[d]:
+            if q.qe[d] is not None:
+                y = all_gather_tiled(y, q.qe[d], d)
+            if q.pe[d] is not None:
+                y = y.narrow(d, *_part(mesh, q.pe[d], q.shape[d]))
+    return y
+
+
+def _q8_codec(q: _Q8):
+    """The int8 moment's decode and encode on blocks [..., nblk_loc,
+    256_loc], the single-device ``_q8`` element for element; a block split
+    over data ranks takes its absmax over them."""
+    def decode(s, like):
+        del like
+        return s["q"].to(torch.float32) * s["scale"]
+
+    def encode(x):
+        amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+        if q.qe[-1] is not None:
+            amax = pmax(amax, q.qe[-1])
+        scale = amax / 127.0
+        return {"q": torch.round(x / torch.clamp(scale, min=1e-12)).to(torch.int8),
+                "scale": scale.to(torch.float32)}
+
+    return decode, encode
+
+
+def _q8_shapes(q: _Q8, mesh) -> tuple[tuple, tuple]:
+    """This rank's ``q`` and ``scale`` block shapes."""
+    shape = _mesh_shape(mesh)
+    full = (*q.shape[:-1], -(-q.shape[-1] // _BLOCK), _BLOCK)
+    qs = tuple(n // _axes_size(e, shape) for n, e in zip(full, q.qe))
+    return qs, qs[:-1] + (1,)
+
+
 def _slice(x: torch.Tensor, lay: _Leaf) -> torch.Tensor:
     return x.narrow(lay.dim, lay.lo, lay.hi - lay.lo) if lay.kind == "slice" else x
 
@@ -338,8 +518,12 @@ def init_zero1_state(params, cfg: AdamWConfig, param_specs, shard_ctx) -> dict:
 
     def zero(n):
         lay = lays[n]
-        if lay.kind == "layer" and not lay.own:
+        if lay.kind in ("layer", "q8") and not lay.own:
             return _empty(dev)
+        if lay.kind == "q8":
+            qs, ss = _q8_shapes(lay.q8, shard_ctx.mesh)
+            return {"q": torch.zeros(qs, dtype=torch.int8, device=dev),
+                    "scale": torch.zeros(ss, dtype=torch.float32, device=dev)}
         z = torch.zeros(_slice(leaves[n], lay).shape, dtype=torch.float32, device=dev)
         return _encode(z, cfg.moment_dtype)
 
@@ -357,9 +541,16 @@ def place_opt_state(state, params, param_specs, shard_ctx, moment_dtype: str = "
         state = opt_state_from_tree(state, params.stacked, "cpu")
     lays = _layouts(params, param_specs, shard_ctx, moment_dtype)
     mesh = shard_ctx.mesh
+    dev = next(iter(params.parameters())).device
 
     def one(name, m):
         spec = spec_at(param_specs, name.split("."))
+        lay = lays[name]
+        if lay.kind == "q8":
+            if not lay.own:
+                return _empty(dev)
+            return {"q": place(m["q"], P(*lay.q8.qe), mesh),
+                    "scale": place(m["scale"], P(*lay.q8.qe[:-1], None), mesh)}
         if is_q8_leaf(m):
             base = P(*(list(spec) + [None] * (m["q"].ndim - len(spec))))
             blk = {"q": place(m["q"], base, mesh), "scale": place(m["scale"], P(
@@ -368,7 +559,6 @@ def place_opt_state(state, params, param_specs, shard_ctx, moment_dtype: str = "
             blk = place(m, spec, mesh)
         return _moment_block(blk, lays[name])
 
-    dev = next(iter(params.parameters())).device
     return {"m": {n: one(n, v) for n, v in state["m"].items()},
             "v": {n: one(n, v) for n, v in state["v"].items()},
             "step": torch.as_tensor(state["step"]).to(device=dev, dtype=torch.int32)}
@@ -399,7 +589,20 @@ def gather_opt_state(state, params, param_specs, shard_ctx, moment_dtype: str = 
 
     def whole(name, m):
         spec = spec_at(param_specs, name.split("."))
-        blk = _gather_moment(m, leaves[name], lays[name], da, moment_dtype)
+        lay = lays[name]
+        if lay.kind == "q8":
+            q8 = lay.q8
+            if q8.layer:  # the owners' layers, zeros elsewhere, summed
+                qs, ss = _q8_shapes(q8, mesh)
+                dev = leaves[name].device
+                q = m["q"] if lay.own else torch.zeros(qs, dtype=torch.int8, device=dev)
+                sc = m["scale"] if lay.own else torch.zeros(ss, dtype=torch.float32,
+                                                             device=dev)
+                m = {"q": psum(q.to(torch.int32), q8.layer).to(torch.int8),
+                     "scale": psum(sc, q8.layer)}
+            return {"q": gather(m["q"], P(*q8.qe), mesh, root),
+                    "scale": gather(m["scale"], P(*q8.qe[:-1], None), mesh, root)}
+        blk = _gather_moment(m, leaves[name], lay, da, moment_dtype)
         if is_q8_leaf(blk):
             base = P(*(list(spec) + [None] * (blk["q"].ndim - len(spec))))
             return {k: gather(v, base, mesh, root) for k, v in blk.items()}
@@ -427,9 +630,22 @@ def _sharded_update(params, grads, state, cfg: AdamWConfig, lr, lays, shard_ctx)
     gnorm = torch.sqrt(sq)
     step = state["step"] + 1
     scale, bc1, bc2 = _scale_and_corrections(gnorm, step, cfg)
+    mesh = shard_ctx.mesh
     with torch.no_grad():
         for name, p in leaves.items():
             lay = lays[name]
+            if lay.kind == "q8":
+                q8 = lay.q8
+                if lay.own:
+                    new, state["m"][name], state["v"][name] = _leaf_step(
+                        _q8_region(p, q8, mesh), _q8_region(grads[name], q8, mesh),
+                        state["m"][name], state["v"][name], scale, bc1, bc2, lr, cfg,
+                        codec=_q8_codec(q8))
+                    new = _q8_back(new.to(p.dtype), q8, mesh)
+                else:
+                    new = torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+                p.copy_(psum(new, q8.layer) if q8.layer else new)
+                continue
             if lay.kind == "layer" and not lay.own:
                 new = torch.zeros(p.shape, dtype=p.dtype, device=p.device)
             else:

@@ -150,9 +150,10 @@ def _lm_runs(ms, inp, out):
                         for n in go[k])
         arch._moments = "fp32"
         out[name, "kind"] = kind
-        try:  # int8 moments are not sliced over data ranks
-            trainer.init_zero1_state(p, AdamWConfig(moment_dtype="int8"), specs, ctx)
-            out[name, "int8"] = None
+        try:  # int8 moments are sliced over data ranks as zero1_state_specs says
+            o8 = trainer.init_zero1_state(p, AdamWConfig(moment_dtype="int8"), specs, ctx)
+            out[name, "int8"] = sorted({str(v["q"].dtype) for v in o8["m"].values()
+                                        if isinstance(v, dict)})
         except ValueError as e:
             out[name, "int8"] = str(e)
 
@@ -425,10 +426,11 @@ def test_sharded_lm_step_matches_reference_single_device(run, name, moments):
 
 @pytest.mark.parametrize("name", LMS)
 def test_int8_moments_over_data_ranks_raise(run, name):
-    """Int8 moments under ZeRO-1 take one data rank (the LocalMesh step of
-    tests/test_torch_archs.py runs them); on 2 x 4 the step's state raises."""
+    """Int8 moments under ZeRO-1 on 2 x 4 no longer raise: the state holds
+    int8 blocks laid out by ``zero1_state_specs`` (the steps themselves
+    against the reference's: tests/test_torch_mesh_fsdp.py)."""
     got, _, _ = run
-    assert "int8 moments under ZeRO-1 need one data rank" in got[name, "int8"]
+    assert got[name, "int8"] == ["torch.int8"]
 
 
 @pytest.mark.parametrize("name", TOWERS)

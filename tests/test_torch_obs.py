@@ -936,10 +936,10 @@ def test_burn_rate_alert_marks_plane_degraded():
 
 
 def test_port_telemetry_calls_are_guarded():
-    """The reference's OBSGUARD rule (DESIGN.md §15) over the port's
-    ``core``, ``serving`` and ``control`` modules, each analyzed under a
-    ``serving/`` path so the rule's scope covers it."""
-    from repro.analysis.runner import analyze_source
+    """The port's OBSGUARD rule (``repro_torch.analysis``, DESIGN.md §15)
+    over the port's ``core``, ``serving`` and ``control`` modules, each
+    analyzed under a ``serving/`` path so the rule's scope covers it."""
+    from repro_torch.analysis.runner import analyze_source
 
     files = [f for sub in ("core", "serving", "control")
              for f in sorted((ROOT / "src" / "repro_torch" / sub).glob("*.py"))]
