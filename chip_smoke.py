@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train    # the train phase alone
     python3 chip_smoke.py --mesh-model  # the model mesh phase alone
     python3 chip_smoke.py --dryrun   # the dry run's whole sweep and the roofline
+    python3 chip_smoke.py --kernels [PARENT]  # scatter and decode, against PARENT in turns
 
 Drives the port (``src/repro_torch``) through its main path on the card and
 fails (non-zero exit, no result line) on any fault:
@@ -739,6 +740,17 @@ def kernel_phase(dev, parity: Parity) -> None:
     vals = rng.integers(0, 256, size=3000).astype(np.int32)
     parity.record("scatter_accumulate", kernel.scatter_accumulate(t(ids), t(vals), 900),
                   ref.scatter_accumulate_ref(t(ids), t(vals), 900), "out-of-range ids")
+    # scatter_plan's edges: no posting, one CTA's slots and one more (a
+    # cluster), one cluster's and one more (device memory).
+    one = kernel.SCATTER_CTA_SLOTS * kernel.SCATTER_MAX_CLUSTER
+    for P, s_pad in ((0, 1), (4096, kernel.SCATTER_LONE_SLOTS),
+                     (4096, kernel.SCATTER_LONE_SLOTS + 1), (300_001, one), (4096, one + 1)):
+        rng = np.random.default_rng(P + s_pad)
+        ids = t(rng.integers(-5, s_pad + 5, size=P), np.int32)
+        vals = t(rng.integers(0, 256, size=P), np.int32)
+        parity.record("scatter_accumulate", kernel.scatter_accumulate(ids, vals, s_pad),
+                      ref.scatter_accumulate_ref(ids, vals, s_pad),
+                      f"P={P} s_pad={s_pad} ({kernel.scatter_plan(P, s_pad).placement})")
 
     # Decode: every width, pruned and padding rows, main-path widths.
     for seed, n_pool, n_sel in ((0, 24, 17), (3, 24, 17), (9, 24, 17),
@@ -1958,69 +1970,280 @@ class TimingInputs:
                carry_buffer(batched_init_carry(n_lanes, eng.k))], dev)
 
 
-def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs) -> dict:
-    """Each kernel at a main-path shape (``TimingInputs``); ``traverse`` also
-    through its caller ``traverse_lanes``, where the dry run's shape rule
-    sits, and the rule's own host cost (one ``is_abstract`` a call)."""
+# The standalone kernels at a full collection's range: (b) one portable
+# cluster's slots, a range of a 50M-document collection in ~122 ranges;
+# (c) the unreduced scale collection's 50M documents over its 32 ranges,
+# above one cluster. P = RANGE_BLOCKS * 128 lanes each, and the decode at
+# B = RANGE_BLOCKS rows of the scale index's own directory.
+SCATTER_RANGES = {"(b)": 409_600, "(c)": 1_572_864}
+RANGE_BLOCKS = 8192
+RANGE_SEED = 24
+# The dependent global rounds each kernel waits on: scatter the postings
+# (its atomics and stores do not wait), decode the row and then its words.
+SCATTER_ROUNDS, UNPACK_ROUNDS = 1, 2
+# The scatter placements' crossover grid (scatter_crossover).
+CROSSOVER_P = (2048, 4096, 8192, RANGE_BLOCKS * 128)
+CROSSOVER_S_PAD = (9_984, 12_288, 16_384, 51_200, 409_600, 819_200, 1_572_864)
+
+
+def scatter_range_inputs(s_pad: int, dev, seed: int = RANGE_SEED,
+                         n_blocks: int = RANGE_BLOCKS, nnz: int = 1 << 22) -> tuple:
+    """(local ids, values) of a full collection's range on ``dev``: sorted
+    docids drawn in [0, s_pad), blocks at random starts with random
+    lengths, 80% kept (as ``tests/test_torch_cuda.py`` builds its cases)."""
     import numpy as np
     import torch
-    from repro_torch.core.range_daat import Engine, traverse_lanes
-    from repro_torch.kernels._abstract import is_abstract
-    from repro_torch.kernels.range_scorer import kernel, ref
+    from repro_torch.core.clustered_index import BLOCK
+    from repro_torch.kernels.range_scorer import ref
 
-    eng, plan, r, blk, rs = ti.eng, ti.plan, ti.r, ti.blk, ti.rs
+    rng = np.random.default_rng(seed + s_pad)
+    docs = np.sort(rng.integers(0, s_pad, size=nnz)).astype(np.int32)
+    imps = rng.integers(1, 256, size=nnz).astype(np.int32)
+    starts = rng.integers(0, nnz - BLOCK, size=n_blocks).astype(np.int32)
+    lens = rng.integers(1, BLOCK + 1, size=n_blocks).astype(np.int32)
+    keep = rng.random(n_blocks) < 0.8
+    return ref.gather_block_postings(*(torch.from_numpy(a).to(dev) for a in
+                                       (docs, imps, starts, lens, keep)), 0)
+
+
+def unpack_scale_inputs(dix, dev, seed: int = RANGE_SEED,
+                        n_blocks: int = RANGE_BLOCKS) -> tuple:
+    """``unpack_locals``' arguments for ``n_blocks`` rows drawn from a packed
+    index's directory (its real widths), 80% kept, the last four padding."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sel = torch.from_numpy(rng.integers(0, dix.blk_len.shape[0], size=n_blocks)).to(dev)
+    starts = dix.blk_start[sel].clone()
+    starts[-4:] = -1
+    keep = torch.from_numpy(rng.random(n_blocks) < 0.8).to(dev)
+    return (dix.pack_words, starts, dix.blk_len[sel], dix.pack_dir[sel],
+            dix.pack_first[sel], keep, torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+def unpack_bytes(args) -> int:
+    """The decode's bytes: its directory rows (17 B), the valid rows' words
+    and 512 B of ids out, per block."""
+    import numpy as np
+    from repro_torch.kernels.range_scorer import ref
+
+    _, starts, lens, pack_dir, _, keep, _ = args
+    _, widths = ref.unpack_dir(pack_dir)
+    valid = (keep & (starts >= 0)).cpu().numpy()
+    words = (lens.cpu().numpy().astype(np.int64) * widths.cpu().numpy() + 31) // 32
+    B = int(starts.shape[0])
+    return int(words[valid].sum()) * 4 + B * 17 + B * 128 * 4
+
+
+def standalone_shapes(index, ti: TimingInputs, dev, wide: bool = False) -> dict:
+    """The standalone kernels' timed inputs: name -> (kernel, args). The
+    main path's one range (``TimingInputs``' first range, the lanes
+    gathered from the int32-docid engine for the scatter), (b), (c) and the
+    decode at B = RANGE_BLOCKS; ``wide`` adds the decode at 8 x RANGE_BLOCKS."""
+    from repro_torch.core.range_daat import Engine
+    from repro_torch.kernels.range_scorer import ref
+
+    eng, blk, rs = ti.eng, ti.blk, ti.rs
     raw = Engine(index, k=10, device=dev, impact_dtype="int8")
     safe = blk.clamp(min=0)
     starts, lens = eng.dix.blk_start[safe], eng.dix.blk_len[safe]
     keep = blk >= 0  # the first range is scored before θ can prune
+    local, vals = ref.gather_block_postings(raw.dix.docs, raw.dix.impacts, starts, lens,
+                                            keep, rs)
+    shapes = {"one range": ("scatter_accumulate", (local, vals, eng.s_pad))}
+    for label, s_pad in SCATTER_RANGES.items():
+        shapes[label] = ("scatter_accumulate", (*scatter_range_inputs(s_pad, dev), s_pad))
+    shapes["one range decode"] = ("unpack_locals", (
+        eng.dix.pack_words, starts, lens, eng.dix.pack_dir[safe], eng.dix.pack_first[safe],
+        keep, rs))
+    shapes[f"B={RANGE_BLOCKS}"] = ("unpack_locals", unpack_scale_inputs(eng.dix, dev))
+    if wide:
+        shapes[f"B={8 * RANGE_BLOCKS}"] = ("unpack_locals", unpack_scale_inputs(
+            eng.dix, dev, n_blocks=8 * RANGE_BLOCKS))
+    return shapes
+
+
+def time_standalone(kernel, ref, shapes: dict, parity: Parity) -> dict:
+    """Each standalone shape: the kernel against its plain version (bitwise,
+    recorded in ``parity``), then the wrapper's time (CUDA events around
+    many calls), the kernel's and the whole call's device-only times and
+    device rows (profiler), the plain version's and, for the scatter, the
+    one PyTorch call that computes it (``zero_()`` + ``index_add_`` into
+    one spill slot). ``kernel`` and ``ref`` are the range scorer's modules
+    of the tree under test (an A/B turn passes another checkout's)."""
+    import torch
+
+    out = {}
+    for name, (kname, args) in shapes.items():
+        if kname == "scatter_accumulate":
+            local, vals, s_pad = args
+            want = ref.scatter_accumulate_ref(local, vals, s_pad)
+            parity.record(kname, kernel.scatter_accumulate(local, vals, s_pad), want, name)
+            tgt = torch.where((local < 0) | (local >= s_pad), s_pad, local).to(torch.int64)
+            lib_acc = torch.zeros(s_pad + 1, dtype=torch.int32, device=local.device)
+
+            def library(lib_acc=lib_acc, tgt=tgt, vals=vals):
+                lib_acc.zero_()
+                lib_acc.index_add_(0, tgt, vals)
+
+            library()
+            check(torch.equal(lib_acc[:s_pad], want),
+                  "index_add_ yardstick computes another function")
+            P = local.numel()
+            wrapper = functools.partial(kernel.scatter_accumulate, local, vals, s_pad)
+            plain = functools.partial(ref.scatter_accumulate_ref, local, vals, s_pad)
+            d = dict(shape=f"P={P} (B={P // 128}) s_pad={s_pad}",
+                     library_ms=time_ms(library), library_device_us=device_us(library),
+                     library_fill_device_us=device_us(lib_acc.zero_),
+                     bytes=P * 8 + s_pad * 4, rounds=SCATTER_ROUNDS)
+            if hasattr(kernel, "scatter_plan"):
+                d["plan"] = kernel.scatter_plan(P, s_pad)._asdict()
+        else:
+            parity.record(kname, kernel.unpack_locals(*args), ref.unpack_locals_ref(*args),
+                          name)
+            wrapper = functools.partial(kernel.unpack_locals, *args)
+            plain = functools.partial(ref.unpack_locals_ref, *args)
+            d = dict(shape=f"B={int(args[1].shape[0])}", library_ms=None,
+                     library_device_us=None, bytes=unpack_bytes(args), rounds=UNPACK_ROUNDS)
+        d.update(kernel=kname, ms=time_ms(wrapper), plain_ms=time_ms(plain),
+                 kernel_device_us=device_us(wrapper, f"{kname}_kernel"),
+                 wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
+                 device_rows=sorted({e.key for e in _profile_rows(wrapper, 10)}))
+        d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
+        out[name] = d
+    return out
+
+
+def launch_floor(kernel, dev) -> dict:
+    """The empty kernel through the wrappers' binding (``kernel.noop``), the
+    bare ctypes call on a stream fetched once, and its device-only time."""
+    import torch
+
+    fn = kernel._LIB.function("rs_noop")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wrapper = functools.partial(kernel.noop, dev)
+    return dict(wrapper_ms=time_ms(wrapper), bare_ms=time_ms(lambda: fn(stream)),
+                device_us=device_us(wrapper, "noop_kernel"))
+
+
+def scatter_host_split(kernel, local, vals, s_pad: int) -> dict:
+    """Where the scatter wrapper's time goes, in ms a call (CUDA events
+    around many calls, as its own time): the wrapper; ``kernel._scatter``
+    with the plan made once (no checks, no plan); its launch alone into an
+    accumulator allocated once (no allocation); and, on the host's clock,
+    one ``torch.empty`` of the accumulator."""
+    import torch
+
+    plan = kernel.scatter_plan(local.numel(), s_pad)
+    acc = torch.empty(s_pad, dtype=torch.int32, device=local.device)
+    args = (local.data_ptr(), vals.data_ptr(), local.numel(), acc.data_ptr(), s_pad,
+            kernel._SCATTER_CODES[plan.placement], plan.cluster, plan.clusters, plan.slots)
+
+    def empty():
+        return torch.empty(s_pad, dtype=torch.int32, device=local.device)
+
+    n = 20_000
+    for _ in range(200):
+        empty()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        empty()
+    return dict(
+        wrapper_ms=time_ms(functools.partial(kernel.scatter_accumulate, local, vals, s_pad)),
+        planned_ms=time_ms(functools.partial(kernel._scatter, local, vals, s_pad, plan)),
+        launch_ms=time_ms(functools.partial(kernel._LIB.launch_on, local.device,
+                                            "rs_scatter_accumulate", *args)),
+        empty_host_ms=(time.perf_counter() - t0) / n * 1e3)
+
+
+def scatter_crossover(kernel, ref, dev, parity: Parity) -> dict:
+    """The scatter placements against one another, device-only, over
+    CROSSOVER_P x CROSSOVER_S_PAD (``scatter_range_inputs``): one CTA where
+    its slots fit, one cluster of 8 and of 16 where theirs do, several
+    clusters of 16 and of 8 above (each cluster reading every posting), and
+    device memory; and how many clusters of 8 and 16 the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). ``scatter_plan``'s thresholds
+    come from this table."""
+    cta = kernel.SCATTER_CTA_SLOTS
+    out = {"occupancy": {
+        f"{c} x {slots} slots": kernel.scatter_clusters(c, slots, dev)
+        for c, slots in ((kernel.SCATTER_PORTABLE_CLUSTER, cta),
+                         (kernel.SCATTER_MAX_CLUSTER, cta),
+                         (kernel.SCATTER_MAX_CLUSTER, cta // 2))}}
+    for P in CROSSOVER_P:
+        for s_pad in CROSSOVER_S_PAD:
+            local, vals = scatter_range_inputs(s_pad, dev, n_blocks=P // 128)
+            want = ref.scatter_accumulate_ref(local, vals, s_pad)
+            plans = {}
+            if s_pad <= cta:
+                plans["cta"] = kernel.ScatterPlan("cta", 1, 1, -(-s_pad // 4) * 4)
+            for c in (kernel.SCATTER_PORTABLE_CLUSTER, kernel.SCATTER_MAX_CLUSTER):
+                g = -(-s_pad // (c * cta))
+                plans[f"{g} x {c}"] = kernel.ScatterPlan(
+                    "clusters" if g > 1 else "cluster", c, g, -(-s_pad // (g * c) // 4) * 4)
+            plans["global"] = kernel.ScatterPlan("global", 0, 0, 0)
+            row = {"plan": kernel.scatter_plan(P, s_pad).placement}
+            for label, plan in plans.items():
+                fn = functools.partial(kernel._scatter, local, vals, s_pad, plan)
+                parity.record("scatter_accumulate", fn(), want,
+                              f"crossover {label} P={P} s_pad={s_pad}")
+                row[label] = device_us(fn, "scatter_accumulate_kernel", 50)
+            out[f"P={P} s_pad={s_pad}"] = row
+            log(f"scatter crossover P {P} s_pad {s_pad}: " + ", ".join(
+                f"{k} {v:.2f} us" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items()))
+    log("scatter clusters resident at once: " + ", ".join(
+        f"{k}: {v}" for k, v in out["occupancy"].items()))
+    return out
+
+
+def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs,
+                   cold_load_us: float | None = None) -> dict:
+    """Each kernel at a main-path shape (``TimingInputs``); the standalone
+    scatter and decode also at a full collection's range (``standalone_shapes``),
+    beside the launch floor (``launch_floor``) and their dependency floors
+    (rounds x ``cold_load_us``, the phase timer's cold load); ``traverse``
+    also through its caller ``traverse_lanes``, where the dry run's shape
+    rule sits, and the rule's own host cost (one ``is_abstract`` a call)."""
+    import torch
+    from repro_torch.core.range_daat import traverse_lanes
+    from repro_torch.kernels._abstract import is_abstract
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    eng, plan, r, blk = ti.eng, ti.plan, ti.r, ti.blk
     B, s_pad = int(blk.shape[0]), eng.s_pad
-
-    # scatter_accumulate on the gathered (local id, value) lanes.
-    local, vals = ref.gather_block_postings(raw.dix.docs, raw.dix.impacts, starts,
-                                            lens, keep, rs)
-    parity.record("scatter_accumulate", kernel.scatter_accumulate(local, vals, s_pad),
-                  ref.scatter_accumulate_ref(local, vals, s_pad), "timing inputs")
-    tgt = torch.where((local < 0) | (local >= s_pad), s_pad, local).to(torch.int64)
-    lib_acc = torch.zeros(s_pad + 1, dtype=torch.int32, device=local.device)
-
-    def library():
-        lib_acc.zero_()
-        lib_acc.index_add_(0, tgt, vals)
-
-    library()
-    check(torch.equal(lib_acc[:s_pad], ref.scatter_accumulate_ref(local, vals, s_pad)),
-          "index_add_ yardstick computes another function")
-    P = local.numel()
-    wrapper = functools.partial(kernel.scatter_accumulate, local, vals, s_pad)
-    plain = functools.partial(ref.scatter_accumulate_ref, local, vals, s_pad)
-    scatter = dict(
-        shape=f"P={P} (B={B}) s_pad={s_pad}",
-        ms=time_ms(wrapper), plain_ms=time_ms(plain), library_ms=time_ms(library),
-        kernel_device_us=device_us(wrapper, "scatter_accumulate_kernel"),
-        wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
-        library_device_us=device_us(library),
-        library_fill_device_us=device_us(lib_acc.zero_),
-        bytes=P * 8 + s_pad * 4,
-    )
-
-    # unpack_locals on the same blocks' directory rows.
-    args = (eng.dix.pack_words, starts, lens, eng.dix.pack_dir[safe],
-            eng.dix.pack_first[safe], keep, rs)
-    parity.record("unpack_locals", kernel.unpack_locals(*args),
-                  ref.unpack_locals_ref(*args), "timing inputs")
-    _, widths = ref.unpack_dir(args[3])
-    valid = (keep & (starts >= 0)).cpu().numpy()
-    words = ((lens.cpu().numpy().astype(np.int64) * widths.cpu().numpy() + 31) // 32)
-    wrapper = functools.partial(kernel.unpack_locals, *args)
-    plain = functools.partial(ref.unpack_locals_ref, *args)
-    unpack = dict(
-        shape=f"B={B}",
-        ms=time_ms(wrapper), plain_ms=time_ms(plain), library_ms=None,
-        kernel_device_us=device_us(wrapper, "unpack_locals_kernel"),
-        wrapper_device_us=device_us(wrapper), plain_device_us=device_us(plain),
-        library_device_us=None,
-        bytes=int(words[valid].sum()) * 4 + B * 17 + B * 128 * 4,
-    )
+    floor = launch_floor(kernel, dev)
+    log(f"launch floor (rs_noop): {floor['wrapper_ms'] * 1e3:.2f} us/call through the "
+        f"binding, {floor['bare_ms'] * 1e3:.2f} us/call bare, device-only "
+        f"{floor['device_us']:.2f} us")
+    shapes = standalone_shapes(index, ti, dev)
+    standalone = time_standalone(kernel, ref, shapes, parity)
+    for name, d in standalone.items():
+        # One launch a call, and nothing else on the card (no fill).
+        check(d["device_rows"] and all(f"{d['kernel']}_kernel" in k
+                                       for k in d["device_rows"]),
+              f"{d['kernel']} {name}: device rows {d['device_rows']}, not its kernel alone")
+        d["launch_floor"] = floor
+        if cold_load_us is not None:
+            d["dependency_floor_us"] = d["rounds"] * cold_load_us
+        log(f"{d['kernel']} {name} [{d['shape']}"
+            + (f", plan {tuple(d['plan'].values())}" if "plan" in d else "") + "]: "
+            f"{d['ms'] * 1e3:.2f} us/call, device-only {d['kernel_device_us']:.2f} us "
+            f"(whole call {d['wrapper_device_us']:.2f} us), plain {d['plain_ms'] * 1e3:.2f} "
+            f"us, bound {d['bound_ms'] * 1e3:.4f} us ({d['bytes']} B), "
+            f"{d['bound_ms'] * 1e3 / d['kernel_device_us']:.3f} of it"
+            + ("" if d["library_ms"] is None else
+               f", zero_()+index_add_ {d['library_ms'] * 1e3:.2f} us/call, device-only "
+               f"{d['library_device_us']:.2f} us (fill {d['library_fill_device_us']:.2f})")
+            + ("" if cold_load_us is None else
+               f", dependency floor {d['rounds']} x {cold_load_us:.3f} = "
+               f"{d['dependency_floor_us']:.3f} us"))
+    scatter, unpack = standalone["one range"], standalone["one range decode"]
+    scatter["host_split"] = split = scatter_host_split(kernel, *shapes["one range"][1])
+    log("scatter_accumulate one range, us a call: " + ", ".join(
+        f"{k.removesuffix('_ms')} {v * 1e3:.2f}" for k, v in split.items())
+        + f"; zero_()+index_add_ {scatter['library_ms'] * 1e3:.2f}")
     # range_step: the whole first range, from an empty state (int8/packed).
     state, step_args, kw = ti.state, ti.step_args, ti.kw
     parity.record_state(kernel.range_step(*step_args, **kw),
@@ -2076,10 +2299,11 @@ def kernel_timings(index, queries, parity: Parity, dev, ti: TimingInputs) -> dic
         plain_device_us=device_us(plain, None, 2), library_device_us=None,
         bytes=nbytes, ranges=scored, slowest_lane_ranges=slowest,
     )
-    for d in (scatter, unpack, step, trav, strav):
+    for d in (step, trav, strav):
         d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
     return {"scatter_accumulate": scatter, "unpack_locals": unpack, "range_step": step,
-            "traverse": trav, "traverse_sharded": strav}
+            "traverse": trav, "traverse_sharded": strav, "standalone": standalone,
+            "launch_floor": floor}
 
 
 def sm_clock_mhz(fn, seconds: float = 1.5) -> dict:
@@ -6467,7 +6691,8 @@ def run(pool, dev=None, preset: dict = PRESET, scale: dict = SCALE) -> None:
 
     ti = TimingInputs(index, queries, dev)
     record["phases"] = phase_timings(ti, parity, dev)
-    timings = kernel_timings(index, queries, parity, dev, ti)
+    cold_load_us = record["phases"]["cold_load_cycles"] / record["phases"]["clock"]["sm_mhz"]
+    timings = kernel_timings(index, queries, parity, dev, ti, cold_load_us)
     kernels = []
     # The standalone kernels report their own path's launches (score_blocks);
     # range_step the serving window's, traverse the batch serving window's.
@@ -6603,6 +6828,141 @@ def run_phases(pool, dev=None, scale: dict = SCALE) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+KERNELS_DIR = ROOT / ".cache" / "chip_smoke_kernels"  # git-ignored
+KERNEL_TURN_TIMEOUT_S = 900
+
+
+def _turn(*args: str) -> str:
+    """One ``--kernel-turn`` of this script in a fresh process: its last
+    line of standard output (the lines before it logged), or a SmokeError
+    with the end of its errors."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kernel-turn",
+                           *args], capture_output=True, text=True,
+                          timeout=KERNEL_TURN_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  turn: {line}")
+    check(proc.returncode == 0 and bool(lines),
+          f"kernel turn {args[:2]} failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    return lines[-1]
+
+
+def kernel_turn(argv: list[str]) -> None:
+    """``--kernel-turn build ROOT``: build ROOT's range-scorer library and
+    print [seconds, ptxas summary]. ``--kernel-turn time ROOT INPUTS OUT
+    [crossover]``: with ROOT's ``repro_torch`` alone on the path, load the
+    saved standalone shapes onto the card, hold ROOT's scatter and decode
+    against their plain versions and time them (``time_standalone``), with
+    the launch floor and, when asked, the scatter crossover where ROOT has
+    them; write the numbers to OUT."""
+    import torch
+
+    action, root = argv[0], argv[1]
+    sys.path.insert(0, str(Path(root) / "src"))
+    from repro_torch.kernels.range_scorer import kernel, ref
+
+    if action == "build":
+        _, seconds, build_log = kernel.build()
+        print(json.dumps([seconds, ptxas_summary(ptxas_lines(build_log))]))
+        return
+    inputs, out = argv[2], argv[3]
+    dev = torch.device("cuda", 0)
+    saved = torch.load(inputs)
+    shapes = {name: (kname, tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                                  for a in args))
+              for name, (kname, args) in saved.items()}
+    parity = Parity()
+    rec = dict(root=root, timings=time_standalone(kernel, ref, shapes, parity))
+    if hasattr(kernel, "noop"):
+        rec["launch_floor"] = launch_floor(kernel, dev)
+        rec["scatter_host_split"] = scatter_host_split(kernel, *shapes["one range"][1])
+    if "crossover" in argv[4:] and hasattr(kernel, "scatter_plan"):
+        rec["crossover"] = scatter_crossover(kernel, ref, dev, parity)
+    rec["parity_cases"] = parity.cases
+    Path(out).write_text(json.dumps(rec, indent=1, default=str))
+    print(out)
+
+
+def run_kernels(pool, dev=None, scale: dict = SCALE, parent: str | None = None) -> None:
+    """``--kernels [PARENT]``: the standalone scatter and decode at the main
+    path's one range and at a full collection's range (``standalone_shapes``:
+    the scale index's first timed range, (b), (c), B = RANGE_BLOCKS), each
+    turn in a fresh process on saved inputs. With PARENT (the root of
+    another checkout, say an unpacked ``git archive`` of the parent commit
+    under ``.cache/``) the turns go parent, change, change, parent; the
+    first change turn also measures the scatter crossover
+    (``scatter_crossover``). Numbers in ``chiprun_out/chip_smoke_kernels.json``."""
+    import shutil
+
+    import torch
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    job = pool.apply_async(build_corpus_index, (str(SRC), scale, N_QUERIES))
+    trees = {"change": str(ROOT)}
+    if parent is not None:
+        trees["parent"] = str(Path(parent).resolve())
+    # One nvcc per checkout, started together.
+    with ThreadPoolExecutor(len(trees)) as ex:
+        builds = {label: ex.submit(_turn, "build", root) for label, root in trees.items()}
+        record = dict(card=smi, trees=trees, nvcc_s={})
+        for label, fut in builds.items():
+            seconds, summary = json.loads(fut.result())
+            record["nvcc_s"][label] = seconds
+            log(f"nvcc build range_scorer.cu ({label}): {seconds:.2f} s")
+            for line in summary:
+                log(f"  ptxas ({label}): {line}")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    index, queries, _ = receive_index(job, "scale")
+    ti = TimingInputs(index, queries, dev)
+    shapes = standalone_shapes(index, ti, dev, wide=True)
+    shutil.rmtree(KERNELS_DIR, ignore_errors=True)
+    KERNELS_DIR.mkdir(parents=True)
+    inputs = KERNELS_DIR / "inputs.pt"
+    torch.save({n: (k, tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+                for n, (k, args) in shapes.items()}, inputs)
+    del ti, shapes, index
+    torch.cuda.empty_cache()
+    order = ["parent", "change", "change", "parent"] if parent is not None else ["change"]
+    record["turns"] = []
+    for i, label in enumerate(order):
+        out = KERNELS_DIR / f"turn{i}_{label}.json"
+        first_change = label == "change" and "change" not in order[:i]
+        _turn("time", trees[label], str(inputs), str(out),
+              *(["crossover"] if first_change else []))
+        rec = json.loads(out.read_text())
+        rec["label"] = label
+        record["turns"].append(rec)
+        floor = rec.get("launch_floor")
+        log(f"turn {i} ({label})" + ("" if floor is None else
+            f": launch floor {floor['wrapper_ms'] * 1e3:.2f} us/call through the binding, "
+            f"{floor['bare_ms'] * 1e3:.2f} bare, device-only {floor['device_us']:.2f} us"))
+        if "scatter_host_split" in rec:
+            log("  scatter one range, us a call: " + ", ".join(
+                f"{k.removesuffix('_ms')} {v * 1e3:.2f}"
+                for k, v in rec["scatter_host_split"].items()))
+        for shape, d in rec["timings"].items():
+            log(f"  {d['kernel']} {shape} [{d['shape']}]: wrapper {d['ms'] * 1e3:.2f} us, "
+                f"device-only {d['kernel_device_us']:.2f} us (whole call "
+                f"{d['wrapper_device_us']:.2f}), plain {d['plain_ms'] * 1e3:.2f} us, bound "
+                f"{d['bound_ms'] * 1e3:.4f} us"
+                + ("" if d["library_ms"] is None else
+                   f", zero_()+index_add_ {d['library_ms'] * 1e3:.2f} us (device-only "
+                   f"{d['library_device_us']:.2f})"))
+    record["wall_s"] = time.perf_counter() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(record, indent=1,
+                                                                default=str))
+    shutil.rmtree(KERNELS_DIR, ignore_errors=True)
+    log(f"kernels wall time {record['wall_s']:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
 def run_train(pool, dev=None) -> None:
     """``--train``: the train phase alone, with the full-width checkpoint
     round trip (numbers also in ``chiprun_out/chip_smoke_train.json``)."""
@@ -6654,6 +7014,13 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {SRC / 'repro_torch'} not found: run from a "
               "checkout of the repository", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--kernel-turn"]:  # one turn of --kernels, no pool
+        try:
+            kernel_turn(sys.argv[2:])
+        except SmokeError as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     sys.path.insert(0, str(SRC))
     ctx = multiprocessing.get_context("spawn")
     pool = ctx.Pool(3)
@@ -6661,7 +7028,12 @@ def main() -> int:
         mode = {"--phases": run_phases, "--train": run_train, "--mesh-model": run_mesh_model,
                 "--dryrun": run_dryrun}
         flags = [a for a in sys.argv[1:] if a in mode]
-        (mode[flags[0]] if flags else run)(pool)
+        if "--kernels" in sys.argv[1:]:
+            rest = sys.argv[sys.argv.index("--kernels") + 1:]
+            run_kernels(pool, parent=rest[0] if rest and not rest[0].startswith("--")
+                        else None)
+        else:
+            (mode[flags[0]] if flags else run)(pool)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -5,9 +5,10 @@ use, ``CudaLibrary.build`` compiles it with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``.cache/repro_torch_kernels/``
 of the checkout, named by a hash of the source and the flags, and
 ``CudaLibrary.launch`` loads it with ``ctypes`` and calls one of its entry
-points. Every entry point returns ``cudaGetLastError()``; a non-zero code
-raises with the library's own error string. Importing this module builds
-and loads nothing.
+points (``launch_on``: on a device's current stream). Every entry point
+returns ``cudaGetLastError()``; a non-zero code raises with the library's
+own error string. The entry points' ctypes functions are bound once, when
+the library loads. Importing this module builds and loads nothing.
 """
 
 from __future__ import annotations
@@ -69,7 +70,10 @@ class CudaLibrary:
         self.signatures = dict(signatures)
         self.error_fn = error_fn
         self._lock = threading.RLock()  # build() runs under it from _load()
-        self._cdll: ctypes.CDLL | None = None
+        # The entry points' ctypes functions by name, bound once at load,
+        # and whether the process sees one card (fixed once CUDA starts).
+        self._fns: dict | None = None
+        self._one_device = False
 
     def path(self) -> Path:
         """``BUILD_DIR/lib<stem>-<hash>.so``; the hash covers source and flags."""
@@ -106,27 +110,51 @@ class CudaLibrary:
         """Libraries this process has loaded for the source: 0 or 1. The
         launchers expose it as ``_cache_size()``, the compile count that
         ``repro_torch.obs.profiler`` reads."""
-        return int(self._cdll is not None)
+        return int(self._fns is not None)
 
-    def _load(self) -> ctypes.CDLL:
-        if self._cdll is not None:
-            return self._cdll
+    def _load(self) -> dict:
+        if self._fns is not None:
+            return self._fns
         with self._lock:
-            if self._cdll is None:
+            if self._fns is None:
                 path, _, _ = self.build()
                 cdll = ctypes.CDLL(str(path))
-                getattr(cdll, self.error_fn).argtypes = [INT]
-                getattr(cdll, self.error_fn).restype = ctypes.c_char_p
-                for name, argtypes in self.signatures.items():
-                    getattr(cdll, name).argtypes = list(argtypes)
-                    getattr(cdll, name).restype = INT
-                self._cdll = cdll
-            return self._cdll
+                fns = {}
+                for name, argtypes in {self.error_fn: [INT], **self.signatures}.items():
+                    fn = getattr(cdll, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_char_p if name == self.error_fn else INT
+                    fns[name] = fn
+                self._one_device = torch.cuda.device_count() == 1
+                self._fns = fns
+            return self._fns
+
+    def function(self, name: str):
+        """Entry point ``name`` as its ctypes function (the library loaded)."""
+        return (self._fns or self._load())[name]
 
     def launch(self, name: str, *args) -> None:
         """Call entry point ``name``; raise if it returns a CUDA error."""
-        cdll = self._load()
-        err = getattr(cdll, name)(*args)
+        err = (self._fns or self._load())[name](*args)
         if err != 0:
-            msg = getattr(cdll, self.error_fn)(err).decode()
+            msg = self._fns[self.error_fn](err).decode()
             raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+    def launch_on(self, device: torch.device, name: str, *args) -> None:
+        """Call entry point ``name`` with ``args`` and then ``device``'s
+        current stream, with ``device`` current: a device context is opened
+        only when another device is current.
+
+        The stream comes from PyTorch's raw-stream getter (an int, as its
+        own generated launchers take it), without a ``Stream`` object per
+        call; on a host with one card its device is the current one, so the
+        current device is read only where there are several.
+        """
+        self._fns or self._load()  # binds _one_device
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if self._one_device or index == torch._C._cuda_getDevice():
+            self.launch(name, *args, stream)
+            return
+        with torch.cuda.device(index):
+            self.launch(name, *args, stream)

@@ -68,10 +68,8 @@ def bag_reduce(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, D), dtype=rows.dtype, device=rows.device)
     if B * D == 0:
         return out
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        _LIB.launch("eb_bag_reduce", data_ptr(rows), data_ptr(w), B, L, D,
-                    data_ptr(out), DTYPES[rows.dtype], stream)
+    _LIB.launch_on(rows.device, "eb_bag_reduce", data_ptr(rows), data_ptr(w), B, L, D,
+                   data_ptr(out), DTYPES[rows.dtype])
     bag_reduce.launches += 1
     return out
 

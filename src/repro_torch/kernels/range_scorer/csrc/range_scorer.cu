@@ -6,21 +6,46 @@
 // where it happened. The Python wrappers allocate the outputs and check
 // device, dtype, shape and contiguity before any pointer reaches this file.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBlock = 128;       // postings per block (core.clustered_index.BLOCK)
 constexpr int kPackDirBits = 27;  // core.clustered_index.PACK_DIR_BITS
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kScatterThreads = 256;
-constexpr int64_t kScatterMaxCtas = 132 * 16;  // 16 CTAs per SM of an H100
+
+// scatter_accumulate's plan (kernel.scatter_plan mirrors these): one CTA
+// of kScatterThreads holds up to kScatterLoneSlots accumulator slots for
+// up to kScatterLonePostings postings; else, up to one cluster's slots,
+// a cluster of kScatterMaxCluster CTAs (a non-portable size above 8), each
+// holding up to kScatterCtaSlots in dynamic shared memory; beyond that the
+// accumulator lies in device memory. The thresholds are measured
+// (chip_smoke.py --kernels, scatter_crossover; PERF.md): device memory
+// beat several clusters at every P measured.
+constexpr int kScatterThreads = 512;
+constexpr int kScatterCtaSlots = 51200;  // 204,800 B of the 232,448 B opt-in
+constexpr int kScatterLoneSlots = 12288;  // 48 KB
+constexpr int kScatterLonePostings = 4096;
+constexpr int kScatterPortableCluster = 8;
+constexpr int kScatterMaxCluster = 16;
+constexpr int kScatterUnroll = 4;  // 16-byte quads of ids and values in flight a thread
+// scatter_accumulate's placements (the wrapper's plan.code)
+constexpr int kScatterLone = 0;     // one CTA, no cluster
+constexpr int kScatterCluster = 1;  // clusters, each owning a slice of s_pad
+constexpr int kScatterGlobal = 2;   // device memory, one cooperative launch
+constexpr int kUnpackWarps = 8;     // unpack_locals: blocks a CTA decodes, a warp each
+static_assert(kScatterLoneSlots <= kScatterCtaSlots && kScatterLonePostings > 0,
+              "the plan's constants, read by kernel.scatter_plan");
 
 // ------------------------------------------------------ shared decode helpers
 //
-// The packed docid decode, used by unpack_locals_kernel and by
-// range_step_kernel alike, so the two decodes cannot drift apart.
+// The packed docid decode of range_step_kernel and traverse_kernel;
+// unpack_locals_kernel shares dir_entry and warp_scan and decodes four
+// lanes a thread with quad_deltas.
 
 // A merged directory entry -> (first word of the block's run, width in bits).
 __device__ __forceinline__ void dir_entry(int32_t entry, int64_t* word_start, int* w) {
@@ -71,27 +96,172 @@ __device__ __forceinline__ uint32_t warp_scan(uint32_t x, int lane) {
 // Bound: bytes. Each posting is read once (id and value, 8 B) and the
 // accumulator written once (4 B per slot); there is one add per posting.
 // The TPU recast the scatter as a one-hot fp32 matmul because it has no
-// per-element scatter; Hopper has integer atomics in L2, so the kernel is
-// a direct scatter: one thread per posting (grid-stride), coalesced reads
-// of ids and vals, and atomicAdd on int32 for the survivors. Integer
-// addition is order-free, so the result is bitwise the one-hot product's.
-// The wrapper zeroes acc. Zero values are skipped: padding lanes carry 0.
-// Off the engine's path since range_step_kernel fuses it (ops.score_blocks
-// still runs it).
-__global__ void __launch_bounds__(kScatterThreads)
-scatter_accumulate_kernel(const int32_t* __restrict__ ids,
-                          const int32_t* __restrict__ vals, int64_t n,
-                          int32_t* __restrict__ acc, int64_t s_pad) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += stride) {
-    const int32_t id = ids[p];
-    if (id >= 0 && id < s_pad) {
-      const int32_t v = vals[p];
-      if (v != 0) atomicAdd(acc + id, v);
+// per-element scatter; Hopper has integer atomics, so the kernel is a
+// direct scatter. Integer addition is order-free, so atomics in any order
+// give the one-hot product's bits.
+//
+// Design: the accumulator lives on chip and is written once, in one launch.
+//   * kScatterLone: one CTA holds all s_pad slots in shared memory, zeroes
+//     them, adds every posting with a shared-memory atomic and writes the
+//     slots out in 16-byte stores.
+//   * kScatterCluster: a thread-block cluster holds s_pad in its
+//     distributed shared memory, each CTA a slice of `slots`. The CTAs
+//     share out the postings and add each one into its owner's slice
+//     (the owner by a multiply-shift, mapa, red.shared::cluster); a
+//     cluster.sync() after the zeroing
+//     comes before any remote add, one before the write-out keeps every
+//     CTA resident until no remote add is left. Where s_pad exceeds one
+//     cluster, several clusters each own a slice and read every posting,
+//     dropping the ids outside it (more reads, mostly from L2).
+//   * kScatterGlobal: the accumulator in device memory: one cooperative
+//     launch zeroes it, syncs the grid and adds with global atomics.
+// Each thread issues its first kScatterUnroll quads of ids and values
+// before it zeroes, so the zeroing hides under the first load round.
+// Zero values are skipped: padding lanes carry 0. Off the engine's path
+// since range_step_kernel fuses it (ops.score_blocks still runs it).
+struct ScatterArgs {
+  const int32_t* ids;
+  const int32_t* vals;
+  int64_t n;
+  int32_t* acc;
+  int64_t s_pad;
+  int slots;       // slots a CTA owns (shared-memory placements)
+  int vec;         // ids and vals are 16-byte aligned: quad loads
+  uint64_t magic;  // ceil(2^40 / slots): r / slots = (r * magic) >> 40 for r < 2^24
+};
+
+// Add v into slot `off` of cluster CTA `owner`'s slice: the slice's
+// address in that CTA (mapa) and a reduction in distributed shared memory
+// that returns nothing (red.shared::cluster).
+__device__ __forceinline__ void cluster_add(uint32_t slice, uint32_t owner, uint32_t off,
+                                            int32_t v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(slice + 4 * off), "r"(owner));
+  asm volatile("red.shared::cluster.add.s32 [%0], %1;" ::"r"(remote), "r"(v) : "memory");
+}
+
+// A thread's postings of [p0, p1): quads q = q0 + t, q0 + t + stride, ...
+// kScatterUnroll at a time, loaded ahead of their adds; `ready` runs once
+// the first quads are in flight, `add(id, v)` once per posting.
+template <typename Ready, typename Add>
+__device__ __forceinline__ void scatter_postings(const ScatterArgs& a, int64_t p0, int64_t p1,
+                                                 int64_t t, int64_t stride, Ready ready,
+                                                 Add add) {
+  if (!a.vec) {
+    ready();
+    for (int64_t p = p0 + t; p < p1; p += stride) add(a.ids[p], a.vals[p]);
+    return;
+  }
+  const int4* __restrict__ ids4 = reinterpret_cast<const int4*>(a.ids);
+  const int4* __restrict__ vals4 = reinterpret_cast<const int4*>(a.vals);
+  const int64_t q1 = p1 >> 2;  // p0 is a multiple of 4
+  int4 id[kScatterUnroll], v[kScatterUnroll];
+  int64_t q = (p0 >> 2) + t;
+  auto load = [&](int64_t base) {
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const int64_t qq = base + u * stride;
+      v[u] = qq < q1 ? __ldg(vals4 + qq) : make_int4(0, 0, 0, 0);
+      id[u] = qq < q1 ? __ldg(ids4 + qq) : make_int4(-1, -1, -1, -1);
     }
+  };
+  load(q);
+  ready();
+  while (q < q1) {
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      add(id[u].x, v[u].x);
+      add(id[u].y, v[u].y);
+      add(id[u].z, v[u].z);
+      add(id[u].w, v[u].w);
+    }
+    q += kScatterUnroll * stride;
+    load(q);
+  }
+  // The tail past the last quad (p0 is past it where it was clamped to n).
+  for (int64_t p = ((q1 << 2) > p0 ? (q1 << 2) : p0) + t; p < p1; p += stride) {
+    add(a.ids[p], a.vals[p]);
   }
 }
+
+template <int kPlacement>
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_accumulate_kernel(const ScatterArgs a) {
+  if constexpr (kPlacement == kScatterGlobal) {
+    cg::grid_group grid = cg::this_grid();
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    int32_t* __restrict__ acc = a.acc;
+    const int64_t s_pad = a.s_pad;
+    scatter_postings(
+        a, 0, a.n, t, stride,
+        [&] {
+          int4* acc4 = reinterpret_cast<int4*>(acc);
+          for (int64_t i = t; i < (s_pad >> 2); i += stride) acc4[i] = make_int4(0, 0, 0, 0);
+          for (int64_t s = ((s_pad >> 2) << 2) + t; s < s_pad; s += stride) acc[s] = 0;
+          grid.sync();
+        },
+        [&](int32_t id, int32_t v) {
+          if (v != 0 && id >= 0 && id < s_pad) atomicAdd(acc + id, v);
+        });
+  } else {
+    extern __shared__ int4 smem4[];
+    int32_t* slot = reinterpret_cast<int32_t*>(smem4);
+    unsigned csize = 1, rank = 0;
+    if constexpr (kPlacement == kScatterCluster) {
+      csize = cg::this_cluster().num_blocks();
+      rank = cg::this_cluster().block_rank();
+    }
+    const int slots = a.slots;  // a multiple of 4
+    const int64_t span = (int64_t)csize * slots;
+    const int64_t lo = (int64_t)(blockIdx.x / csize) * span;  // this cluster's first slot
+    // This cluster's slots, [lo, lo + width), below s_pad <= INT32_MAX.
+    const uint32_t width = (uint32_t)((lo + span < a.s_pad ? lo + span : a.s_pad) - lo);
+    const int32_t lo32 = (int32_t)lo;
+    const uint32_t slice = (uint32_t)__cvta_generic_to_shared(slot);
+    // This CTA's share of the postings, a multiple of 4 long.
+    const int64_t share = (((a.n + csize - 1) / csize) + 3) & ~(int64_t)3;
+    const int64_t p0 = (int64_t)rank * share < a.n ? (int64_t)rank * share : a.n;
+    const int64_t p1 = p0 + share < a.n ? p0 + share : a.n;
+    auto sync = [] {
+      if constexpr (kPlacement == kScatterCluster) {
+        cg::this_cluster().sync();
+      } else {
+        __syncthreads();
+      }
+    };
+    scatter_postings(
+        a, p0, p1, threadIdx.x, blockDim.x,
+        [&] {
+          for (int i = threadIdx.x; i < slots / 4; i += blockDim.x) {
+            smem4[i] = make_int4(0, 0, 0, 0);
+          }
+          sync();
+        },
+        [&](int32_t id, int32_t v) {
+          const uint32_t r = (uint32_t)id - (uint32_t)lo32;  // ids below lo wrap past width
+          if (v == 0 || r >= width) return;
+          if constexpr (kPlacement == kScatterCluster) {
+            const uint32_t owner = (uint32_t)(((uint64_t)r * a.magic) >> 40);
+            cluster_add(slice, owner, r - owner * (uint32_t)slots, v);
+          } else {
+            atomicAdd(slot + r, v);
+          }
+        });
+    sync();
+    const int64_t g0 = lo + (int64_t)rank * slots;
+    const int64_t left = a.s_pad - g0;  // slots of s_pad from g0 on
+    const int cnt = left <= 0 ? 0 : left < slots ? (int)left : slots;
+    int4* out4 = reinterpret_cast<int4*>(a.acc + g0);  // acc and g0 16-byte aligned
+    for (int i = threadIdx.x; i < cnt / 4; i += blockDim.x) out4[i] = smem4[i];
+    for (int i = (cnt & ~3) + threadIdx.x; i < cnt; i += blockDim.x) a.acc[g0 + i] = slot[i];
+  }
+}
+
+// An empty kernel: the launch floor that chip_smoke.py times through the
+// wrappers' binding (rs_noop), beside the kernels' own times.
+__global__ void noop_kernel() {}
 
 // unpack_locals
 //
@@ -103,47 +273,86 @@ scatter_accumulate_kernel(const int32_t* __restrict__ ids,
 // Bound: bytes. A block reads its directory row (start, len, entry, first
 // docid, keep: 17 B), ceil(len*w/32) words of the stream, and writes 128
 // ids (512 B). The TPU sliced a fixed 128-word window per block out of a
-// zero-padded stream and selected among the widths with static repeats;
-// here one 128-thread CTA owns one block and lane j reads only the one
-// word that holds its delta (lane_word), and only when j < len, so a
-// narrow block costs a few words. The 128-lane inclusive prefix sum is a
-// warp shuffle scan per warp plus one shared-memory pass over the four
-// warp totals. An invalid row (keep == 0 or start < 0) writes -1 and reads
-// no word. Off the engine's path since range_step_kernel fuses it
-// (ops.score_blocks still runs it).
-__global__ void __launch_bounds__(kBlock)
+// zero-padded stream and selected among the widths with static repeats.
+// Here one warp decodes a block and a CTA of kUnpackWarps warps eight
+// consecutive blocks, so their directory rows arrive in one coalesced
+// round. Lane l owns lanes 4l..4l+3 of the block: their 4w bits lie in one
+// word for w <= 8, two for w = 16 and four for w = 32 (quad_deltas), read
+// only below the length. A scan over its four deltas, then a warp-shuffle
+// scan of the lanes' totals, gives the prefix sum in uint32, whose
+// wraparound is the reference's int32 cumsum; each lane stores its four
+// ids in one 16-byte streaming store (evict-first: the caller reads them
+// once). No shared memory and no barrier: the kernel
+// waits on two dependent global rounds (the row, then the words), the
+// dependency floor, and an invalid row (keep == 0 or start < 0) decodes
+// as a block of length 0, reading no word. Off the engine's path since
+// range_step_kernel fuses it (ops.score_blocks still runs it).
+
+// The deltas of lanes j0..j0+3 (j0 = 4l) of a block of width w and length
+// len; 0 past the length. Each word index takes the reference's clamp at
+// the stream's end.
+__device__ __forceinline__ void quad_deltas(const uint32_t* __restrict__ words, int64_t n_words,
+                                            int64_t word_start, int w, int j0, int len,
+                                            uint32_t d[4]) {
+  d[0] = d[1] = d[2] = d[3] = 0u;
+  if (w == 0 || n_words <= 0 || j0 >= len) return;
+  auto word = [&](int j) {
+    const int64_t idx = word_start + (((int64_t)j * w) >> 5);
+    return __ldg(words + (idx < n_words ? idx : n_words - 1));
+  };
+  if (w <= 8) {  // one word holds the four
+    const uint32_t x = word(j0);
+    const uint32_t mask = (1u << w) - 1u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (j0 + i < len) d[i] = (x >> (((j0 + i) * w) & 31)) & mask;
+    }
+  } else if (w == 16) {  // two words, two lanes each
+    const uint32_t x = word(j0);
+    const uint32_t y = j0 + 2 < len ? word(j0 + 2) : 0u;
+    d[0] = x & 0xffffu;
+    d[1] = j0 + 1 < len ? x >> 16 : 0u;
+    d[2] = j0 + 2 < len ? y & 0xffffu : 0u;
+    d[3] = j0 + 3 < len ? y >> 16 : 0u;
+  } else {  // a word a lane
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (j0 + i < len) d[i] = word(j0 + i);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kUnpackWarps * 32)
 unpack_locals_kernel(const uint32_t* __restrict__ words, int64_t n_words,
                      const int32_t* __restrict__ starts,
                      const int32_t* __restrict__ lens,
                      const int32_t* __restrict__ pack_dir,
                      const int32_t* __restrict__ pack_firsts,
                      const uint8_t* __restrict__ keep,
-                     const int32_t* __restrict__ range_start,
+                     const int32_t* __restrict__ range_start, int64_t n_blocks,
                      int32_t* __restrict__ out) {
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  int32_t* row = out + (int64_t)b * kBlock;
-  // Uniform across the CTA, so no thread is left waiting at the barrier.
-  if (keep[b] == 0 || starts[b] < 0) {
-    row[j] = -1;
-    return;
-  }
-  const int len = lens[b];
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * kUnpackWarps + (threadIdx.x >> 5);
+  if (b >= n_blocks) return;  // whole warps: no barrier follows
+  // The row, one round of independent loads.
+  const bool valid = (__ldg(keep + b) != 0) & (__ldg(starts + b) >= 0);
+  const int32_t row_len = __ldg(lens + b);
+  const int len = valid ? row_len : 0;
   int64_t word_start;
   int w;
-  dir_entry(pack_dir[b], &word_start, &w);
+  dir_entry(__ldg(pack_dir + b), &word_start, &w);
+  const uint32_t base0 = (uint32_t)__ldg(pack_firsts + b) - (uint32_t)__ldg(range_start);
 
-  const int lane = j & 31;
-  const int warp = j >> 5;
-  uint32_t x = warp_scan(
-      lane_delta(lane_word(words, n_words, word_start, w, j, len), w, j, len), lane);
-  __shared__ uint32_t warp_total[kBlock / 32];
-  if (lane == 31) warp_total[warp] = x;
-  __syncthreads();
-  for (int i = 0; i < warp; ++i) x += warp_total[i];
-
-  const uint32_t doc = (uint32_t)pack_firsts[b] + x;
-  row[j] = j < len ? (int32_t)(doc - (uint32_t)*range_start) : -1;
+  const int j0 = 4 * lane;
+  uint32_t d[4];
+  quad_deltas(words, n_words, word_start, w, j0, len, d);
+  const uint32_t s1 = d[0] + d[1], s2 = s1 + d[2], s3 = s2 + d[3];
+  const uint32_t base = base0 + (warp_scan(s3, lane) - s3);
+  const int4 ids = make_int4(j0 < len ? (int32_t)(base + d[0]) : -1,
+                             j0 + 1 < len ? (int32_t)(base + s1) : -1,
+                             j0 + 2 < len ? (int32_t)(base + s2) : -1,
+                             j0 + 3 < len ? (int32_t)(base + s3) : -1);
+  __stcs(reinterpret_cast<int4*>(out + b * kBlock) + lane, ids);  // streamed: read once
 }
 
 // range_step
@@ -1305,6 +1514,111 @@ size_t smem_bytes(bool shared_acc, bool shared_top, int64_t k, int64_t s_pad,
          (shared_acc ? (size_t)(s_pad + kAccLists) * 4 : 0);
 }
 
+// Whether a scatter plan is one rs_scatter_accumulate takes at s_pad.
+bool scatter_plan_ok(int placement, int cluster, int clusters, int slots, int64_t s_pad) {
+  if (placement == kScatterGlobal) return cluster == 0 && clusters == 0 && slots == 0;
+  if (slots < 4 || slots % 4 != 0 || slots > kScatterCtaSlots || clusters < 1) return false;
+  if (placement == kScatterLone) return cluster == 1 && clusters == 1 && slots >= s_pad;
+  return placement == kScatterCluster && cluster >= 2 && cluster <= kScatterMaxCluster &&
+         clusters <= 65535 / cluster && (int64_t)cluster * clusters * slots >= s_pad;
+}
+
+// The scatter kernels' attributes, set once a device: the dynamic
+// shared-memory opt-in of the shared placements and, for a cluster above
+// the portable 8, the non-portable cluster size.
+template <typename Kernel>
+cudaError_t scatter_attributes(Kernel kernel, int placement, int cluster) {
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices][2] = {}, wide_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= kMaxDevices) return err;
+  if (placement != kScatterGlobal && !smem_set[dev][placement]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kScatterCtaSlots * 4);
+    if (err != cudaSuccess) return err;
+    smem_set[dev][placement] = true;
+  }
+  if (cluster > kScatterPortableCluster && !wide_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide_set[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// A launch configuration of `ctas` CTAs of kScatterThreads: a cluster
+// dimension for kScatterCluster, cooperative for kScatterGlobal.
+cudaLaunchConfig_t scatter_config(cudaLaunchAttribute* attr, int placement, int64_t ctas,
+                                  int cluster, size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3(kScatterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (placement == kScatterCluster) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  } else if (placement == kScatterGlobal) {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+// cudaLaunchKernelEx's code, with the error it may leave pending cleared.
+cudaError_t launched(cudaError_t err) {
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+template <int kPlacement>
+cudaError_t launch_scatter(const ScatterArgs& a, int cluster, int clusters,
+                           cudaStream_t stream) {
+  const auto kernel = scatter_accumulate_kernel<kPlacement>;
+  const cudaError_t err = scatter_attributes(kernel, kPlacement, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = scatter_config(attr, kPlacement, (int64_t)cluster * clusters,
+                                                cluster, (size_t)a.slots * 4, stream);
+  return launched(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
+// The global placement: a cooperative grid no larger than the device
+// holds at once (measured once a device) nor than the work needs.
+cudaError_t launch_scatter_global(const ScatterArgs& a, cudaStream_t stream) {
+  const auto kernel = scatter_accumulate_kernel<kScatterGlobal>;
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= kMaxDevices) return err;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kScatterThreads, 0);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return err;
+    resident[dev] = per_sm * sms;
+  }
+  const int64_t quads = ((a.n > a.s_pad ? a.n : a.s_pad) + 3) / 4;
+  int64_t ctas = (quads + kScatterThreads - 1) / kScatterThreads;
+  ctas = ctas < 1 ? 1 : ctas > resident[dev] ? resident[dev] : ctas;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = scatter_config(attr, kScatterGlobal, ctas, 0, 0, stream);
+  return launched(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1313,14 +1627,50 @@ const char* rs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int rs_scatter_accumulate(const void* ids, const void* vals, int64_t n,
-                          void* acc, int64_t s_pad, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  int64_t ctas = (n + kScatterThreads - 1) / kScatterThreads;
-  if (ctas > kScatterMaxCtas) ctas = kScatterMaxCtas;
-  scatter_accumulate_kernel<<<(unsigned)ctas, kScatterThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const int32_t*)ids, (const int32_t*)vals, n, (int32_t*)acc, s_pad);
+// acc[s] = sum of vals[p] over ids[p] == s for s in [0, s_pad), in one
+// launch of the placement kernel.scatter_plan chose: placement
+// kScatterLone (cluster = clusters = 1), kScatterCluster (`clusters`
+// clusters of `cluster` CTAs) or kScatterGlobal (cluster = clusters = slots
+// = 0); `slots` is a CTA's share of the accumulator, a multiple of 4.
+int rs_scatter_accumulate(const void* ids, const void* vals, int64_t n, void* acc,
+                          int64_t s_pad, int placement, int cluster, int clusters, int slots,
+                          void* stream) {
+  if (n < 0 || s_pad < 1 || s_pad > INT32_MAX || ((uintptr_t)acc & 15) != 0 ||
+      !scatter_plan_ok(placement, cluster, clusters, slots, s_pad)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ScatterArgs a{(const int32_t*)ids, (const int32_t*)vals, n, (int32_t*)acc, s_pad,
+                      slots, (((uintptr_t)ids | (uintptr_t)vals) & 15) == 0,
+                      slots > 0 ? ((1ull << 40) + slots - 1) / (uint64_t)slots : 0};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (placement == kScatterGlobal) return (int)launch_scatter_global(a, st);
+  if (placement == kScatterLone) return (int)launch_scatter<kScatterLone>(a, 1, 1, st);
+  return (int)launch_scatter<kScatterCluster>(a, cluster, clusters, st);
+}
+
+// The most clusters of `cluster` CTAs with `slots` accumulator slots each
+// that the current device holds at once (cudaOccupancyMaxActiveClusters),
+// into *count: whether, and how wide, a cluster size schedules.
+int rs_scatter_clusters(int cluster, int slots, int* count) {
+  if (cluster < 1 || cluster > kScatterMaxCluster || slots < 4 || slots % 4 ||
+      slots > kScatterCtaSlots) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = scatter_accumulate_kernel<kScatterCluster>;
+  cudaError_t err = scatter_attributes(kernel, kScatterCluster, cluster);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = scatter_config(attr, kScatterCluster, cluster, cluster,
+                                          (size_t)slots * 4, nullptr);
+  *count = 0;
+  err = cudaOccupancyMaxActiveClusters(count, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+// An empty kernel on the stream: the launch floor of the binding.
+int rs_noop(void* stream) {
+  noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
@@ -1329,13 +1679,15 @@ int rs_unpack_locals(const void* words, int64_t n_words, const void* starts,
                      const void* pack_firsts, const void* keep,
                      const void* range_start, int64_t n_blocks, void* out,
                      void* stream) {
+  if (((uintptr_t)out & 15) != 0) return (int)cudaErrorInvalidValue;
   if (n_blocks <= 0) return (int)cudaGetLastError();
-  unpack_locals_kernel<<<(unsigned)n_blocks, kBlock, 0,
-                         (cudaStream_t)stream>>>(
+  const int64_t ctas = (n_blocks + kUnpackWarps - 1) / kUnpackWarps;
+  if (ctas > INT32_MAX) return (int)cudaErrorInvalidValue;
+  unpack_locals_kernel<<<(unsigned)ctas, kUnpackWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n_words, (const int32_t*)starts,
       (const int32_t*)lens, (const int32_t*)pack_dir,
       (const int32_t*)pack_firsts, (const uint8_t*)keep,
-      (const int32_t*)range_start, (int32_t*)out);
+      (const int32_t*)range_start, n_blocks, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

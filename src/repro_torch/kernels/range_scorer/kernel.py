@@ -13,10 +13,13 @@
     paths (``core.range_daat.device_traverse``, ``batched_traverse`` and
     ``batched_traverse_resume`` under ``impl="cuda"``);
   * ``scatter_accumulate`` — range-local impact accumulation, the port of
-    ``_scatter_kernel``, run by ``ops.score_blocks``;
+    ``_scatter_kernel``, run by ``ops.score_blocks``: one launch that keeps
+    the accumulator on chip (one CTA's shared memory, or a thread-block
+    cluster's distributed shared memory) and writes it once, or in device
+    memory above one cluster's slots, as ``scatter_plan`` places it;
   * ``unpack_locals`` — decode of bit-packed docid deltas to range-local
     ids, the port of ``_unpack_kernel``, run by ``ops.score_blocks`` under
-    ``docs_format="packed"``.
+    ``docs_format="packed"``: a warp a block, eight blocks a CTA.
 
 The source is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``.cache/repro_torch_kernels/`` of the
@@ -34,7 +37,10 @@ libraries this process has loaded for them (0 or 1), which the profiler of
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -51,9 +57,17 @@ __all__ = [
     "build",
     "find_nvcc",
     "PHASES",
+    "SCATTER_CTA_SLOTS",
+    "SCATTER_LONE_POSTINGS",
+    "SCATTER_LONE_SLOTS",
+    "SCATTER_MAX_CLUSTER",
+    "ScatterPlan",
+    "noop",
     "range_step",
     "range_step_phases",
     "scatter_accumulate",
+    "scatter_clusters",
+    "scatter_plan",
     "shared_acc_slots",
     "top_bytes",
     "top_placement",
@@ -78,6 +92,17 @@ TOP_SHARED_MAX = 98_304
 SMEM_OPT_IN = 232_448
 STATIC_RESERVE = 20_480
 KERNELS = ("range_step", "traverse")
+# scatter_accumulate's plan (the source's kScatterThreads, kScatterCtaSlots,
+# kScatterLoneSlots, kScatterLonePostings, kScatterPortableCluster and
+# kScatterMaxCluster; see scatter_plan).
+SCATTER_THREADS = 512
+SCATTER_CTA_SLOTS = 51_200
+SCATTER_LONE_SLOTS = 12_288
+SCATTER_LONE_POSTINGS = 4096
+SCATTER_PORTABLE_CLUSTER = 8
+SCATTER_MAX_CLUSTER = 16
+# The source's placement codes: kScatterLone, kScatterCluster, kScatterGlobal.
+_SCATTER_CODES = {"cta": 0, "cluster": 1, "clusters": 1, "global": 2}
 
 # The phase timer's columns (enum Phase in the source): cycles of thread 0's
 # clock64 per phase of the range step, summed over a lane's steps, then the
@@ -93,7 +118,9 @@ _INDEX_ARGTYPES = (PTR, I64, PTR, I64, INT, PTR, PTR, PTR, PTR, I64, PTR, PTR, I
 _LIB = CudaLibrary(
     SOURCE,
     {
-        "rs_scatter_accumulate": [PTR, PTR, I64, PTR, I64, PTR],
+        "rs_scatter_accumulate": [PTR, PTR, I64, PTR, I64, INT, INT, INT, INT, PTR],
+        "rs_scatter_clusters": [INT, INT, ctypes.POINTER(INT)],
+        "rs_noop": [PTR],
         "rs_unpack_locals": [PTR, I64, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR],
         "rs_range_step": [
             *_INDEX_ARGTYPES,
@@ -125,50 +152,116 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 
 def _same_device(device: torch.device, **tensors: torch.Tensor) -> None:
+    # get_device() is an int: cheaper than comparing torch.device objects.
+    index = device.index if device.type == "cuda" else -1
     for name, t in tensors.items():
-        if t.device != device:
+        if t.get_device() != index:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _launch(fn: str, device: torch.device, *args) -> None:
-    """Call entry point ``fn`` on ``device``'s current stream.
+def noop(device: torch.device) -> None:
+    """An empty kernel on ``device``'s current stream, through the wrappers'
+    binding: the launch floor the kernels' times stand beside."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"noop launches on the card only, not {device}")
+    _LIB.launch_on(device, "rs_noop")
 
-    A device context is opened only when ``device`` is not the current one.
+
+class ScatterPlan(NamedTuple):
+    """Where ``scatter_accumulate`` keeps its accumulator, and its grid.
+
+    ``placement`` is ``"cta"`` (one CTA's shared memory), ``"cluster"``
+    (one cluster of ``cluster`` CTAs, in its distributed shared memory),
+    ``"clusters"`` (``clusters`` such clusters, each owning a slice of
+    ``s_pad`` and reading every posting; only measurements force it) or
+    ``"global"`` (device memory, zeroed and added in one cooperative
+    launch; the other fields 0). ``slots`` is a CTA's share of the
+    accumulator, a multiple of 4.
     """
-    if device.index == torch.cuda.current_device():
-        _LIB.launch(fn, *args, torch.cuda.current_stream().cuda_stream)
-        return
-    with torch.cuda.device(device):
-        _LIB.launch(fn, *args, torch.cuda.current_stream().cuda_stream)
+
+    placement: str
+    cluster: int
+    clusters: int
+    slots: int
+
+
+def _quad(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def scatter_plan(P: int, s_pad: int) -> ScatterPlan:
+    """``scatter_accumulate``'s placement for ``P`` postings into ``s_pad`` slots.
+
+    One CTA up to ``SCATTER_LONE_SLOTS`` slots and ``SCATTER_LONE_POSTINGS``
+    postings; else, up to ``SCATTER_MAX_CLUSTER * SCATTER_CTA_SLOTS``
+    slots, one cluster of ``SCATTER_MAX_CLUSTER`` CTAs (16 beat or tied 8
+    up to 409,600 slots); beyond that device memory, which beat several
+    clusters at every P measured (``chip_smoke.py --kernels``'s crossover,
+    PERF.md). Any ``s_pad >= 1`` and ``P >= 0``.
+    """
+    P, s_pad = int(P), int(s_pad)
+    if s_pad < 1 or P < 0:
+        raise ValueError(f"scatter_plan takes P >= 0 and s_pad >= 1, got {P}, {s_pad}")
+    if s_pad <= SCATTER_LONE_SLOTS and P <= SCATTER_LONE_POSTINGS:
+        return ScatterPlan("cta", 1, 1, _quad(s_pad))
+    if s_pad <= SCATTER_MAX_CLUSTER * SCATTER_CTA_SLOTS:
+        return ScatterPlan("cluster", SCATTER_MAX_CLUSTER, 1,
+                           _quad(-(-s_pad // SCATTER_MAX_CLUSTER)))
+    return ScatterPlan("global", 0, 0, 0)
+
+
+def _scatter(ids: torch.Tensor, vals: torch.Tensor, s_pad: int,
+             plan: ScatterPlan) -> torch.Tensor:
+    """One launch of the scatter kernel under ``plan``, into a fresh ``acc``."""
+    acc = torch.empty(s_pad, dtype=torch.int32, device=ids.device)
+    _LIB.launch_on(ids.device, "rs_scatter_accumulate", _ptr(ids), _ptr(vals),
+                   ids.shape[0], _ptr(acc), s_pad, _SCATTER_CODES[plan.placement],
+                   plan.cluster, plan.clusters, plan.slots)
+    return acc
 
 
 def scatter_accumulate(ids: torch.Tensor, vals: torch.Tensor, s_pad: int) -> torch.Tensor:
     """acc[s] = sum of vals at ids == s, for s in [0, s_pad); int32 [s_pad].
 
     ``ids`` and ``vals`` are int32 [P]; ids < 0 or >= s_pad are dropped.
+    On the card, one launch under ``scatter_plan(P, s_pad)`` writes every
+    slot of a fresh accumulator, also at P = 0.
     """
-    _check(ids, "ids", torch.int32, 1)
-    _check(vals, "vals", torch.int32, 1)
-    if ids.shape != vals.shape:
+    # One test for the common case; _check names what is wrong.
+    if not (isinstance(ids, torch.Tensor) and isinstance(vals, torch.Tensor)
+            and ids.dtype is torch.int32 and vals.dtype is torch.int32
+            and ids.dim() == 1 and vals.dim() == 1):
+        _check(ids, "ids", torch.int32, 1)
+        _check(vals, "vals", torch.int32, 1)
+    if ids.shape[0] != vals.shape[0]:
         raise ValueError(f"ids {tuple(ids.shape)} and vals {tuple(vals.shape)} differ")
     s_pad = int(s_pad)
     if s_pad <= 0:
         raise ValueError(f"s_pad must be positive, got {s_pad}")
-    if ids.device.type == "cpu":
-        return ref.scatter_accumulate_ref(ids, vals, s_pad)
-    if ids.device.type != "cuda":
+    if not ids.is_cuda:
+        if ids.is_cpu:
+            return ref.scatter_accumulate_ref(ids, vals, s_pad)
         raise ValueError(f"scatter_accumulate runs on cuda or cpu, not {ids.device}")
-    _same_device(ids.device, vals=vals)
-    acc = torch.zeros(s_pad, dtype=torch.int32, device=ids.device)
-    if ids.numel() == 0:
-        return acc
-    _launch("rs_scatter_accumulate", ids.device,
-            _ptr(ids), _ptr(vals), ids.numel(), _ptr(acc), s_pad)
+    if vals.get_device() != ids.get_device():
+        raise ValueError(f"vals is on {vals.device}, expected {ids.device}")
+    acc = _scatter(ids, vals, s_pad, scatter_plan(ids.shape[0], s_pad))
     scatter_accumulate.launches += 1
     return acc
 
 
 scatter_accumulate.launches = 0
+
+
+def scatter_clusters(cluster: int, slots: int, device) -> int:
+    """How many clusters of ``cluster`` scatter CTAs holding ``slots`` slots
+    each the card schedules at once (``cudaOccupancyMaxActiveClusters``;
+    0: that size does not schedule)."""
+    count = INT(0)
+    with torch.cuda.device(torch.device(device)):
+        _LIB.launch("rs_scatter_clusters", int(cluster), int(slots), ctypes.byref(count))
+    return count.value
 
 
 def unpack_locals(
@@ -213,10 +306,10 @@ def unpack_locals(
     out = torch.empty(B * BLOCK, dtype=torch.int32, device=device)
     if B == 0:
         return out
-    _launch("rs_unpack_locals", device,
-            _ptr(pack_words), pack_words.numel(), _ptr(starts), _ptr(lens),
-            _ptr(pack_dir), _ptr(pack_firsts), _ptr(keep), _ptr(range_start),
-            B, _ptr(out))
+    _LIB.launch_on(device, "rs_unpack_locals",
+                   _ptr(pack_words), pack_words.numel(), _ptr(starts), _ptr(lens),
+                   _ptr(pack_dir), _ptr(pack_firsts), _ptr(keep), _ptr(range_start),
+                   B, _ptr(out))
     unpack_locals.launches += 1
     return out
 
@@ -372,8 +465,8 @@ def _range_step(dix, state, blk_ids, rest, range_start, s_pad, k, prune_blocks,
     _check_on(device, dix, tensors)
     out = torch.empty(2 * k + 2, dtype=torch.int32, device=device)
     acc, top = _scratch("range_step", s_pad, k, (), device)
-    _launch(
-        "rs_range_step", device, *_index_args(dix, docs_format == "packed"),
+    _LIB.launch_on(
+        device, "rs_range_step", *_index_args(dix, docs_format == "packed"),
         _ptr(blk_ids), _ptr(rest), blk_ids.numel(), _ptr(range_start),
         _ptr(state.vals), _ptr(state.ids), _ptr(state.postings), _ptr(state.blocks),
         k, s_pad, int(bool(prune_blocks)), 0 if acc is None else _ptr(acc),
@@ -554,7 +647,7 @@ def _traverse(dix, blk_tab, rest_tab, order, ordered_bounds, budget, maxr, carry
     )
     if timer is not None:
         timer.start()
-    _launch("rs_traverse", device, *args)
+    _LIB.launch_on(device, "rs_traverse", *args)
     if timer is not None:
         timer.stop()
     return out, True

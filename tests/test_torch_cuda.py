@@ -130,6 +130,169 @@ def test_unpack_locals_matches_plain(cuda_device, seed):
     assert torch.equal(got, ref.unpack_locals_ref(*args))
 
 
+# scatter_plan's edges: one CTA's capacity in slots and in postings and one
+# more (a cluster), one cluster's capacity and a slot more (the global
+# placement), s_pad = 1, P = 0.
+_LONE, _LONE_P = kernel.SCATTER_LONE_SLOTS, kernel.SCATTER_LONE_POSTINGS
+_ONE = kernel.SCATTER_CTA_SLOTS * kernel.SCATTER_MAX_CLUSTER
+SCATTER_EDGES = [(0, 1), (1, 1), (3, 1), (0, 9_984), (4096, 9_984), (_LONE_P, _LONE),
+                 (_LONE_P, _LONE + 1), (_LONE_P + 1, 9_984), (_LONE_P + 1, 1), (0, _ONE),
+                 (300_001, _ONE), (4096, _ONE + 1), (300_001, _ONE + 1)]
+
+
+def _scatter_lanes(rng, P, s_pad, dev, lo=-5, hi_extra=5):
+    """P postings on ``dev``: ids in [lo, s_pad + hi_extra), values in
+    [0, 256) (a tenth of them 0, as padding lanes)."""
+    ids = rng.integers(lo, s_pad + hi_extra, size=P).astype(np.int32)
+    vals = rng.integers(0, 256, size=P).astype(np.int32)
+    vals[rng.random(P) < 0.1] = 0
+    return _cuda(ids, dev), _cuda(vals, dev)
+
+
+def _scatter_checked(ids, vals, s_pad):
+    before = kernel.scatter_accumulate.launches
+    got = kernel.scatter_accumulate(ids, vals, s_pad)
+    torch.cuda.synchronize()
+    assert kernel.scatter_accumulate.launches == before + 1
+    assert torch.equal(got, ref.scatter_accumulate_ref(ids, vals, s_pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,s_pad", SCATTER_EDGES)
+def test_scatter_accumulate_plan_edges(cuda_device, P, s_pad):
+    """One launch a call at every edge of scatter_plan, bitwise."""
+    rng = np.random.default_rng(P * 7 + s_pad)
+    _scatter_checked(*_scatter_lanes(rng, P, s_pad, cuda_device), s_pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["out_of_range", "one_slot", "unaligned"])
+@pytest.mark.parametrize("P,s_pad", [(4095, 9_984), (200_003, 9_984), (200_003, _ONE),
+                                     (200_003, _ONE + 1)])
+def test_scatter_accumulate_hard_inputs(cuda_device, case, P, s_pad):
+    """Every id out of range (all dropped), every posting on one slot (all
+    atomics on one address), and ids and values off 16-byte alignment (the
+    kernel's scalar loads), under each placement the plan takes (one CTA,
+    a cluster, device memory)."""
+    rng = np.random.default_rng(s_pad)
+    if case == "out_of_range":
+        ids, vals = _scatter_lanes(rng, P, s_pad, cuda_device)
+        ids = torch.where(ids >= 0, ids + s_pad, ids)
+    elif case == "one_slot":
+        ids = torch.full((P,), s_pad - 1, dtype=torch.int32, device=cuda_device)
+        vals = _scatter_lanes(rng, P, s_pad, cuda_device)[1]
+    else:
+        ids, vals = _scatter_lanes(rng, P + 1, s_pad, cuda_device)
+        ids, vals = ids[1:], vals[1:]
+        assert ids.data_ptr() % 16 and vals.data_ptr() % 16
+    assert kernel.scatter_plan(P, s_pad).placement == (
+        "cta" if P < 4096 else "cluster" if s_pad <= _ONE else "global")
+    _scatter_checked(ids, vals, s_pad)
+    if case == "out_of_range":
+        assert int(kernel.scatter_accumulate(ids, vals, s_pad).abs().sum()) == 0
+
+
+def scatter_range_case(rng, s_pad, dev, n_blocks=8192, nnz=1 << 22):
+    """A full collection's range: sorted docids drawn in [0, s_pad), blocks
+    at random starts with random lengths, 80% kept; P = n_blocks * 128."""
+    docs = np.sort(rng.integers(0, s_pad, size=nnz)).astype(np.int32)
+    imps = rng.integers(1, 256, size=nnz).astype(np.int32)
+    starts = rng.integers(0, nnz - BLOCK, size=n_blocks).astype(np.int32)
+    lens = rng.integers(1, BLOCK + 1, size=n_blocks).astype(np.int32)
+    keep = rng.random(n_blocks) < 0.8
+    return ref.gather_block_postings(*(_cuda(a, dev) for a in (docs, imps, starts, lens,
+                                                                keep)), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_pad", [409_600, 1_572_864])
+def test_scatter_accumulate_at_a_collection_range(cuda_device, s_pad):
+    """(b) one portable cluster's capacity (one cluster of 16) and (c) the
+    unreduced scale collection's range (device memory), 1,048,576 lanes
+    each."""
+    local, vals = scatter_range_case(np.random.default_rng(s_pad), s_pad, cuda_device)
+    assert local.numel() == 1_048_576
+    _scatter_checked(local, vals, s_pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["cta", "cluster", "clusters", "global"])
+def test_scatter_every_placement_is_the_plain_version(cuda_device, placement):
+    """Each placement forced at one input (the measurement's path), bitwise."""
+    s_pad = 40_000
+    plans = {"cta": kernel.ScatterPlan("cta", 1, 1, 40_000),
+             "cluster": kernel.ScatterPlan("cluster", 8, 1, 5_000),
+             "clusters": kernel.ScatterPlan("clusters", 2, 4, 5_000),
+             "global": kernel.ScatterPlan("global", 0, 0, 0)}
+    ids, vals = _scatter_lanes(np.random.default_rng(5), 100_000, s_pad, cuda_device)
+    got = kernel._scatter(ids, vals, s_pad, plans[placement])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.scatter_accumulate_ref(ids, vals, s_pad))
+
+
+@pytest.mark.cuda
+def test_scatter_cluster_sizes_schedule(cuda_device):
+    """The portable 8 and the plan's widest cluster schedule at full slices."""
+    for cluster in (kernel.SCATTER_PORTABLE_CLUSTER, kernel.SCATTER_MAX_CLUSTER):
+        assert kernel.scatter_clusters(cluster, kernel.SCATTER_CTA_SLOTS, cuda_device) >= 1
+
+
+def unpack_rows(rng, n_rows, dev, codes=(0, 1, 2, 3, 4), lens=None, n_words=4096,
+                tail=False):
+    """Directory rows over a random word stream: any width code, word start
+    and length (``lens`` to pick from), random first docids, 80% kept, the
+    last two rows padding (start -1); ``tail`` starts every row within its
+    run of the stream's end, so its words run past it (the clamp)."""
+    words = rng.integers(0, 2**32, size=n_words, dtype=np.uint64).astype(np.uint32)
+    code = rng.choice(np.asarray(codes), n_rows)
+    length = (rng.integers(1, BLOCK + 1, size=n_rows) if lens is None
+              else rng.choice(np.asarray(lens), n_rows))
+    width = np.asarray([0, 4, 8, 16, 32])[code]
+    run = (length * width + 31) // 32
+    ws = (np.maximum(n_words - run + rng.integers(1, 4, size=n_rows), 0) if tail
+          else rng.integers(0, n_words, size=n_rows))
+    starts = rng.integers(0, 1 << 20, size=n_rows).astype(np.int32)
+    starts[-2:] = -1
+    return (
+        _cuda(words.view(np.int32), dev),
+        _cuda(starts, dev),
+        _cuda(length, dev, np.int32),
+        _cuda((ws.astype(np.int64) | (code.astype(np.int64) << 27)), dev, np.int32),
+        _cuda(rng.integers(0, 1 << 30, size=n_rows), dev, np.int32),
+        _cuda(rng.random(n_rows) < 0.8, dev),
+        torch.tensor(int(rng.integers(0, 1 << 20)), dtype=torch.int32, device=dev),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 128])
+@pytest.mark.parametrize("code", [0, 1, 2, 3, 4])
+def test_unpack_locals_every_width_and_length(cuda_device, code, length):
+    """Widths 0, 4, 8, 16 and 32 at lengths 1 and 128, with pruned and
+    padding rows; width 32 wraps the uint32 prefix sum."""
+    args = unpack_rows(np.random.default_rng(code * 131 + length), 203, cuda_device,
+                       codes=(code,), lens=(length,))
+    got = kernel.unpack_locals(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.unpack_locals_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["past_the_end", "b8192"])
+def test_unpack_locals_clamp_and_many_blocks(cuda_device, case):
+    """Every row's words running past the stream's end (the reference's
+    clamp), and B = 8,192 rows of every width and length."""
+    rng = np.random.default_rng(17)
+    args = (unpack_rows(rng, 64, cuda_device, codes=(1, 2, 3, 4), lens=(97, 128),
+                        n_words=300, tail=True) if case == "past_the_end"
+            else unpack_rows(rng, 8192, cuda_device, n_words=1 << 18))
+    before = kernel.unpack_locals.launches
+    got = kernel.unpack_locals(*args)
+    torch.cuda.synchronize()
+    assert kernel.unpack_locals.launches == before + 1
+    assert torch.equal(got, ref.unpack_locals_ref(*args))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("impact_dtype,docs_format", CONFIGS)
 def test_cuda_engine_matches_plain_engine(cuda_device, small_index, impact_dtype,

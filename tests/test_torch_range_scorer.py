@@ -13,6 +13,9 @@ versions on the card.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -269,6 +272,81 @@ def test_wrappers_check_inputs_and_count_only_launches():
     kernel.unpack_locals(ids, ids, ids, ids, ids, torch.ones(4, dtype=torch.bool), 0)
     after = (kernel.scatter_accumulate.launches, kernel.unpack_locals.launches)
     assert after == before
+
+
+def _source_constants() -> dict:
+    src = Path(kernel.SOURCE).read_text()
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_scatter_plan_mirrors_the_source():
+    """kernel.py's scatter constants and placement codes are the .cu's."""
+    c = _source_constants()
+    assert c["kScatterThreads"] == kernel.SCATTER_THREADS
+    assert c["kScatterCtaSlots"] == kernel.SCATTER_CTA_SLOTS
+    assert c["kScatterLoneSlots"] == kernel.SCATTER_LONE_SLOTS
+    assert c["kScatterLonePostings"] == kernel.SCATTER_LONE_POSTINGS
+    assert c["kScatterPortableCluster"] == kernel.SCATTER_PORTABLE_CLUSTER == 8
+    assert c["kScatterMaxCluster"] == kernel.SCATTER_MAX_CLUSTER
+    assert kernel._SCATTER_CODES == {"cta": c["kScatterLone"],
+                                     "cluster": c["kScatterCluster"],
+                                     "clusters": c["kScatterCluster"],
+                                     "global": c["kScatterGlobal"]}
+    # A CTA's slice fits the opt-in beside nothing else; a cluster is at
+    # most 16 CTAs, the widest that sm_90 schedules at all.
+    assert kernel.SCATTER_CTA_SLOTS * 4 <= kernel.SMEM_OPT_IN
+    assert kernel.SCATTER_CTA_SLOTS % 4 == kernel.SCATTER_LONE_SLOTS % 4 == 0
+    assert kernel.SCATTER_LONE_SLOTS <= kernel.SCATTER_CTA_SLOTS
+    assert kernel.SCATTER_PORTABLE_CLUSTER <= kernel.SCATTER_MAX_CLUSTER <= 16
+
+
+LONE, LONE_P = kernel.SCATTER_LONE_SLOTS, kernel.SCATTER_LONE_POSTINGS
+MC = kernel.SCATTER_MAX_CLUSTER
+ONE_CLUSTER = kernel.SCATTER_CTA_SLOTS * MC
+
+
+@pytest.mark.parametrize("P,s_pad,want", [
+    (0, 1, ("cta", 1, 1, 4)),
+    (1, 1, ("cta", 1, 1, 4)),
+    (4096, 9_984, ("cta", 1, 1, 9_984)),
+    (LONE_P, LONE, ("cta", 1, 1, LONE)),
+    (LONE_P, LONE + 1, ("cluster", MC, 1, 772)),
+    (LONE_P + 1, 9_984, ("cluster", MC, 1, 624)),
+    (LONE_P + 1, 1, ("cluster", MC, 1, 4)),
+    (0, ONE_CLUSTER, ("cluster", MC, 1, kernel.SCATTER_CTA_SLOTS)),
+    (0, ONE_CLUSTER + 1, ("global", 0, 0, 0)),
+    (1_048_576, 409_600, ("cluster", MC, 1, 409_600 // MC)),
+    (1_048_576, 1_572_864, ("global", 0, 0, 0)),
+])
+def test_scatter_plan_edges(P, s_pad, want):
+    """One CTA's capacity in slots and in postings and one more, one
+    cluster's capacity and a slot more, s_pad = 1, P = 0, the two full
+    collection ranges: every shared-memory plan covers s_pad with whole
+    quads of slots that fit a CTA."""
+    plan = kernel.scatter_plan(P, s_pad)
+    assert tuple(plan) == want
+    if plan.placement != "global":
+        assert plan.slots % 4 == 0 and 4 <= plan.slots <= kernel.SCATTER_CTA_SLOTS
+        assert plan.cluster * plan.clusters * plan.slots >= s_pad
+        assert (plan.cluster == 1) == (plan.placement == "cta")
+
+
+@pytest.mark.parametrize("args", [(-1, 8), (0, 0), (4, -3)])
+def test_scatter_plan_refuses_bad_sizes(args):
+    with pytest.raises(ValueError, match="scatter_plan"):
+        kernel.scatter_plan(*args)
+
+
+def test_scatter_accumulate_takes_no_postings_on_the_cpu():
+    """P = 0 gives s_pad zeros; the plain version is no launch."""
+    before = kernel.scatter_accumulate.launches
+    empty = torch.zeros(0, dtype=torch.int32)
+    got = kernel.scatter_accumulate(empty, empty, 5)
+    assert torch.equal(got, torch.zeros(5, dtype=torch.int32))
+    assert kernel.scatter_accumulate.launches == before
+    with pytest.raises(ValueError, match="card"):
+        kernel.noop(torch.device("cpu"))
 
 
 def test_find_nvcc_prefers_cuda_home(tmp_path, monkeypatch):
