@@ -1,0 +1,6 @@
+"""plan_ms.p99: host ms per query in the port's planning entry
+(``BatchEngine.plan`` / ``plan_many`` to ``Engine.plan`` and
+``ClusteredIndex.query_block_table``), timed by the harness around it;
+moves p99_ms."""
+
+from anytime_bench.metrics._shared import plan_ms as read  # noqa: F401
