@@ -646,7 +646,10 @@ class Engine:
     interpret mode, which has no counterpart here: it is accepted and
     ignored. ``obs`` is a ``repro_torch.obs`` instrumentation handle (None:
     ``NOOP``); ``traverse`` counts exit reasons and postings through it,
-    from the carry row it reads anyway.
+    from the carry row it reads anyway, and its span log gets a
+    ``pack_docs`` span (packing the docids for ``docs_format="packed"``).
+    ``impl="cuda"`` compiles the kernels' library here, when it is not
+    built yet.
     """
 
     def __init__(
@@ -698,8 +701,17 @@ class Engine:
         def up(a, dtype) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
 
+        if impl == "cuda":
+            # The kernels' library is compiled with the engine (a minute of
+            # nvcc on a cold checkout) and loaded at the first launch, so no
+            # query waits for the compiler.
+            scorer_kernel.build()
         if docs_format == "packed":
+            spans = self.obs.spans if self.obs.enabled else None
+            t_pack = self.obs.clock() if spans is not None else 0.0
             packed = index.packed_postings()
+            if spans is not None:
+                spans.add("pack_docs", t_pack, self.obs.clock())
             # The raw docid array stays on the host; the scorer never
             # gathers it, so a (1,)-placeholder keeps the layout.
             docs_dev = torch.zeros(1, dtype=torch.int32, device=self.device)
@@ -733,11 +745,14 @@ class Engine:
         ``impact_dtype`` and ``docs_format`` default to how the artifact
         was saved, so an int8/packed artifact serves int8/packed on the
         device unless overridden; ``device`` (default: the card) and the
-        other keywords pass through to ``Engine``.
+        other keywords pass through to ``Engine``; ``obs`` also reaches
+        ``index_io.load_index``.
         """
         from repro_torch import index_io  # local: index_io sits above core
+        from repro_torch.obs import NOOP
 
-        index = index_io.load_index(path)
+        obs = kwargs.get("obs")
+        index = index_io.load_index(path, obs=NOOP if obs is None else obs)
         manifest = index_io.read_manifest(path)
         kwargs.setdefault("impact_dtype", manifest["impact_dtype"])
         kwargs.setdefault("docs_format", manifest.get("docs_format", "int32"))

@@ -58,6 +58,7 @@ from repro_torch.core.clustered_index import (
 from repro_torch.core.quantize import Quantizer
 from repro_torch.core.range_daat import IMPACT_BIAS, IMPACT_DTYPES, pack_impacts
 from repro_torch.core.reorder import Arrangement
+from repro_torch.obs import NOOP
 
 __all__ = [
     "FORMAT",
@@ -451,7 +452,7 @@ def _save_index_into(
     return path
 
 
-def load_index(path: str, mmap: bool = False) -> ClusteredIndex:
+def load_index(path: str, mmap: bool = False, *, obs=NOOP) -> ClusteredIndex:
     """Load a ``clustered_index`` artifact (or a delta-chain head) back
     into host memory.
 
@@ -460,8 +461,20 @@ def load_index(path: str, mmap: bool = False) -> ClusteredIndex:
     to exact int32 for the host structure (the device upload re-narrows via
     ``Engine(impact_dtype="int8")``). Pointing at an ``index_delta``
     artifact follows its parent chain and materializes the extended index
-    (DESIGN.md §10).
+    (DESIGN.md §10). ``obs``'s span log gets a ``load`` span holding
+    ``unpack_docs`` (a packed artifact's docids decoded).
     """
+    spans = obs.spans if obs.enabled else None
+    if spans is None:
+        return _load_index(path, mmap, None, None)
+    load = spans.open("load", obs.clock())
+    try:
+        return _load_index(path, mmap, spans, obs.clock)
+    finally:
+        spans.close(load, obs.clock())
+
+
+def _load_index(path: str, mmap: bool, spans, clock) -> ClusteredIndex:
     manifest = read_manifest(path)
     if manifest.get("kind") == "index_delta":
         return load_chain(path, mmap=mmap)
@@ -490,7 +503,10 @@ def load_index(path: str, mmap: bool = False) -> ClusteredIndex:
             blk_first=np.asarray(a.pop("pack_first"), np.int32),
             n_postings=int(a["impacts"].shape[0]),
         )
+        t_unpack = clock() if spans is not None else 0.0
         a["docs"] = unpack_docs(packed, a["blk_start"], a["blk_len"])
+        if spans is not None:
+            spans.add("unpack_docs", t_unpack, clock())
 
     q = manifest["quantizer"]
     arrangement = Arrangement(

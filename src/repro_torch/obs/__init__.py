@@ -7,6 +7,19 @@ shared ``NOOP`` default); see DESIGN.md §13. On top of the substrate sit
 the operational components of DESIGN.md §14: the dispatch ``Profiler``,
 declarative SLOs with burn-rate tracking (``slo``), online drift
 detection (``detect``), and the ``watch``/``slo`` CLIs.
+
+``SpanLog`` (attached as ``Instrumentation(..., spans=SpanLog())``, or
+alone as ``SpanInstrumentation(SpanLog())``; never by ``make`` or
+``NOOP``) records the process's own spans and counts, on the handle's
+clock, at the port's layer boundaries:
+
+  * ``MicroBatchServer.drain_once``: ``drain`` holding ``plan``,
+    ``budget``, each launch's spans and ``feedback``; counts ``batches``
+    and ``plan_blocks``;
+  * ``BatchEngine._run_chunk``: ``stage``, ``launch``, ``read``,
+    ``unpack``; counts ``launches``;
+  * ``index_io.load_index`` and ``Engine``: ``load`` holding
+    ``unpack_docs``; ``pack_docs``.
 """
 
 from repro_torch.obs.catalog import METRIC_HELP, help_for
@@ -19,7 +32,12 @@ from repro_torch.obs.detect import (
     ThresholdDetector,
 )
 from repro_torch.obs.export import json_snapshot, prometheus_text, write_snapshot
-from repro_torch.obs.instrument import NOOP, Instrumentation, NoopInstrumentation
+from repro_torch.obs.instrument import (
+    NOOP,
+    Instrumentation,
+    NoopInstrumentation,
+    SpanInstrumentation,
+)
 from repro_torch.obs.metrics import (
     N_BUCKETS,
     Counter,
@@ -37,7 +55,7 @@ from repro_torch.obs.slo import (
     SloTracker,
     default_serving_slos,
 )
-from repro_torch.obs.trace import QueryTrace, Tracer, TraceSink, read_traces
+from repro_torch.obs.trace import QueryTrace, SpanLog, Tracer, TraceSink, read_traces
 
 __all__ = [
     "DEFAULT_CLOCK",
@@ -45,6 +63,7 @@ __all__ = [
     "Instrumentation",
     "NoopInstrumentation",
     "NOOP",
+    "SpanInstrumentation",
     "MetricsRegistry",
     "Counter",
     "Gauge",
@@ -55,6 +74,7 @@ __all__ = [
     "Tracer",
     "TraceSink",
     "QueryTrace",
+    "SpanLog",
     "read_traces",
     "prometheus_text",
     "json_snapshot",

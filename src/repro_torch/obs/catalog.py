@@ -62,11 +62,13 @@ METRIC_HELP: dict[str, str] = {
     "on a new shape.",
     "profiler_recompiles": "Anomalies: the launcher's program count grew on "
     "an already-seen shape.",
-    "profiler_plan_ms": "Host planning/staging time per dispatch, by site.",
+    "profiler_plan_ms": "Host time per dispatch outside the launch, by "
+    "site: staging the chunk's table (batch_engine); lookahead planning while "
+    "the kernel runs (inflight).",
     "profiler_dispatch_ms": "Host time to issue the device step (includes "
-    "the kernel build when a compile happens).",
-    "profiler_device_ms": "Device execution wait per dispatch "
-    "(block_until_ready).",
+    "loading the kernels' library when a compile is counted).",
+    "profiler_device_ms": "Device execution time per dispatch (CUDA events "
+    "around the launch, read once the result's copy has waited for them).",
     "profiler_transfer_ms": "Device-to-host result transfer per dispatch.",
     "hbm_bytes": "Live HBM bytes per device index array, by site and array.",
     "hbm_total_bytes": "Total live HBM bytes of the device index, by site.",

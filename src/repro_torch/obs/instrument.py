@@ -1,11 +1,11 @@
 """The ``Instrumentation`` handle every serving layer threads through.
 
-One object bundles the three observability substrates — a
-``MetricsRegistry``, an optional ``Tracer``, and the injected clock — so a
-constructor signature stays one keyword: ``MicroBatchServer(...,
-obs=...)``. No globals anywhere: layers receive the handle explicitly and
-share time series by sharing the handle (metric registration is
-idempotent by name).
+One object bundles the observability substrates — a ``MetricsRegistry``,
+an optional ``Tracer``, the injected clock, and an optional profiler and
+``SpanLog`` — so a constructor signature stays one keyword:
+``MicroBatchServer(..., obs=...)``. No globals anywhere: layers receive
+the handle explicitly and share time series by sharing the handle (metric
+registration is idempotent by name).
 
 The default is ``NOOP``, a shared do-nothing instance whose every method
 returns immediately and whose ``enabled`` flag is False — hot loops guard
@@ -22,13 +22,21 @@ from repro_torch.obs.catalog import help_for
 from repro_torch.obs.clock import DEFAULT_CLOCK
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.profiler import Profiler
-from repro_torch.obs.trace import Tracer, TraceSink
+from repro_torch.obs.trace import SpanLog, Tracer, TraceSink
 
-__all__ = ["Instrumentation", "NoopInstrumentation", "NOOP"]
+__all__ = ["Instrumentation", "NoopInstrumentation", "NOOP", "SpanInstrumentation"]
 
 
 class Instrumentation:
-    """Live metrics + tracing + clock bundle (+ optional profiler)."""
+    """Live metrics + tracing + clock bundle (+ optional profiler and span log).
+
+    ``spans``, a ``SpanLog``, receives the serving loop's own spans and
+    counts (a drain and the launches and host work inside it, an index
+    load), stamped from ``clock``; the sites read the clock for them only
+    when it is attached. ``SpanInstrumentation`` attaches one with no
+    metrics or tracer, so the spans time the serving loop and not the
+    registry's per-query updates.
+    """
 
     enabled = True
 
@@ -38,11 +46,13 @@ class Instrumentation:
         tracer: Tracer | None = None,
         clock=DEFAULT_CLOCK,
         profiler: Profiler | None = None,
+        spans: SpanLog | None = None,
     ):
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer
         self.clock = clock
         self.profiler = profiler
+        self.spans = spans
 
     @classmethod
     def make(
@@ -153,3 +163,16 @@ class NoopInstrumentation(Instrumentation):
 
 
 NOOP = NoopInstrumentation()
+
+
+class SpanInstrumentation(NoopInstrumentation):
+    """An enabled handle that keeps only a span log: the sites open their
+    spans and take their counts, and every metric and trace hook does
+    nothing (its registry stays empty)."""
+
+    enabled = True
+
+    def __init__(self, spans: SpanLog, clock=DEFAULT_CLOCK):
+        super().__init__()
+        self.spans = spans
+        self.clock = clock

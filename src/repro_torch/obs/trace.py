@@ -31,6 +31,11 @@ host at dispatch granularity.
     (every ``fsync_every`` records and on ``close``) instead of per record
     — a lost tail of *recent* traces is acceptable where a lost topology
     record is not.
+
+``SpanLog`` is the process's side of the same clock: the spans of the
+serving loop itself (a micro-batch drain, the launches and host work
+inside it, an index load) and counts by name, for laying host work on a
+device trace taken over the same window.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import json
 import os
 from collections import deque
 
-__all__ = ["Span", "QueryTrace", "TraceSink", "Tracer", "read_traces"]
+__all__ = ["Span", "QueryTrace", "SpanLog", "TraceSink", "Tracer", "read_traces"]
 
 _KNUTH = 2654435761  # Knuth's multiplicative hash constant (mod 2^32)
 
@@ -233,3 +238,114 @@ class Tracer:
     def close(self) -> None:
         if self.sink is not None:
             self.sink.close()
+
+
+class SpanLog:
+    """Spans of the process and counts by name, held in memory.
+
+    A span has a name, a start and an end on the injected clock, its parent
+    (the span open when it was recorded, which caused it) and its root (the
+    outermost span open then: the drain or load it belongs to; a root
+    is its own). Sites stamp the times themselves from ``obs.clock``, so the
+    log reads no clock. ``open``/``close`` bracket a span that has children;
+    ``add`` records a finished one under the span that is open. A span that
+    an exception leaves open keeps no end and stays the parent of what comes
+    after it until the span around it closes. Names are interned and the columns are append-only lists, so a
+    span costs a few appends; nothing is written until ``records()``.
+    """
+
+    def __init__(self):
+        self.names: list[str] = []  # name id -> name
+        self._ids: dict[str, int] = {}
+        self._name: list[int] = []
+        self._t0: list[float] = []
+        self._t1: list[float | None] = []
+        self._parent: list[int] = []  # -1: none
+        self._root: list[int] = []
+        self._open: list[int] = []
+        self.counts: dict[str, int] = {}
+
+    def _append(self, name: str, t0: float, t1: float | None) -> int:
+        nid = self._ids.get(name)
+        if nid is None:
+            nid = self._ids[name] = len(self.names)
+            self.names.append(name)
+        i = len(self._t0)
+        stack = self._open
+        self._name.append(nid)
+        self._t0.append(t0)
+        self._t1.append(t1)
+        self._parent.append(stack[-1] if stack else -1)
+        self._root.append(stack[0] if stack else i)
+        return i
+
+    def open(self, name: str, t0: float) -> int:
+        """Start a span whose children follow; returns its index."""
+        i = self._append(name, t0, None)
+        self._open.append(i)
+        return i
+
+    def close(self, i: int, t1: float) -> None:
+        """End span ``i`` (and forget any span opened after it)."""
+        self._t1[i] = t1
+        del self._open[self._open.index(i):]
+
+    def add(self, name: str, t0: float, t1: float) -> int:
+        """Record a finished span under the open one; returns its index."""
+        return self._append(name, t0, t1)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + int(n)
+
+    # ------------------------------------------------------------- reading
+    def _select(self, name: str | None, parent: str | None) -> list[int]:
+        nid = self._ids.get(name) if name is not None else None
+        pid = self._ids.get(parent) if parent is not None else None
+        if (name is not None and nid is None) or (parent is not None and pid is None):
+            return []
+        out = []
+        for i, (n, p, t1) in enumerate(zip(self._name, self._parent, self._t1)):
+            if t1 is None or (nid is not None and n != nid):
+                continue
+            if pid is not None and (p < 0 or self._name[p] != pid):
+                continue
+            out.append(i)
+        return out
+
+    def intervals(self, name: str | None = None, parent: str | None = None):
+        """(starts, ends) of the finished spans named ``name`` (any name when
+        None) whose parent is named ``parent`` (any parent when None)."""
+        sel = self._select(name, parent)
+        return [self._t0[i] for i in sel], [self._t1[i] for i in sel]
+
+    def records(self) -> list[dict]:
+        """Every span as a JSON-able dict, in the order recorded: ``name``,
+        ``t0``, ``t1`` (None while open), ``parent`` (an index, None for a
+        root) and ``root``."""
+        names = self.names
+        return [
+            {"name": names[n], "t0": t0, "t1": t1,
+             "parent": p if p >= 0 else None, "root": r}
+            for n, t0, t1, p, r in zip(self._name, self._t0, self._t1,
+                                       self._parent, self._root)
+        ]
+
+    def trim(self, t: float, keep=()) -> None:
+        """Drop what came before ``t``: every span whose root started before
+        it (but roots named in ``keep``) and every count. A serving window
+        drops its warm-up this way and keeps the set-up that it follows.
+        Indices change, so no span may be open."""
+        if self._open:
+            raise ValueError(f"{len(self._open)} span(s) still open")
+        keep_ids = {self._ids[n] for n in keep if n in self._ids}
+        roots = {r for r in set(self._root)
+                 if self._t0[r] >= t or self._name[r] in keep_ids}
+        kept = [i for i, r in enumerate(self._root) if r in roots]
+        new = {old: j for j, old in enumerate(kept)}
+        self._name = [self._name[i] for i in kept]
+        self._t0 = [self._t0[i] for i in kept]
+        self._t1 = [self._t1[i] for i in kept]
+        self._parent = [new[self._parent[i]] if self._parent[i] >= 0 else -1
+                        for i in kept]
+        self._root = [new[self._root[i]] for i in kept]
+        self.counts = {}

@@ -10,7 +10,9 @@ carry is read back in one copy. An ``obs`` handle (``repro_torch.obs``)
 counts each chunk's lanes and exit reasons from that host copy, and its
 profiler splits a chunk's time into host staging, dispatch, the launch's
 device time (CUDA events around it, read after the copy) and the copy
-itself. Budgets are **per
+itself. Its span log gets a chunk's ``stage`` (tables, carries, upload),
+``launch``, ``read`` (the copy, which waits for the kernel) and
+``unpack`` spans, and counts ``launches``. Budgets are **per
 query**: the postings/range caps travel down the lane with the plan, so a
 heavy query exhausts *its* budget while light lanes in the same batch run
 to safe or exhaustive completion. Results are bitwise identical to looping
@@ -188,9 +190,15 @@ class BatchEngine:
         results: list,
     ) -> None:
         batch = self.spec.batch_bucket(len(chunk_plans))
-        prof = self.obs.profiler if self.obs.enabled else None
-        if prof is not None:
-            clk = self.obs.clock
+        obs = self.obs
+        prof = spans = None
+        if obs.enabled:
+            prof, spans = obs.profiler, obs.spans
+        # The profiler and the span log share the boundaries both mark:
+        # the chunk's entry, the launch's return and the copy's.
+        timed = prof is not None or spans is not None
+        if timed:
+            clk = obs.clock
             t_plan0 = clk()
         # Dummy lanes get zero budgets -> they exit at i=0 having done no work.
         table = stack_table(chunk_plans, width, batch, budgets[chunk_idx],
@@ -209,6 +217,8 @@ class BatchEngine:
              table.maxr, carry_buffer(batched_init_carry(batch, k))),
             eng.device,
         )
+        if spans is not None:
+            t_launch0 = clk()
         out = traverse_lanes(
             eng.dix, *lanes, s_pad=eng.s_pad, k=k, safe_stop=safe_stop,
             prune_blocks=prune_blocks, impl=eng.impl, docs_format=eng.docs_format,
@@ -216,7 +226,7 @@ class BatchEngine:
         )
         self.compiled_shapes.add((batch, width))
         self.batches_run += 1
-        if prof is not None:
+        if timed:
             t_dev0 = clk()
 
         # The chunk's one device->host copy: every lane is finished.
@@ -225,11 +235,12 @@ class BatchEngine:
         postings, blocks = host[:, k], host[:, k + 1]
         ranges, safe, budg = (host[:, 2 * k + 2], host[:, 2 * k + 3] != 0,
                               host[:, 2 * k + 4] != 0)
+        if timed:
+            t_xfer1 = clk()
         if prof is not None:
             # No sync of its own: the device time is read from events that
             # the copy above has already waited for, and the transfer is
             # that copy (the wait for the launch included).
-            t_xfer1 = clk()
             prof.record_dispatch(
                 "batch_engine",
                 (batch, width),
@@ -245,10 +256,19 @@ class BatchEngine:
             results[qi] = lane_result(
                 vals, ids, postings, blocks, ranges, safe, budg, lane
             )
-        if self.obs.enabled:
-            self.obs.observe("batch_engine_chunk_lanes", len(chunk_idx))
+        if spans is not None:
+            # Stamped before the registry's per-lane updates below, which
+            # are the instrumentation's own work.
+            t_unpacked = clk()
+            spans.add("stage", t_plan0, t_launch0)
+            spans.add("launch", t_launch0, t_dev0)
+            spans.add("read", t_dev0, t_xfer1)
+            spans.add("unpack", t_xfer1, t_unpacked)
+            spans.count("launches")
+        if obs.enabled:
+            obs.observe("batch_engine_chunk_lanes", len(chunk_idx))
             for lane in range(len(chunk_idx)):
-                self.obs.count(
+                obs.count(
                     "batch_engine_queries",
                     reason=exit_reason(bool(safe[lane]), bool(budg[lane])),
                 )

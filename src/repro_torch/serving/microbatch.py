@@ -281,9 +281,13 @@ class MicroBatchServer:
     ``clock`` is read once per submitted query and twice per batch (around
     the dispatch), and twice more per batch when ``obs`` is enabled: the
     reference's sequence, so a deterministic clock replays its budgets
-    exactly. An explicit ``clock`` wins; otherwise the ``obs`` handle's
-    (``NOOP`` carries ``time.perf_counter``), so trace timestamps and SLA
-    feedback read one source.
+    exactly. A span log on ``obs`` (``obs.spans``) adds reads: a ``drain``
+    span holds ``plan``, ``budget``, the batch engine's spans of each
+    launch, and ``feedback`` (the budgeter's update and the served list),
+    and the drain counts ``batches`` and ``plan_blocks`` (the valid block
+    ids its plans list) once it has ended. An explicit ``clock`` wins;
+    otherwise the ``obs`` handle's (``NOOP`` carries ``time.perf_counter``),
+    so trace timestamps and SLA feedback read one source.
     """
 
     def __init__(
@@ -353,13 +357,22 @@ class MicroBatchServer:
         rids = [c[0] for c in cut]
         enq = [c[2] for c in cut]
         # Stage timestamps are taken only when instrumented, so a FakeClock
-        # run without obs sees the exact uninstrumented read sequence.
-        t_cut = self.clock() if obs.enabled else 0.0
+        # run without obs sees the exact uninstrumented read sequence; a
+        # span log adds one more read, at the drain's end.
+        spans = None
+        t_cut = 0.0
+        if obs.enabled:
+            t_cut, spans = self.clock(), obs.spans
+            if spans is not None:
+                drain = spans.open("drain", t_cut)
         plans = self.bengine.plan_many([c[1] for c in cut])
         t_planned = self.clock() if obs.enabled else 0.0
         budgets = self.budgeter.budgets(len(plans), plans=plans)
 
         t0 = self.clock()
+        if spans is not None:
+            spans.add("plan", t_cut, t_planned)
+            spans.add("budget", t_planned, t0)
         results = self._run_batch(plans, budgets)
         served_at = self.clock()
         batch_ms = (served_at - t0) * 1e3
@@ -370,6 +383,13 @@ class MicroBatchServer:
             ServedQuery(rid=rid, result=res, latency_ms=lat, batch_size=len(cut))
             for rid, lat, res in zip(rids, latencies_ms, results)
         ]
+        if spans is not None:
+            t_end = self.clock()
+            spans.add("feedback", served_at, t_end)
+            spans.close(drain, t_end)
+            spans.count("batches")
+            spans.count("plan_blocks",
+                        sum(np.count_nonzero(p.blk_tab_host >= 0) for p in plans))
         if obs.enabled:
             self._record_batch(
                 served, enq, budgets, t_cut, t_planned, t0, served_at, batch_ms

@@ -17,7 +17,9 @@ carry field, also over stacked range shards (lane n reads shard n % S),
 with ``BatchEngine``, ``ShardedBatchEngine`` and ``InflightServer`` on
 ``cuda`` equal to ``torch``; engines loaded from index artifacts
 (``from_artifact``) equal the in-memory ones on the card, and serving
-with an enabled ``obs`` handle equals serving without; the control plane
+with an enabled ``obs`` handle equals serving without, and the
+``traverse`` kernel runs inside the span log's launch and read spans on
+the profiler's trace; the control plane
 (healthy, a shard down, a live reshard, a journal replayed) on ``cuda``
 equals it on the plain path, the partitioned IR's one launch over the
 (query, shard) lanes equals its plain version, and anytime MIPS on the
@@ -980,6 +982,52 @@ def test_obs_on_equals_obs_off_on_card(cuda_device, small_index, mode):
     assert serve(obs) == serve(NOOP)
     snap = next(iter(obs.profiler.snapshot().values()))
     assert snap["recompiles"] == 0 and snap["device_ms"] > 0.0
+
+
+@pytest.mark.cuda
+def test_traverse_runs_inside_the_programs_launch_and_read_spans(
+        cuda_device, small_index):
+    """The span log's stamps bracket the device's work: over a micro-batch
+    window traced by ``torch.profiler``, the card runs one ``traverse``
+    kernel a ``launch`` span, and kernel i runs inside launch i's span up to
+    the end of its ``read``. The check needs no alignment of the two
+    clocks: a kernel's duration is at most its launch-to-read span, and the
+    gap between two kernels' starts is bounded by the host spans around
+    them (a kernel starts after its launch call begins and ends before its
+    read returns). ``slack`` covers the two clocks' rates, which differ by
+    tens of parts per million."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import SpanInstrumentation, SpanLog
+
+    index, queries = small_index
+    log = SpanLog()
+    obs = SpanInstrumentation(log)
+    eng = Engine(index, k=10, device=cuda_device, docs_format="packed", obs=obs)
+    srv = MicroBatchServer(BatchEngine(eng, BucketSpec(max_batch=8), obs=obs),
+                           SlaBudgeter(sla_ms=float("inf")), obs=obs)
+    srv.replay(queries)  # loads the kernels' library
+    torch.cuda.synchronize(cuda_device)
+    log.trim(time.perf_counter())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            srv.replay(queries)
+        torch.cuda.synchronize(cuda_device)
+    kernels = sorted(
+        (e.start_ns() * 1e-9, e.duration_ns() * 1e-9)
+        for e in prof.profiler.kineto_results.events()
+        if str(e.device_type()).endswith("CUDA") and "traverse_kernel" in e.name())
+    ls, _ = log.intervals("launch", parent="drain")
+    _, re_ = log.intervals("read", parent="drain")
+    assert len(kernels) == len(ls) == len(re_) == log.counts["launches"] > 0
+    slack = 5e-6
+    for (_, dur), s, e in zip(kernels, ls, re_):
+        assert dur <= e - s + slack
+    for i in range(len(kernels) - 1):
+        gap = kernels[i + 1][0] - kernels[i][0]
+        assert ls[i + 1] - re_[i] - slack <= gap <= re_[i + 1] - ls[i] + slack
 
 
 # ------------------------------------------------------------ control plane

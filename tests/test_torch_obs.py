@@ -34,11 +34,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from differential import assert_exit_reason_conservation
 from repro.core import clustered_index as ref_ci
 from repro.core import range_daat as ref_daat
 from repro.data.synth import make_corpus, make_query_log
+from repro.obs import NOOP as RefNOOP
 from repro.obs import FakeClock as RefFakeClock
 from repro.obs import Instrumentation as RefInstrumentation
 from repro.serving import batch_engine as ref_batch
@@ -55,6 +57,8 @@ from repro_torch.obs import (
     FakeClock,
     Instrumentation,
     MetricsRegistry,
+    SpanInstrumentation,
+    SpanLog,
     Tracer,
     TraceSink,
     json_snapshot,
@@ -928,6 +932,242 @@ def test_burn_rate_alert_marks_plane_degraded():
     assert "slo_fast_burn" in monitor.firing()
     assert obs.metrics.gauge("plane_degraded_slo").value() == 1.0
     assert obs.metrics.gauge("slo_state").value(slo="latency_sla") == 2
+
+
+# --------------------------------------------------------------------------
+# span log: the serving loop's own spans and counts
+# --------------------------------------------------------------------------
+
+
+def test_span_log_nests_spans_under_their_parents():
+    log = SpanLog()
+    d = log.open("drain", 1.0)
+    log.add("plan", 1.0, 1.5)
+    log.add("launch", 2.0, 3.0)
+    inner = log.open("unpack", 3.0)
+    log.add("lane", 3.1, 3.2)
+    log.close(inner, 3.5)
+    log.close(d, 4.0)
+    log.add("load", 5.0, 6.0)
+    recs = log.records()
+    assert [(r["name"], r["parent"], r["root"]) for r in recs] == [
+        ("drain", None, 0), ("plan", 0, 0), ("launch", 0, 0), ("unpack", 0, 0),
+        ("lane", 3, 0), ("load", None, 5)]
+    assert log.intervals("drain") == ([1.0], [4.0])
+    assert log.intervals("nothing") == ([], [])
+    assert log.intervals(parent="drain") == ([1.0, 2.0, 3.0], [1.5, 3.0, 3.5])
+    assert log.intervals("lane", parent="unpack") == ([3.1], [3.2])
+    assert log.intervals("lane", parent="drain") == ([], [])
+
+
+def test_span_log_close_forgets_spans_left_open_inside():
+    """A span an exception leaves open keeps no end; closing its parent
+    ends the nesting, so later spans are roots again."""
+    log = SpanLog()
+    d = log.open("drain", 0.0)
+    log.open("unpack", 1.0)  # never closed
+    log.close(d, 2.0)
+    log.add("load", 3.0, 4.0)
+    assert [(r["name"], r["t1"], r["parent"], r["root"]) for r in log.records()] == [
+        ("drain", 2.0, None, 0), ("unpack", None, 0, 0), ("load", 4.0, None, 2)]
+    assert log.intervals("unpack") == ([], [])
+
+
+def test_span_log_trim_drops_the_warm_up_and_keeps_set_up():
+    log = SpanLog()
+    load = log.open("load", 0.0)
+    log.add("unpack_docs", 0.1, 0.2)
+    log.close(load, 0.3)
+    log.add("pack_docs", 0.3, 0.4)
+    for t in (1.0, 2.0, 3.0):
+        d = log.open("drain", t)
+        log.add("launch", t + 0.1, t + 0.5)
+        log.count("batches")
+        log.close(d, t + 0.9)
+    live = log.open("drain", 4.0)
+    with pytest.raises(ValueError, match="still open"):
+        log.trim(2.5)  # an open span's index would change under its site
+    log.close(live, 4.5)
+    log.trim(2.5, keep=("load", "pack_docs", "absent"))
+    assert [(r["name"], r["parent"], r["root"]) for r in log.records()] == [
+        ("load", None, 0), ("unpack_docs", 0, 0), ("pack_docs", None, 2),
+        ("drain", None, 3), ("launch", 3, 3), ("drain", None, 5)]
+    assert log.counts == {}
+    assert log.intervals("drain") == ([3.0, 4.0], [3.9, 4.5])
+    # Spans recorded after the trim nest under the renumbered ones.
+    d = log.open("drain", 5.0)
+    log.add("launch", 5.1, 5.2)
+    log.close(d, 5.5)
+    assert log.records()[-1]["parent"] == 6
+    assert log.intervals("launch", parent="drain") == ([3.1, 5.1], [3.5, 5.2])
+
+
+def test_span_log_records_round_trip_through_json():
+    log = SpanLog()
+    d = log.open("drain", 0.25)
+    log.add("read", 0.5, 0.75)
+    log.count("launches", 3)
+    recs = log.records()
+    assert json.loads(json.dumps(recs)) == recs
+    assert recs[0] == {"name": "drain", "t0": 0.25, "t1": None, "parent": None, "root": 0}
+    log.close(d, 1.0)
+    assert json.loads(json.dumps(log.records()))[0]["t1"] == 1.0
+    assert log.counts == {"launches": 3}
+
+
+def test_no_span_log_unless_attached():
+    assert NOOP.spans is None
+    assert Instrumentation().spans is None
+    assert Instrumentation.make(profile=True).spans is None
+    log = SpanLog()
+    assert Instrumentation(MetricsRegistry(), None, spans=log).spans is log
+    alone = SpanInstrumentation(log)
+    assert alone.enabled and alone.spans is log and alone.profiler is None
+    alone.count("submitted", server="micro")
+    alone.observe("latency_ms", 1.0, server="micro")
+    assert alone.snapshot() == {} and alone.tracer is None
+
+
+def _span_serve(mode, eng, queries, obs, cap):
+    """One server's run as ``_serve`` makes it, with the engine and server."""
+    beng = BatchEngine(eng, BucketSpec(max_batch=4), obs=obs)
+    bud = SlaBudgeter(sla_ms=float("inf"), obs=obs)
+    if cap is not None:
+        bud.budgets = lambda n, plans=None: np.full(n, cap, np.int32)
+    if mode == "inflight":
+        srv = InflightServer(beng, bud, n_slots=4, quantum=2, obs=obs)
+        for q in queries:
+            srv.submit(q)
+        return beng, srv, srv.run_until_idle()
+    srv = MicroBatchServer(beng, bud, max_batch=4, obs=obs)
+    for q in queries:
+        srv.submit(q)
+    served = []
+    while srv.pending:
+        served.extend(srv.drain_once())
+    return beng, srv, served
+
+
+@pytest.mark.parametrize("handle", ["registry", "spans_only"])
+@pytest.mark.parametrize("cap", [None, 150])
+@pytest.mark.parametrize("mode", ["batch", "inflight"])
+def test_span_log_on_the_servers(setup, mode, cap, handle):
+    """With a span log attached the servers serve bitwise what they serve
+    with ``NOOP``; every drain's children lie inside it; the launches are
+    the engine's dispatches, and the planned block ids are the plans' valid
+    ones. The in-flight server records no spans of its own."""
+    eng, queries = setup
+    log = SpanLog()
+    obs = (Instrumentation(MetricsRegistry(), None, spans=log) if handle == "registry"
+           else SpanInstrumentation(log))
+    beng, srv, served = _span_serve(mode, eng, queries, obs, cap)
+    _, _, baseline = _span_serve(mode, eng, queries, NOOP, cap)
+    assert _observables(mode, served) == _observables(mode, baseline)
+    assert (obs.snapshot() == {}) == (handle == "spans_only")
+
+    recs = log.records()
+    kids = {"plan", "budget", "stage", "launch", "read", "unpack", "feedback"}
+    if mode == "inflight":
+        # Its launches go through batched_traverse_resume, not _run_chunk.
+        assert recs == [] and log.counts == {} and srv.steps_run > 0
+        return
+    roots = [i for i, r in enumerate(recs) if r["name"] == "drain"]
+    assert roots and all(recs[i]["parent"] is None for i in roots)
+    for i, r in enumerate(recs):
+        assert r["t1"] is not None and r["t0"] <= r["t1"]
+        if r["parent"] is None:
+            assert r["name"] == "drain" and r["root"] == i
+            continue
+        p = recs[r["parent"]]
+        assert p["name"] == "drain" and r["root"] == r["parent"] and r["name"] in kids
+        assert p["t0"] <= r["t0"] and r["t1"] <= p["t1"]
+    blocks = sum(int(np.count_nonzero(p.blk_tab_host >= 0))
+                 for p in beng.plan_many(queries))
+    c = log.counts
+    assert set(c) == {"batches", "plan_blocks", "launches"}
+    assert c["plan_blocks"] == blocks
+    assert c["launches"] == beng.batches_run
+    assert c["batches"] == len(roots)
+    for name in ("stage", "launch", "read", "unpack"):
+        assert len(log.intervals(name, parent="drain")[0]) == beng.batches_run
+
+
+class _CountingClock(FakeClock):
+    def __init__(self):
+        super().__init__(dt=0.001)
+        self.reads = 0
+
+    def __call__(self):
+        self.reads += 1
+        return super().__call__()
+
+
+class _RefCountingClock(RefFakeClock):
+    def __init__(self):
+        super().__init__(dt=0.001)
+        self.reads = 0
+
+    def __call__(self):
+        self.reads += 1
+        return super().__call__()
+
+
+@pytest.fixture(scope="module")
+def ref_setup_index(setup):
+    ref_idx = ref_ci.build_index(
+        make_corpus(n_docs=900, n_terms=700, n_topics=4, mean_doc_len=50, seed=3),
+        n_ranges=6, strategy="clustered")
+    assert ref_idx.fingerprint() == setup[0].index.fingerprint()
+    return ref_idx
+
+
+@pytest.mark.parametrize("handle", ["noop", "metrics", "profile"])
+@pytest.mark.parametrize("mode", ["batch", "inflight"])
+def test_without_a_span_log_the_clock_reads_are_the_references(
+        setup, ref_setup_index, mode, handle):
+    """No span log, no more clock reads: as many as the reference's server
+    makes under its own FakeClock. The port's profiler takes the device
+    time from CUDA events, so it reads the clock once less a dispatch than
+    the reference's, which stamps the end of its wait for the device."""
+    eng, queries = setup
+    for cap in (None, 60):
+        clock, ref_clock = _CountingClock(), _RefCountingClock()
+        if handle == "noop":
+            obs, ref_obs = NOOP, RefNOOP
+        else:
+            obs = Instrumentation.make(clock=clock, profile=handle == "profile")
+            ref_obs = RefInstrumentation.make(clock=ref_clock,
+                                              profile=handle == "profile")
+        _serve(mode, eng, queries, obs, cap, clock=clock)
+        _ref_serve(mode, ref_setup_index, queries, ref_obs, cap, ref_clock)
+        fewer = 0
+        if handle == "profile":
+            site = "inflight" if mode == "inflight" else "batch_engine"
+            fewer = obs.profiler.snapshot()[site]["dispatches"]
+            assert fewer > 0
+        assert clock.reads == ref_clock.reads - fewer > 0
+
+
+def test_index_load_spans(tmp_path, setup):
+    """A packed artifact loaded with a span log: ``load`` holds the docids'
+    decode, then the engine's re-pack follows; the engine equals one loaded
+    without it."""
+    from repro_torch import index_io
+
+    eng, queries = setup
+    path = str(tmp_path / "packed")
+    index_io.save_index(eng.index, path, docs_format="packed")
+    log = SpanLog()
+    obs = Instrumentation(MetricsRegistry(), None, spans=log)
+    traced = Engine.from_artifact(path, k=5, device="cpu", obs=obs)
+    plain = Engine.from_artifact(path, k=5, device="cpu")
+    assert [(r["name"], r["parent"]) for r in log.records()] == [
+        ("load", None), ("unpack_docs", 0), ("pack_docs", None)]
+    assert all(r["t0"] <= r["t1"] for r in log.records())
+    assert traced.index.fingerprint() == plain.index.fingerprint()
+    for a, b in zip(traced.dix, plain.dix):
+        assert torch.equal(a, b)
+    assert index_io.load_index(path).fingerprint() == traced.index.fingerprint()
 
 
 # --------------------------------------------------------------------------
