@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+from typing import NamedTuple
 
 import numpy as np
 
@@ -54,6 +55,7 @@ PACK_DIR_BITS = 27
 
 __all__ = [
     "BLOCK",
+    "BlockTables",
     "PACK_DIR_BITS",
     "PACK_WIDTHS",
     "ClusteredIndex",
@@ -158,6 +160,23 @@ class PackedPostings:
         """Bytes of the device upload: word stream + merged int32 directory
         (:func:`pack_dir_entries`) + first-docid column."""
         return self.n_words * 4 + 2 * self.n_blocks * 4
+
+
+class BlockTables(NamedTuple):
+    """A batch's per-range block tables (``ClusteredIndex.query_block_tables``),
+    held in two flat buffers: query i's tables are the i-th slice,
+    C-contiguous [R, widths[i]] views."""
+
+    blk: np.ndarray  # block ids, -1 padded
+    rest: np.ndarray  # [.] int32 rest bounds, 0 padded
+    offsets: list[int]  # [Q+1] query i's slice is offsets[i]:offsets[i+1]
+    widths: list[int]  # [Q]
+    bsum: np.ndarray  # [Q, R] int64 BoundSum per query and range
+
+    def table(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """(blk_ids, rest_bound) of query i, as ``query_block_table``."""
+        lo, hi, w = self.offsets[i], self.offsets[i + 1], self.widths[i]
+        return self.blk[lo:hi].reshape(-1, w), self.rest[lo:hi].reshape(-1, w)
 
 
 def _segment_arange(lens: np.ndarray) -> np.ndarray:
@@ -433,31 +452,65 @@ class ClusteredIndex:
         term owning block j — the quantity needed for block-level pruning
         (DESIGN.md §2: per-block bound = blk_maximp + rest_bound).
         """
-        q = [int(t) for t in q_terms if t >= 0]
+        return self.query_block_tables([q_terms], pad_to).table(0)
+
+    def query_block_tables(
+        self, queries, pad_to=None, dtype=np.int64
+    ) -> BlockTables:
+        """The block tables of a batch of queries, planned in one pass.
+
+        ``queries`` is a sequence of 1-D term arrays (-1 entries are padding;
+        a repeated term is listed again). ``.table(i)`` is
+        ``query_block_table(queries[i], pad_to)``: in each range, the blocks
+        of the query's terms in query order, each term's directory rows in
+        order, block ids ascending. A query's width is its fullest range's
+        block count (at least 1), then raised to ``pad_to`` when that is an
+        int or mapped through it when it is a function. ``dtype`` is the
+        block ids' (the engine's device tables take int32).
+        """
         R = self.n_ranges
-        per_range: list[list[int]] = [[] for _ in range(R)]
-        rests: list[list[int]] = [[] for _ in range(R)]
-        bsum = self.bounds_dense[q].sum(axis=0).astype(np.int64) if q else np.zeros(R, np.int64)
-        for t in q:
-            s, e = self.tr_ptr[t], self.tr_ptr[t + 1]
-            for i in range(s, e):
-                r = int(self.tr_range[i])
-                rest = int(bsum[r] - self.tr_bound[i])
-                for b in range(int(self.tr_blk_start[i]), int(self.tr_blk_end[i])):
-                    per_range[r].append(b)
-                    rests[r].append(rest)
-        width = max((len(x) for x in per_range), default=1)
-        width = max(width, 1)
-        if pad_to is not None:
-            width = max(width, pad_to)
-        blk = np.full((R, width), -1, dtype=np.int64)
-        rest = np.zeros((R, width), dtype=np.int32)
-        for r in range(R):
-            n = len(per_range[r])
-            if n:
-                blk[r, :n] = per_range[r]
-                rest[r, :n] = rests[r]
-        return blk, rest
+        qs = [np.asarray(q).reshape(-1) for q in queries]
+        n_q = len(qs)
+        terms = np.concatenate(qs).astype(np.int64) if qs else np.zeros(0, np.int64)
+        qid = np.repeat(np.arange(n_q), [q.shape[0] for q in qs])
+        kept = terms >= 0
+        terms, qid = terms[kept], qid[kept]
+        bsum = np.zeros((n_q, R), np.int64)
+        np.add.at(bsum, qid, self.bounds_dense[terms])
+
+        # Every kept term's (term, range) directory rows, sorted stably by
+        # (query, range), so terms keep query order and rows directory order.
+        first = self.tr_ptr[terms]
+        n_rows = self.tr_ptr[terms + 1] - first
+        rows = np.repeat(first, n_rows) + _segment_arange(n_rows)
+        key = np.repeat(qid, n_rows) * R + self.tr_range[rows]
+        by = np.argsort(key, kind="stable")
+        rows, key = rows[by], key[by]
+        row_q, row_r = np.divmod(key, R)
+        row_rest = checked_int32(bsum[row_q, row_r] - self.tr_bound[rows], "rest bounds")
+        b0 = self.tr_blk_start[rows]
+        n_blk = self.tr_blk_end[rows] - b0
+
+        # Query i's [R, width_i] table is one slice of a flat buffer; a row's
+        # blocks land after its (query, range) group's earlier rows.
+        counts = np.bincount(key, n_blk, n_q * R).astype(np.int64)
+        width = np.maximum(counts.reshape(n_q, R).max(axis=1, initial=0), 1)
+        if callable(pad_to):
+            width = np.array([pad_to(int(w)) for w in width], np.int64)
+        elif pad_to is not None:
+            width = np.maximum(width, pad_to)
+        offsets = np.zeros(n_q + 1, np.int64)
+        np.cumsum(R * width, out=offsets[1:])
+        blk_before = np.cumsum(n_blk) - n_blk
+        col0 = blk_before - (np.cumsum(counts) - counts)[key]
+        row_at = offsets[row_q] + row_r * width[row_q] + col0
+        step = _segment_arange(n_blk)
+        at = np.repeat(row_at, n_blk) + step
+        blk = np.full(int(offsets[-1]), -1, dtype)
+        blk[at] = np.repeat(b0, n_blk) + step
+        rest = np.zeros(int(offsets[-1]), np.int32)
+        rest[at] = np.repeat(row_rest, n_blk)
+        return BlockTables(blk, rest, offsets.tolist(), width.tolist(), bsum)
 
     def fingerprint(self) -> str:
         # Cached: a sha1 pass over the postings arrays is the dominant cost

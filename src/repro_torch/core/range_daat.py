@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.bm25 import checked_int32
 from repro_torch.core.clustered_index import BLOCK, ClusteredIndex, pack_dir_entries
 from repro_torch.kernels._abstract import is_abstract, record_launch, record_reads
 from repro_torch.kernels.range_scorer import kernel as scorer_kernel
@@ -647,7 +648,8 @@ class Engine:
     ignored. ``obs`` is a ``repro_torch.obs`` instrumentation handle (None:
     ``NOOP``); ``traverse`` counts exit reasons and postings through it,
     from the carry row it reads anyway, and its span log gets a
-    ``pack_docs`` span (packing the docids for ``docs_format="packed"``).
+    ``pack_docs`` span (packing the docids for ``docs_format="packed"``)
+    and a ``plan_passes`` count from each ``plan_many`` call.
     ``impl="cuda"`` compiles the kernels' library here, when it is not
     built yet.
     """
@@ -760,46 +762,60 @@ class Engine:
 
     # ------------------------------------------------------------- planning
     def plan(self, q_terms: np.ndarray) -> QueryPlan:
-        q = np.asarray(q_terms, dtype=np.int32).reshape(-1)
-        blk, rest_range = self.index.query_block_table(q)
-        R, width = blk.shape
-        pad = _next_pow2(width)
-        if pad != width:
-            blk = np.pad(blk, ((0, 0), (0, pad - width)), constant_values=-1)
-            rest_range = np.pad(rest_range, ((0, 0), (0, pad - width)))
+        return self.plan_many([q_terms])[0]
 
-        bsums = self.index.bounds_dense[q[q >= 0]].sum(axis=0).astype(np.int64)
+    def plan_many(self, queries) -> list[QueryPlan]:
+        """One plan per query, from one vectorised pass over the batch.
+
+        Each query's tables are padded to a power of two (at least 32)
+        inside the batch's flat buffers (``ClusteredIndex.query_block_tables``);
+        a plan's tables are C-contiguous int32 views of them.
+        """
+        if self.ordering not in ("boundsum", "docid"):
+            raise ValueError(f"unknown ordering {self.ordering!r}")
+        if self.obs.enabled and self.obs.spans is not None:
+            self.obs.spans.count("plan_passes")
+        qs = [np.asarray(q, dtype=np.int32).reshape(-1) for q in queries]
+        if not qs:
+            return []
+        index = self.index
+        tabs = index.query_block_tables(qs, pad_to=_next_pow2, dtype=np.int32)
+        bsums = tabs.bsum
+        n_q, R = bsums.shape
         if self.bounds == "global":
             # Listwise bounds only: rest = sum of other terms' GLOBAL bounds.
-            gsum = int(self.index.term_bound[q[q >= 0]].sum())
+            terms = np.concatenate(qs)
+            qid = np.repeat(np.arange(n_q), [q.shape[0] for q in qs])
+            kept = terms >= 0
+            gsum = np.zeros(n_q, np.int64)
+            np.add.at(gsum, qid[kept], index.term_bound[terms[kept]])
+            checked_int32(gsum, "global bound sums")
+            blk = tabs.blk
             rest = np.where(
                 blk >= 0,
-                gsum - self.index.term_bound[self.index.blk_term[blk.clip(0)]],
+                np.repeat(gsum, np.diff(tabs.offsets))
+                - index.term_bound[index.blk_term[blk.clip(0)]],
                 0,
             ).astype(np.int32)
+            tabs = tabs._replace(rest=rest)
             # Safe stop bound per range = whole-collection bound (loose).
-            per_range_bound = np.full(R, gsum, dtype=np.int64)
+            per_range_bound = np.repeat(gsum[:, None], R, axis=1)
         else:
-            rest = rest_range.astype(np.int32)
             per_range_bound = bsums
 
         if self.ordering == "boundsum":
-            order = np.argsort(-bsums, kind="stable").astype(np.int32)
-        elif self.ordering == "docid":
-            order = np.arange(R, dtype=np.int32)
+            order = np.argsort(-bsums, axis=1, kind="stable").astype(np.int32)
         else:
-            raise ValueError(f"unknown ordering {self.ordering!r}")
+            order = np.tile(np.arange(R, dtype=np.int32), (n_q, 1))
         # The device tables are int32; a BoundSum past 2^31 must saturate,
         # not wrap — a negative bound satisfies `bound <= theta` at once and
         # defeats safe termination (``ordered_bounds_host`` saturates).
-        return QueryPlan(
-            q_terms=q,
-            blk_tab_host=np.ascontiguousarray(blk, np.int32),
-            rest_tab_host=np.ascontiguousarray(rest, np.int32),
-            order_host=order,
-            bounds_host=per_range_bound[order].astype(np.int64),
-            device=self.device,
-        )
+        bounds = np.take_along_axis(per_range_bound, order, axis=1)
+        plans = []
+        for i, q in enumerate(qs):
+            blk, rest = tabs.table(i)
+            plans.append(QueryPlan(q, blk, rest, order[i], bounds[i], self.device))
+        return plans
 
     # ------------------------------------------------------- execution modes
     def init_state(self) -> TopKState:

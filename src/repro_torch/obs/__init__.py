@@ -19,7 +19,9 @@ clock, at the port's layer boundaries:
   * ``BatchEngine._run_chunk``: ``stage``, ``launch``, ``read``,
     ``unpack``; counts ``launches``;
   * ``index_io.load_index`` and ``Engine``: ``load`` holding
-    ``unpack_docs``; ``pack_docs``.
+    ``unpack_docs``; ``pack_docs``;
+  * ``Engine.plan_many``: counts ``plan_passes`` (one a call, however many
+    queries it plans).
 """
 
 from repro_torch.obs.catalog import METRIC_HELP, help_for

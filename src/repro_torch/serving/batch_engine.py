@@ -140,7 +140,7 @@ class BatchEngine:
         return self.engine.plan(q_terms)
 
     def plan_many(self, queries: Sequence[np.ndarray]) -> list[QueryPlan]:
-        return [self.engine.plan(q) for q in queries]
+        return self.engine.plan_many(queries)
 
     # ------------------------------------------------------------ execution
     def run_batch(

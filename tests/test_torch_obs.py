@@ -1148,6 +1148,32 @@ def test_without_a_span_log_the_clock_reads_are_the_references(
         assert clock.reads == ref_clock.reads - fewer > 0
 
 
+def test_plan_many_is_one_plan_pass(setup):
+    """32 queries planned through ``BatchEngine.plan_many`` on an engine
+    with a span log count one ``plan_passes`` and read no clock; a single
+    ``plan`` is one more pass. Under ``NOOP`` nothing is counted, no clock
+    is read, and the plans are the same."""
+    eng, queries = setup
+    qs = [queries[i % len(queries)] for i in range(32)]
+    log, clock = SpanLog(), _CountingClock()
+    traced = BatchEngine(Engine(eng.index, k=eng.k, device="cpu",
+                                obs=SpanInstrumentation(log, clock=clock)))
+    plans = traced.plan_many(qs)
+    assert log.counts == {"plan_passes": 1} and log.records() == []
+    traced.plan(qs[0])
+    assert log.counts == {"plan_passes": 2} and clock.reads == 0
+
+    noop = type(NOOP)()
+    noop.clock = clock
+    plain = BatchEngine(Engine(eng.index, k=eng.k, device="cpu", obs=noop))
+    assert noop.spans is None and not noop.enabled
+    for got, want in zip(plain.plan_many(qs), plans, strict=True):
+        for name in ("q_terms", "blk_tab_host", "rest_tab_host", "order_host",
+                     "bounds_host"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert clock.reads == 0 and log.counts == {"plan_passes": 2}
+
+
 def test_index_load_spans(tmp_path, setup):
     """A packed artifact loaded with a span log: ``load`` holds the docids'
     decode, then the engine's re-pack follows; the engine equals one loaded

@@ -11,6 +11,7 @@ All comparisons are exact.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import jax
@@ -29,6 +30,7 @@ from repro_torch.core import range_daat
 from repro_torch.core.clustered_index import INDEX_ARRAYS, build_index, index_from_arrays
 from repro_torch.data.synth import make_corpus, make_query_log, planted_qrels
 
+INT32_MAX = 2**31 - 1
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_v1")
 
 
@@ -283,3 +285,108 @@ def test_planted_qrels_is_the_references(n_rel):
                              n_rel)
     assert got == want and any(got)
     assert [list(g) for g in got] == [list(w) for w in want]  # the same order
+
+
+# --------------------------------------------------------------------------
+# Planning a batch in one pass
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def plan_indexes():
+    """Reference indexes with one range and with six, and the six-range one
+    with every bound scaled by 2^23, so two terms' BoundSum passes 2^31."""
+    jcorpus = jax_make_corpus(n_docs=3000, n_terms=2500, n_topics=6, mean_doc_len=30,
+                              seed=5)
+    one = jax_build_index(jcorpus, n_ranges=1, strategy="random", bits=8, seed=1)
+    six = jax_build_index(jcorpus, n_ranges=6, strategy="clustered", bits=8, seed=1)
+    huge = dataclasses.replace(
+        six,
+        bounds_dense=six.bounds_dense << 23,
+        tr_bound=six.tr_bound << 23,
+        term_bound=six.term_bound << 23,
+    )
+    log = jax_make_query_log(jcorpus, n_queries=40, seed=4).terms
+    return {"r1": one, "r6": six, "r6_huge": huge}, log
+
+
+def _plan_batch(ref_index, log):
+    """Queries of the log (-1 padded), long ones that pad to wider powers
+    of two, an all -1 and an empty query, duplicate terms, and a term without
+    postings."""
+    n_rows = np.diff(ref_index.tr_ptr)
+    absent = np.flatnonzero(n_rows == 0)
+    assert absent.size, "the corpus must leave a term without postings"
+    busy = np.argsort(-n_rows, kind="stable")
+    qs = [np.asarray(q) for q in log[:12]]
+    for n in (20, 60, 150, 400):
+        qs.append(busy[:n].astype(np.int32))
+    qs += [
+        np.full(6, -1, np.int32),
+        np.zeros(0, np.int32),
+        np.array([busy[0], busy[3], busy[0], -1, busy[3]], np.int32),
+        np.array([absent[0], busy[1], -1], np.int32),
+        np.array([absent[0]], np.int32),
+    ]
+    return qs
+
+
+def _assert_plans_equal(got, want, ctx):
+    assert got.blk_tab_host.dtype == got.rest_tab_host.dtype == np.int32, ctx
+    assert got.order_host.dtype == np.int32 and got.bounds_host.dtype == np.int64, ctx
+    assert got.blk_tab_host.flags.c_contiguous and got.rest_tab_host.flags.c_contiguous
+    for name in ("q_terms", "blk_tab_host", "rest_tab_host", "order_host", "bounds_host"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape and g.dtype == w.dtype, (ctx, name)
+        np.testing.assert_array_equal(g, w, f"{ctx} {name}")
+
+
+@pytest.mark.parametrize("ordering", ["boundsum", "docid"])
+@pytest.mark.parametrize("bounds", ["range", "global"])
+@pytest.mark.parametrize("which", ["r1", "r6", "r6_huge"])
+def test_plan_many_equals_plan_and_the_reference(plan_indexes, which, bounds, ordering):
+    """``Engine.plan_many`` == ``Engine.plan`` per query == the reference's
+    ``Engine.plan``, field for field and bitwise; ``query_block_table`` at
+    every ``pad_to`` == the reference's. Where the reference raises (a rest
+    bound or, under global bounds, a bound sum past int32), so does the
+    port, alone and inside a batch; a BoundSum past 2^31 saturates."""
+    indexes, log = plan_indexes
+    ref_index = indexes[which]
+    pidx = port_index(ref_index)
+    ref = jax_daat.Engine(ref_index, k=10, ordering=ordering, bounds=bounds, impl="xla")
+    port = range_daat.Engine(pidx, k=10, ordering=ordering, bounds=bounds, device="cpu")
+    qs = _plan_batch(ref_index, log)
+    if which == "r6_huge":
+        strong = np.argsort(-ref_index.bounds_dense[:, 0], kind="stable")
+        qs = [strong[:n].astype(np.int32) for n in (2, 3)] + qs[-5:]
+
+    fits, want = [], []
+    for q in qs:
+        try:
+            want.append(ref.plan(q))
+            fits.append(q)
+        except OverflowError:
+            with pytest.raises(OverflowError):
+                port.plan(q)
+            with pytest.raises(OverflowError):
+                port.plan_many([qs[0], q])
+    assert len(fits) >= 3 and (which == "r6_huge") == (len(fits) < len(qs))
+    got = port.plan_many(fits)
+    widths = {p.blk_tab_host.shape[1] for p in got}
+    assert which == "r6_huge" or len(widths) >= 4, widths
+    for i, (q, g, w) in enumerate(zip(fits, got, want)):
+        _assert_plans_equal(g, port.plan(q), f"plan_many[{i}] vs plan")
+        ctx = f"plan_many[{i}] vs reference"
+        _assert_plans_equal(g, dataclasses.replace(
+            g, blk_tab_host=np.asarray(w.blk_tab), rest_tab_host=np.asarray(w.rest_tab),
+            order_host=w.order_host, bounds_host=w.bounds_host), ctx)
+        np.testing.assert_array_equal(g.ordered_bounds_host, np.asarray(w.ordered_bounds))
+        for pad_to in (None, 1, 7, 300):
+            for a, b in zip(pidx.query_block_table(q, pad_to=pad_to),
+                            ref_index.query_block_table(q, pad_to=pad_to)):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                np.testing.assert_array_equal(a, b)
+    if which == "r6_huge" and bounds == "range":
+        assert (got[0].bounds_host > INT32_MAX).any()
+        assert got[0].ordered_bounds_host.max() == INT32_MAX
+    assert port.plan_many([]) == []
