@@ -469,9 +469,11 @@ def _recording(server_cls):
     return Recording
 
 
-def test_microbatch_server_matches_reference(index, port_idx, ragged, queries):
-    """Same clock: the same budgets each batch, the same results and rids."""
-    jeng, peng = _engines(index, port_idx, "int8", "packed")
+@pytest.mark.parametrize("docs_format", ["packed", "int32"])
+def test_microbatch_server_matches_reference(index, port_idx, ragged, queries, docs_format):
+    """Same clock: the same budgets each batch, the same results and rids;
+    int8 impacts with packed or int32 docids."""
+    jeng, peng = _engines(index, port_idx, "int8", docs_format)
     stream = list(queries) + ragged[-2:] + list(queries[:5])
     servers = []
     for bmod, bkt, mb, eng, policy in (

@@ -622,6 +622,36 @@ def test_traverse_matches_plain(cuda_device, s_pad, k):
             _assert_carry_equal(carry, whole, k, f"{ctx} chained quantum={quantum}")
 
 
+# gov2-4r's widest topical range: 157,999 docs in slots of BLOCK.
+GOV2_S_PAD = 158_080
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_traverse_at_a_gov2_range_width(cuda_device, ties):
+    """The benchmark's gov2-4r storage at its range width: int8 impacts, int32
+    docids, 4 ranges of 158,080 slots (global accumulator, shared top-k),
+    k 10, 32 lanes; every carry field, the whole loop and chained quanta."""
+    s_pad, k = GOV2_S_PAD, 10
+    assert kernel.acc_placement(s_pad, "traverse", k) == "global"
+    assert kernel.top_placement(k, "traverse") == "shared"
+    rng = np.random.default_rng(s_pad + ties)
+    dix, lanes = _traverse_case(rng, cuda_device, s_pad, "int8", "int32", k, 32, ties=ties,
+                                n_ranges=4)
+    kw = dict(s_pad=s_pad, k=k, docs_format="int32")
+    whole = kernel.traverse(dix, *lanes, **kw)
+    _assert_carry_equal(whole, ref.traverse_ref(dix, *lanes, **kw), k, "whole")
+    for quantum in (1, 2, 3):
+        first = kernel.traverse(dix, *lanes[:-1], lanes[-1], quantum=quantum, **kw)
+        _assert_carry_equal(first, ref.traverse_ref(dix, *lanes[:-1], lanes[-1],
+                                                    quantum=quantum, **kw),
+                            k, f"quantum={quantum}")
+        carry = first
+        for _ in range(4):
+            carry = kernel.traverse(dix, *lanes[:-1], carry, quantum=quantum, **kw)
+        _assert_carry_equal(carry, whole, k, f"chained quantum={quantum}")
+
+
 @pytest.mark.cuda
 def test_traverse_accumulator_limit_both_sides(cuda_device):
     """The last shared-memory s_pad and the first global one, at k = 10."""
