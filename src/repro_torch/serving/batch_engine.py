@@ -1,23 +1,26 @@
-"""Batched anytime query engine: one ``traverse`` launch per chunk of plans.
+"""Batched anytime query engine: one ``traverse`` launch per micro-batch.
 
 ``BatchEngine`` wraps the single-query ``core.range_daat.Engine`` with a
-batch execution path: plans are snapped to a small ladder of shapes (see
-``bucketing``), staged on the host with their caps and fresh carries,
-uploaded in one copy per chunk, and traversed by a single
-``traverse_lanes`` call per chunk (one launch of the ``traverse`` kernel
-under ``impl="cuda"``, its plain version under ``impl="torch"``), whose
-carry is read back in one copy. An ``obs`` handle (``repro_torch.obs``)
-counts each chunk's lanes and exit reasons from that host copy, and its
-profiler splits a chunk's time into host staging, dispatch, the launch's
-device time (CUDA events around it, read after the copy) and the copy
-itself. Its span log gets a chunk's ``stage`` (tables, carries, upload),
-``launch``, ``read`` (the copy, which waits for the kernel) and
-``unpack`` spans, and counts ``launches``. Budgets are **per
+batch execution path: a micro-batch of up to ``max_batch`` plans is staged
+on the host once, padded to its widest width bucket and its batch bucket
+(see ``bucketing``) with its caps and fresh carries, uploaded in one copy,
+and traversed by a single ``traverse_lanes`` call (one launch of the
+``traverse`` kernel under ``impl="cuda"``, its plain version under
+``impl="torch"``), whose carry is read back in one copy. The kernel takes
+any shape and drops the ``-1`` padding columns before touching memory, so
+a narrow lane padded to a wide one's width scores what it scores alone,
+and all of the batch's lanes run on the card together. An ``obs`` handle
+(``repro_torch.obs``) counts each launch's lanes and exit reasons from that
+host copy, and its profiler splits a launch's time into host staging,
+dispatch, the launch's device time (CUDA events around it, read after the
+copy) and the copy itself. Its span log gets a launch's ``stage`` (tables,
+carries, upload), ``launch``, ``read`` (the copy, which waits for the
+kernel) and ``unpack`` spans, and counts ``launches``. Budgets are **per
 query**: the postings/range caps travel down the lane with the plan, so a
 heavy query exhausts *its* budget while light lanes in the same batch run
 to safe or exhaustive completion. Results are bitwise identical to looping
 ``Engine.traverse`` over the same plans, and to the reference's
-``BatchEngine``.
+``BatchEngine``, which launches once per width bucket.
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ from repro_torch.serving.bucketing import (
     BucketSpec,
     batch_ladder,
     dummy_plan,
-    iter_bucket_chunks,
     stack_table,
 )
 
@@ -106,12 +108,12 @@ def _per_query(value, n: int, default: int) -> np.ndarray:
 class BatchEngine:
     """Micro-batch executor over a cluster-skipping index.
 
-    Every dispatch has shape (batch_bucket, R, width_bucket) with R and
-    s_pad fixed by the index, as in the reference, so the set of shapes is
-    bounded by ``len(width buckets) x len(batch buckets)``.
-    ``compiled_shapes`` records which (batch, width) shapes have run (the
-    reference's compiled programs; the ``traverse`` kernel takes any
-    shape), and ``batches_run`` counts dispatches.
+    Every launch has shape (batch_bucket, R, widest width bucket among its
+    plans), with R and s_pad fixed by the index, so the set of shapes is
+    still bounded by ``len(width buckets) x len(batch buckets)``; the
+    reference instead launches each width bucket apart. ``compiled_shapes``
+    records which (batch, width) shapes have run (the ``traverse`` kernel
+    takes any shape), and ``batches_run`` counts launches.
     """
 
     def __init__(
@@ -151,8 +153,8 @@ class BatchEngine:
         safe_stop: bool = True,
         prune_blocks: bool = True,
     ) -> list[BatchResult]:
-        """Traverse ``plans`` in groups, one dispatch each; results keep
-        input order.
+        """Traverse ``plans`` in consecutive chunks of up to ``max_batch``,
+        one launch each; results keep input order.
 
         ``budget_postings`` / ``max_ranges`` may be None (unbounded), a
         scalar applied to every query, or a length-len(plans) sequence of
@@ -164,32 +166,22 @@ class BatchEngine:
         budgets = _per_query(budget_postings, n, INT32_MAX)
         maxr = _per_query(max_ranges, n, INT32_MAX)
 
-        results: list[BatchResult | None] = [None] * n
-        for width, chunk in iter_bucket_chunks(plans, self.spec):
-            self._run_chunk(
-                [plans[i] for i in chunk],
-                chunk,
-                width,
-                budgets,
-                maxr,
-                safe_stop,
-                prune_blocks,
-                results,
-            )
-        return results  # type: ignore[return-value]
+        results: list[BatchResult] = []
+        step = self.spec.max_batch
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            results += self._run_chunk(plans[lo:hi], budgets[lo:hi], maxr[lo:hi],
+                                       safe_stop, prune_blocks)
+        return results
 
     def _run_chunk(
         self,
-        chunk_plans: list[QueryPlan],
-        chunk_idx: list[int],
-        width: int,
+        chunk_plans: Sequence[QueryPlan],
         budgets: np.ndarray,
         maxr: np.ndarray,
         safe_stop: bool,
         prune_blocks: bool,
-        results: list,
-    ) -> None:
-        batch = self.spec.batch_bucket(len(chunk_plans))
+    ) -> list[BatchResult]:
         obs = self.obs
         prof = spans = None
         if obs.enabled:
@@ -200,9 +192,14 @@ class BatchEngine:
         if timed:
             clk = obs.clock
             t_plan0 = clk()
-        # Dummy lanes get zero budgets -> they exit at i=0 having done no work.
-        table = stack_table(chunk_plans, width, batch, budgets[chunk_idx],
-                            maxr[chunk_idx])
+        # One table at the widest lane's width bucket: a narrower lane's
+        # extra columns are -1 padding, which the scorer skips. Dummy lanes
+        # get zero budgets -> they exit at i=0 having done no work.
+        spec = self.spec
+        m = len(chunk_plans)
+        batch = spec.batch_bucket(m)
+        width = spec.width_bucket(max(p.blk_tab_host.shape[1] for p in chunk_plans))
+        table = stack_table(chunk_plans, width, batch, budgets, maxr)
 
         eng = self.engine
         k = eng.k
@@ -229,7 +226,7 @@ class BatchEngine:
         if timed:
             t_dev0 = clk()
 
-        # The chunk's one device->host copy: every lane is finished.
+        # The micro-batch's one device->host copy: every lane is finished.
         host = out.cpu().numpy()
         vals, ids = host[:, :k], host[:, k + 2:2 * k + 2]
         postings, blocks = host[:, k], host[:, k + 1]
@@ -252,10 +249,8 @@ class BatchEngine:
                 transfer_ms=(t_xfer1 - t_dev0) * 1e3,
             )
             prof.record_hbm_once("batch_engine", eng.dix._asdict())
-        for lane, qi in enumerate(chunk_idx):
-            results[qi] = lane_result(
-                vals, ids, postings, blocks, ranges, safe, budg, lane
-            )
+        results = [lane_result(vals, ids, postings, blocks, ranges, safe, budg, lane)
+                   for lane in range(m)]
         if spans is not None:
             # Stamped before the registry's per-lane updates below, which
             # are the instrumentation's own work.
@@ -266,12 +261,13 @@ class BatchEngine:
             spans.add("unpack", t_xfer1, t_unpacked)
             spans.count("launches")
         if obs.enabled:
-            obs.observe("batch_engine_chunk_lanes", len(chunk_idx))
-            for lane in range(len(chunk_idx)):
+            obs.observe("batch_engine_chunk_lanes", m)
+            for lane in range(m):
                 obs.count(
                     "batch_engine_queries",
                     reason=exit_reason(bool(safe[lane]), bool(budg[lane])),
                 )
+        return results
 
     # ---------------------------------------------------------------- misc
     def warmup(self, widths: Sequence[int] | None = None) -> None:

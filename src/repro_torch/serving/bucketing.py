@@ -1,17 +1,21 @@
 """Shape bucketing for batched device traversal (the port's copy).
 
 The reference jit-compiles its batched traversal per static shape, so it
-snaps both axes of a batch to a small geometric ladder; the port keeps the
-same ladder, so a batch has the same lanes, padding and results here as
-there (the ``traverse`` kernel itself takes any shape):
+snaps both axes of a batch to a small geometric ladder. The port keeps the
+ladder's buckets, but the ``traverse`` kernel takes any shape, so the batch
+engine (``BatchEngine``) pads a whole micro-batch to its *widest* width
+bucket and launches it once. The sharded and in-flight paths keep the
+reference's ladder: the sharded batch engine launches each width bucket
+apart, and the in-flight table grows from bucket to bucket:
 
   * width buckets — the block-table width B (the ragged per-query axis) is
     padded up to the next power of two >= ``min_width``. Padding columns are
     ``-1`` block ids, which the scorer drops before touching memory, so a
-    padded plan is *bitwise* equivalent to the unpadded one.
-  * batch buckets — a group of same-width plans is padded up to the next
-    power of two with inert dummy lanes (``max_ranges = 0`` and
-    ``budget = 0``) whose results are discarded on unstack.
+    padded plan is *bitwise* equivalent to the unpadded one, however wide
+    the padding.
+  * batch buckets — a launch's lanes are padded up to the next power of
+    two with inert dummy lanes (``max_ranges = 0`` and ``budget = 0``)
+    whose results are discarded on unstack.
 
 Plans are held on the host (``QueryPlan``) and stacked into one host
 staging table (``stack_table``), which reaches the device in one upload
@@ -114,7 +118,8 @@ def iter_bucket_chunks(plans: Sequence[QueryPlan], spec: BucketSpec):
     """Group plan indices by width bucket, chunked to ``max_batch`` lanes.
 
     Yields ``(width_bucket, [plan indices])`` in deterministic (width, then
-    arrival) order — the shared dispatch-grouping loop of the batch engines.
+    arrival) order — the reference's dispatch grouping, which the sharded
+    batch engine keeps (``BatchEngine`` pads to the widest bucket instead).
     """
     groups: dict[int, list[int]] = {}
     for i, p in enumerate(plans):
@@ -159,12 +164,6 @@ class BatchedPlan(NamedTuple):
     order: torch.Tensor  # [N, R] int32
     ordered_bounds: torch.Tensor  # [N, R] int32
     valid: np.ndarray  # [N] bool host mask — False on dummy pad lanes
-
-
-def _pad_width(tab: np.ndarray, width: int, fill: int) -> np.ndarray:
-    if tab.shape[1] == width:
-        return tab
-    return np.pad(tab, ((0, 0), (0, width - tab.shape[1])), constant_values=fill)
 
 
 class SlotTable:
@@ -217,12 +216,12 @@ class SlotTable:
         w = plan.blk_tab_host.shape[1]
         if w > self.width:
             raise ValueError(f"plan width {w} > table width {self.width}")
-        self.blk[lane] = _pad_width(
-            np.asarray(plan.blk_tab_host, dtype=np.int32), self.width, -1
-        )
-        self.rest[lane] = _pad_width(
-            np.asarray(plan.rest_tab_host, dtype=np.int32), self.width, 0
-        )
+        # Columns past w are -1 / 0, the scorer's padding, whatever wider
+        # plan the lane held before.
+        self.blk[lane, :, :w] = plan.blk_tab_host
+        self.blk[lane, :, w:] = -1
+        self.rest[lane, :, :w] = plan.rest_tab_host
+        self.rest[lane, :, w:] = 0
         self.order[lane] = plan.order_host
         self.bounds[lane] = saturate_bounds(plan.bounds_host)
         self.budget[lane] = min(int(budget), INT32_MAX)

@@ -58,6 +58,18 @@ def ragged(queries):
     return [stripped[0][:1]] + stripped[:8] + [fat, fat[::2]]
 
 
+@pytest.fixture(scope="module")
+def mixed(index, ragged):
+    """Queries whose plans span four width buckets (32, 64, 128 and 256
+    blocks): the ragged ones and long queries of 80 and 150 distinct terms.
+    The first four hold one of each."""
+    rng = np.random.default_rng(5)
+    long = [np.unique(rng.choice(index.n_terms, nt, replace=False)).astype(np.int32)
+            for nt in (80, 150, 150, 80)]
+    return ([ragged[1], ragged[-2], long[0], long[1]] + ragged[2:6] + long[2:]
+            + ragged[6:9] + [ragged[0], ragged[-1]])
+
+
 def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -155,6 +167,73 @@ def test_stack_plans_matches_reference(index, port_idx, ragged, batch):
         bucketing.stack_plans(pplans, width, 2)
 
 
+@pytest.mark.parametrize("caps", ["uncapped", "list", "int32"])
+def test_stack_table_stages_mixed_widths_in_place(port_idx, mixed, caps):
+    """``stack_table`` stages plans of four width buckets at the widest
+    plan's width and wider: each lane holds its plan's tables then -1 / 0
+    columns, its order, its saturated bounds and its int32-clamped caps;
+    the lanes past the plans stay inert. ``write_lane`` over a lane that
+    held a wider plan leaves what a fresh lane gets. Bounds past 2^31
+    saturate with a warning, a negative bound raises."""
+    peng = range_daat.Engine(port_idx, k=10, device="cpu")
+    plans = peng.plan_many(mixed[:6])
+    n, R = len(plans), port_idx.n_ranges
+    assert len({p.blk_tab_host.shape[1] for p in plans}) == 4
+    budgets = max_ranges = None
+    if caps != "uncapped":
+        budgets = [5, INT32_MAX, 2**40, 0, 123, 7]
+        max_ranges = [0, 3, INT32_MAX, 2**33, 1, 2]
+        if caps == "int32":
+            budgets = np.clip(budgets, 0, INT32_MAX).astype(np.int32)
+            max_ranges = np.clip(max_ranges, 0, INT32_MAX).astype(np.int32)
+    widest = max(p.blk_tab_host.shape[1] for p in plans)
+    for width, batch in ((widest, n), (widest, 8), (2 * widest, 16)):
+        got = bucketing.stack_table(plans, width, batch, budgets, max_ranges)
+        assert (got.n_slots, got.n_ranges, got.width) == (batch, R, width)
+        for i, p in enumerate(plans):
+            w = p.blk_tab_host.shape[1]
+            assert np.array_equal(got.blk[i, :, :w], p.blk_tab_host), (width, i)
+            assert np.array_equal(got.rest[i, :, :w], p.rest_tab_host), (width, i)
+            assert (got.blk[i, :, w:] == -1).all() and (got.rest[i, :, w:] == 0).all()
+            assert np.array_equal(got.order[i], p.order_host)
+            assert np.array_equal(got.bounds[i], p.bounds_host)
+            for field, cap in ((got.budget, budgets), (got.maxr, max_ranges)):
+                assert field[i] == (INT32_MAX if cap is None else min(int(cap[i]), INT32_MAX))
+        assert (got.blk[n:] == -1).all() and (got.rest[n:] == 0).all()
+        assert (got.bounds[n:] == 0).all() and (got.budget[n:] == 0).all()
+        assert (got.maxr[n:] == 0).all()
+        assert got.valid.tolist() == [True] * n + [False] * (batch - n)
+        assert all(getattr(got, f).dtype == np.int32
+                   for f in ("blk", "rest", "order", "bounds", "budget", "maxr"))
+
+    # A narrow plan over the lane that held the widest one.
+    wide = int(np.argmax([p.blk_tab_host.shape[1] for p in plans]))
+    narrow = int(np.argmin([p.blk_tab_host.shape[1] for p in plans]))
+    table = bucketing.stack_table(plans, widest, 8)
+    table.write_lane(wide, plans[narrow], 9, 4)
+    fresh = bucketing.SlotTable(8, R, widest)
+    fresh.write_lane(wide, plans[narrow], 9, 4)
+    for name in ("blk", "rest", "order", "bounds", "budget", "maxr", "valid"):
+        assert np.array_equal(getattr(table, name)[wide], getattr(fresh, name)[wide]), name
+
+    huge = [dataclasses.replace(p, bounds_host=p.bounds_host.copy()) for p in plans[:3]]
+    huge[0].bounds_host[0] = 2**31 + 12_345
+    huge[2].bounds_host[-1] = 2**40
+    with pytest.warns(RuntimeWarning, match="saturating"):
+        got = bucketing.stack_table(huge, widest, 4)
+    assert got.bounds[0, 0] == got.bounds[2, -1] == INT32_MAX
+    assert np.array_equal(got.bounds[1], plans[1].bounds_host)
+
+    negative = [plans[0], dataclasses.replace(plans[1],
+                                              bounds_host=plans[1].bounds_host - 2**40)]
+    with pytest.raises(ValueError, match="negative"):
+        bucketing.stack_table(negative, widest, 2)
+    with pytest.raises(ValueError, match="table width"):
+        bucketing.stack_table(plans, widest // 2, 8)
+    with pytest.raises(ValueError, match="len\\(plans\\)"):
+        bucketing.stack_table(plans, widest, n - 1)
+
+
 def test_slot_table_and_double_buffer_match_reference(index, port_idx, ragged):
     jeng, peng = _engines(index, port_idx, "int32", "int32")
     R = index.n_ranges
@@ -215,8 +294,14 @@ def test_run_batch_matches_reference_xla(index, port_idx, ragged, impact_dtype,
     for label, kw in _budget_cases(len(ragged), seed=len(docs_format)).items():
         _assert_results_equal(pbe.run_batch(pplans, **kw), jbe.run_batch(jplans, **kw),
                               f"{impact_dtype}/{docs_format} {label}")
-    assert pbe.compiled_shapes == jbe.compiled_shapes
-    assert pbe.batches_run == jbe.batches_run
+    # One launch per input-order chunk of max_batch, padded to the chunk's
+    # widest bucket; the reference launches each width bucket apart.
+    spec, cases = pbe.spec, len(_budget_cases(len(ragged), seed=0))
+    chunks = [pplans[lo:lo + 4] for lo in range(0, len(pplans), 4)]
+    assert pbe.batches_run == cases * len(chunks) < jbe.batches_run
+    assert pbe.compiled_shapes == {
+        (spec.batch_bucket(len(c)), max(spec.width_bucket(p.blk_tab_host.shape[1])
+                                        for p in c)) for c in chunks}
 
 
 @pytest.mark.parametrize("impact_dtype,docs_format", CONFIGS)
@@ -231,6 +316,45 @@ def test_run_batch_matches_reference_pallas(index, port_idx, ragged, impact_dtyp
         _assert_results_equal(pbe.run_batch(pbe.plan_many(plans), **kw),
                               jbe.run_batch(jbe.plan_many(plans), **kw),
                               f"pallas {impact_dtype}/{docs_format} {label}")
+
+
+@pytest.mark.parametrize("n,max_batch", [(4, 4), (5, 32), (11, 16), (15, 4)])
+def test_run_batch_is_one_launch_a_micro_batch(index, port_idx, mixed, n, max_batch,
+                                               monkeypatch):
+    """Plans spanning four width buckets run as one launch per input-order
+    chunk of ``max_batch``, at (batch bucket, widest bucket of the chunk);
+    dummy lanes pad a chunk to its batch bucket (5 -> 8, 11 -> 16). Every
+    result equals looped ``Engine.traverse`` and the reference's
+    ``BatchEngine``, bitwise, under each budget kind."""
+    jeng, peng = _engines(index, port_idx, "int8", "packed")
+    pbe = batch_engine.BatchEngine(peng, bucketing.BucketSpec(max_batch=max_batch))
+    jbe = jax_batch_engine.BatchEngine(jeng, jax_bucketing.BucketSpec(max_batch=max_batch))
+    spec = pbe.spec
+    pplans, jplans = pbe.plan_many(mixed[:n]), jbe.plan_many(mixed[:n])
+    chunks = [pplans[lo:lo + max_batch] for lo in range(0, n, max_batch)]
+    assert len({spec.width_bucket(p.blk_tab_host.shape[1]) for p in chunks[0]}) == 4
+    want_shapes = [(spec.batch_bucket(len(c)), port_idx.n_ranges,
+                    max(spec.width_bucket(p.blk_tab_host.shape[1]) for p in c))
+                   for c in chunks]
+    shapes = []
+    real = batch_engine.traverse_lanes
+
+    def spy(dix, blk_tab, *args, **kw):
+        shapes.append(tuple(blk_tab.shape))
+        return real(dix, blk_tab, *args, **kw)
+
+    monkeypatch.setattr(batch_engine, "traverse_lanes", spy)
+    cases = _budget_cases(n, seed=n)
+    for label, kw in cases.items():
+        shapes.clear()
+        got = pbe.run_batch(pplans, **kw)
+        assert shapes == want_shapes, label
+        _assert_results_equal(got, jbe.run_batch(jplans, **kw), f"n={n} {label}")
+        assert_batch_matches_sequential(peng, pplans, got,
+                                        budgets=kw.get("budget_postings"),
+                                        max_ranges=kw.get("max_ranges"))
+    assert pbe.batches_run == len(cases) * len(chunks)
+    assert pbe.compiled_shapes == {(b, w) for b, _, w in want_shapes}
 
 
 @pytest.mark.parametrize("docs_format", ["int32", "packed"])

@@ -701,6 +701,84 @@ def test_cuda_batch_engine_matches_plain(cuda_device, small_index, impact_dtype,
                                          g.exit_safe, g.exit_budget), i
 
 
+# Range sizes of the benchmark's two deployments: gov2-4r's four topical
+# ranges (int8 impacts, int32 docids, k 10) and cw09b-1r-packed's one
+# shard (9-bit impacts in int32, packed docids, k 1000).
+WIDE_SHAPES = {
+    "gov2": dict(sizes=(122_362, 157_999, 88_506, 137_769), bits=8, k=10,
+                 impact_dtype="int8", docs_format="int32"),
+    "cw09b": dict(sizes=(408_296,), bits=9, k=1000, impact_dtype="int32",
+                  docs_format="packed"),
+}
+
+
+def _wide_index(shape):
+    """An index at one of ``WIDE_SHAPES``' range sizes (few postings a
+    document, so it builds in seconds) and 32 queries whose plans span
+    width buckets from 32 to the widest: 28 from the query log, and 4 led by
+    one of the collection's most frequent terms."""
+    from repro_torch.core.reorder import Arrangement
+
+    cfg = WIDE_SHAPES[shape]
+    n = sum(cfg["sizes"])
+    corpus = make_corpus(n_docs=n, n_terms=3000, n_topics=8, mean_doc_len=6,
+                         seed=len(cfg["sizes"]))
+    arr = Arrangement(np.arange(n, dtype=np.int64),
+                      np.cumsum(cfg["sizes"]).astype(np.int64), "clustered")
+    index = build_index(corpus, arrangement=arr, bits=cfg["bits"])
+    log = make_query_log(corpus, n_queries=28, seed=2)
+    queries = [log.terms[i][log.terms[i] >= 0] for i in range(log.n_queries)]
+    by_df = np.argsort(-np.bincount(corpus.doc_terms, minlength=corpus.n_terms))
+    heavy = [np.unique(np.concatenate([[by_df[j]], queries[j]])).astype(np.int32)
+             for j in (0, 2, 5, 10)]
+    return index, queries[:14] + heavy + queries[14:], cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["gov2", "cw09b"])
+def test_cuda_batch_engine_one_launch_a_micro_batch(cuda_device, shape):
+    """32 plans of mixed widths at a benchmark deployment's range sizes
+    (global-scratch accumulator) are one ``traverse`` launch a ``run_batch``,
+    at (32, the widest bucket), bitwise equal to the plain path and to
+    ``Engine.traverse`` on the card; the kernel's launches are the
+    engine's ``batches_run``."""
+    index, queries, cfg = _wide_index(shape)
+    k = cfg["k"]
+    kw = dict(k=k, device=cuda_device, impact_dtype=cfg["impact_dtype"],
+              docs_format=cfg["docs_format"])
+    kern, plain = Engine(index, **kw), Engine(index, impl="torch", **kw)
+    assert kernel.acc_placement(kern.s_pad, "traverse", k) == "global"
+    kb, pb = (BatchEngine(e, BucketSpec(max_batch=32)) for e in (kern, plain))
+    plans = kb.plan_many(queries)
+    buckets = {kb.spec.width_bucket(p.blk_tab_host.shape[1]) for p in plans}
+    assert len(plans) == 32 and len(buckets) >= 4, buckets
+    rng = np.random.default_rng(len(queries))
+    first = kb.run_batch(plans)
+    budgets = [int(rng.integers(1, max(r.postings, 1) + 1)) for r in first]
+    before = (kernel.traverse.launches, kb.batches_run)
+    for run_kw in ({}, dict(budget_postings=budgets),
+                   dict(max_ranges=rng.integers(0, index.n_ranges + 1, size=32))):
+        launched = kernel.traverse.launches
+        got = kb.run_batch(plans, **run_kw)
+        assert kernel.traverse.launches == launched + 1
+        want = pb.run_batch(plans, **run_kw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert (g.doc_ids.tolist(), g.scores.tolist()) == (
+                w.doc_ids.tolist(), w.scores.tolist()), i
+            assert g[2:] == w[2:], i
+    assert kernel.traverse.launches - before[0] == kb.batches_run - before[1] == 3
+    assert kb.compiled_shapes == {(32, max(buckets))}
+    for i in range(0, 32, 7):  # got: the max_ranges run
+        one = kern.traverse(plans[i], max_ranges=int(run_kw["max_ranges"][i]))
+        ids, vals = kern.topk_docs(one.state)
+        assert (ids.tolist(), vals.tolist(), one.ranges_processed,
+                int(one.state.postings), int(one.state.blocks), one.exit_safe,
+                one.exit_budget) == (got[i].doc_ids.tolist(), got[i].scores.tolist(),
+                                     got[i].ranges_processed, got[i].postings,
+                                     got[i].blocks, got[i].exit_safe,
+                                     got[i].exit_budget), i
+
+
 def _stack_rows(cols, pad=0):
     """[S, W] from S 1-D arrays, each row padded to the widest."""
     w = max(max(len(c) for c in cols), 1)

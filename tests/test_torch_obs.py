@@ -764,7 +764,16 @@ def test_profiler_tracks_bucket_ladder_without_recompiles(setup, monkeypatch):
     ref_snap = ref_obs.profiler.snapshot()["batch_engine"]
     assert ref_snap["recompiles"] == 0
     assert ref_snap["compiles"] == len(ref_beng.compiled_shapes)
-    assert ref_snap["shapes"] == snap["shapes"]
+    # The port launches once per input-order chunk of max_batch, at (batch
+    # bucket, the chunk's widest width bucket); the reference launches each
+    # width bucket apart.
+    spec = beng.spec
+    chunks = [c[lo:lo + 4] for c in (plans[:1], plans[:3], plans)
+              for lo in range(0, len(c), 4)]
+    assert beng.batches_run == len(chunks) <= ref_snap["dispatches"]
+    assert {tuple(s) for s in snap["shapes"]} == {
+        (spec.batch_bucket(len(c)), max(spec.width_bucket(p.blk_tab_host.shape[1])
+                                        for p in c)) for c in chunks}
 
     loads = {"n": 0}
     launch = port_batch.traverse_lanes
